@@ -1,0 +1,40 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes ``device`` and defaults to ``"cuda"``.  The CPU is
+used only when the caller asks for it; a CUDA request on a machine without
+a GPU raises instead of continuing on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def use_parity_numerics() -> None:
+    """Keep float32 matmuls and convolutions in full float32 on the card.
+
+    TF32 keeps about three decimal digits, which would break the 1e-5 / 2e-5
+    tolerances the port is held to against the JAX package.  PyTorch's
+    defaults leave cuBLAS matmuls in float32 but let cuDNN convolutions use
+    TF32, so both switches are set explicitly.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """The torch.device to run on; raises when CUDA is asked for but absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch path"
+            )
+        use_parity_numerics()
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,355 @@
+"""Analytical model of the EdgeBERT accelerator (paper §V-VI).
+
+A copy of the JAX package's ``hwmodel/edgebert_accel.py`` (pure Python), so
+that the port's DVFS controller imports nothing of ``repro``.
+
+First-order energy/latency model of the 12nm/500MHz design, calibrated to the
+paper's measured anchors (Table V breakdown at MAC vector size n=16; Fig. 10
+energy-optimal n=16; Fig. 11 eNVM power-on advantage) and driven by *measured*
+workload statistics from the JAX model (FLOPs, sparsity, spans, exit layers).
+
+The model reproduces the paper's hardware evaluation methodology:
+  * PU: n^2 8-bit FP MACs -> matmul cycles = MACs / n^2 at 500 MHz; datapath
+    power grows ~n^2 with a wiring/accumulator overhead term alpha*n that
+    makes n=32 subdue its latency gains (paper Fig. 10);
+  * zero-skip: sparsity leaves the cycle count unchanged (fixed scheduling)
+    but gates VMAC energy — up to the paper's 2.6x energy saving;
+  * adaptive span: heads with span 0 are skipped outright (predication);
+    surviving heads' score/context MACs scale with span/S;
+  * early exit: everything scales with avg_exit_layer / n_layers; the entropy
+    unit adds its (measured-negligible, 0.02-0.78%) latency;
+  * GB peripherals (softmax/LN/entropy): vector ops at `vpu_lanes`/cycle;
+  * memories: per-access energies for SRAM / ReRAM(MLC2) / LPDDR4 DRAM.
+
+All constants are module-level and documented; anchors marked [TableV]/[Fig10]
+/[Fig11] are fitted to the paper's reported numbers.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional
+
+CLOCK_HZ = 500e6
+VDD_NOM = 0.80               # 12nm nominal supply; the DVFS table (serving/
+                             # dvfs.py) scales 0.50-0.80V via the on-die LDO
+
+# ---- power (mW) anchors at n=16 [TableV] ----
+PU_DATAPATH_MW_N16 = 40.26
+GB_PERIPH_MW = 6.13
+SRAM_MW = 60.67
+RERAM_MW = 3.48
+ALPHA_WIRE = 0.06            # datapath wiring/accumulator overhead growth:
+                             # calibrated so the energy optimum lands at n=16
+                             # (paper Fig. 10: n=32's power subdues its gains)
+
+# ---- area (mm^2) anchors at n=16 [TableV] ----
+PU_AREA_N16 = 0.45
+GB_AREA = 0.41
+SRAM_AREA = 4.10
+RERAM_AREA = 0.15
+
+# ---- memory access energies (pJ/byte), 12nm-class estimates ----
+E_SRAM_PJ_B = 0.8            # large SRAM banks
+E_RERAM_READ_PJ_B = 2.0      # MLC2 ReRAM read
+E_DRAM_PJ_B = 160.0          # LPDDR4 access incl. PHY/controller
+DRAM_LATENCY_S_PER_MB = 3.2e-4   # effective streaming incl. wakeup [Fig11 ~50x]
+RERAM_LATENCY_S_PER_MB = 6.5e-6  # dense parallel read arrays
+# LPDDR4 power-cycle overhead: self-refresh exit + controller/PHY init +
+# activate energy after SoC power-on (DRAMsim3 thermally-aware run in the
+# paper) — the term that makes Fig. 11's energy gap ~4 orders of magnitude
+DRAM_POWERON_ENERGY_J = 0.25     # [Fig11 anchor ~66,000x at 1.94MB]
+
+# ---- mGPU (Jetson TX2) anchors [Fig10: ~163x energy vs n=16 optimized] ----
+MGPU_POWER_W = 7.5
+MGPU_EFF_GFLOPS = 120.0      # effective (not peak) FP16 throughput on BERT-ish
+MGPU_LATENCY_OVERHEAD_S = 2.0e-3  # kernel-launch/serial logic per sentence
+
+# ---- DVFS operating-point switching (paper §IV: the single on-die fast-
+# switching LDO + ADPLL pair; transitions are sub-us, but a SHARED clock means
+# every (V, f) change stalls all in-flight lanes, so batched arbitration must
+# charge it per change, not per sentence) ----
+LDO_STEP_V = 0.025               # LDO programmable voltage step granularity
+LDO_SETTLE_S_PER_STEP = 25e-9    # per-25mV settle (full 0.5->0.8V swing ~300ns)
+ADPLL_RELOCK_S = 0.5e-6          # ADPLL frequency retarget lock time
+SWITCH_IDLE_POWER_FRAC = 0.30    # fraction of nominal power burned while the
+                                 # datapath stalls during a transition
+
+VPU_LANES = 8                # GB vector unit effective width
+GB_CONTROL_CYCLES = 30000    # per layer-pass: bitmask encode/decode streaming,
+                             # AXI handshakes, span-register checks — n-independent
+                             # (gives the paper's ~3.5x latency per n-doubling
+                             # instead of an idealized 4x)
+
+
+@dataclass
+class WorkloadStats:
+    """Measured statistics for ONE task inference (from the JAX model)."""
+    matmul_flops: float               # dense encoder matmul FLOPs per layer-pass
+    attention_score_flops: float      # span-affected score+context FLOPs/layer
+    vector_elems: float               # softmax/LN/add elems per layer-pass
+    n_layers: int = 12
+    seq_len: int = 128
+    avg_exit_layer: float = 12.0
+    span_factor: float = 1.0          # fraction of score FLOPs retained (Table I)
+    heads_active_frac: float = 1.0    # fraction of heads with span > 0
+    weight_sparsity: float = 0.0
+    act_sparsity: float = 0.0
+    model_bytes: float = 11e6         # encoder weights resident in SRAM
+    embedding_bytes: float = 1.73e6   # paper's compact multi-task baseline
+
+
+@dataclass
+class AccelReport:
+    latency_s: float
+    energy_j: float
+    breakdown_mw: Dict[str, float]
+    area_mm2: Dict[str, float]
+    entropy_overhead_frac: float
+
+
+def pu_power_mw(n: int) -> float:
+    """Datapath power ~ n^2 * (1 + alpha*n), anchored at n=16 [TableV]."""
+    base = PU_DATAPATH_MW_N16 / (16 ** 2 * (1 + ALPHA_WIRE * 16))
+    return base * n ** 2 * (1 + ALPHA_WIRE * n)
+
+
+def pu_area_mm2(n: int) -> float:
+    return PU_AREA_N16 * (n / 16) ** 2
+
+
+def layer_cycles(stats: WorkloadStats, n: int = 16, *, use_span: bool = True) -> float:
+    """Accelerator cycles for ONE encoder layer pass (frequency-independent).
+
+    This is the quantity the DVFS controller needs: at operating frequency f
+    the per-layer latency is ``layer_cycles / f`` regardless of voltage.
+    """
+    mm_flops = stats.matmul_flops
+    score_flops = stats.attention_score_flops
+    if use_span:
+        score_flops = score_flops * stats.span_factor
+        # QKV/output projections of fully-off heads are skipped too
+        mm_flops = mm_flops * (
+            0.5 + 0.5 * stats.heads_active_frac  # ~half of encoder matmul FLOPs
+        )                                         # are attention projections
+    macs_per_layer = (mm_flops + score_flops) / 2.0
+    matmul_cycles = macs_per_layer / (n ** 2)
+    vector_cycles = stats.vector_elems / VPU_LANES
+    layer = matmul_cycles + vector_cycles + entropy_cycles(stats) + GB_CONTROL_CYCLES
+    return layer
+
+
+def scale_stats_to_seq_len(stats: WorkloadStats, seq_len: int) -> WorkloadStats:
+    """Rescale one layer's workload statistics to a different sequence length.
+
+    Per-token intensities are preserved: encoder matmul FLOPs and vector
+    elements scale linearly with tokens, attention score/context FLOPs
+    quadratically.  This is how the DVFS layer derives PER-BUCKET cycle
+    models from a single measured/analytic ``WorkloadStats`` — a 32-token
+    bucket's lanes get budgeted (deadline AND energy) at 32-token cost
+    instead of the largest bucket's.
+    """
+    assert seq_len >= 1 and stats.seq_len >= 1
+    r = seq_len / stats.seq_len
+    return replace(
+        stats,
+        matmul_flops=stats.matmul_flops * r,
+        attention_score_flops=stats.attention_score_flops * r * r,
+        vector_elems=stats.vector_elems * r,
+        seq_len=int(seq_len),
+    )
+
+
+def entropy_cycles(stats: WorkloadStats) -> float:
+    """GB-unit cycles for one off-ramp softmax+entropy evaluation (Eq. 4)."""
+    return (3 * 32 + stats.seq_len) / VPU_LANES
+
+
+def accel_power_mw(stats: WorkloadStats, n: int = 16, *, use_sparsity: bool = True) -> Dict[str, float]:
+    """Total + per-block power at the NOMINAL operating point (VDD_NOM, CLOCK_HZ)."""
+    pu_mw = pu_power_mw(n)
+    # SRAM power scales with the streaming duty cycle (reads per cycle ~ n)
+    sram_mw = SRAM_MW * (0.5 + 0.5 * n / 16)
+    if use_sparsity:
+        # zero-skip gates VMAC energy [§V-C]; bitmask-compressed weights also
+        # skip the SRAM reads of zero entries — scheduling (latency) unchanged
+        nz = (1.0 - stats.weight_sparsity) * (1.0 - 0.3 * stats.act_sparsity)
+        pu_mw_eff = pu_mw * max(nz, 1.0 / 2.6)
+        sram_mw = sram_mw * max(0.4 + 0.6 * (1.0 - stats.weight_sparsity), 1.0 / 2.6)
+    else:
+        pu_mw_eff = pu_mw
+    total_mw = pu_mw_eff + GB_PERIPH_MW + sram_mw + RERAM_MW
+    return {
+        "pu_datapath": pu_mw_eff,
+        "gb_periph": GB_PERIPH_MW,
+        "sram": sram_mw,
+        "reram": RERAM_MW,
+        "total": total_mw,
+    }
+
+
+def layer_energy_j(
+    stats: WorkloadStats,
+    n: int = 16,
+    *,
+    vdd: float = VDD_NOM,
+    use_span: bool = True,
+    use_sparsity: bool = True,
+) -> float:
+    """Energy of ONE layer pass at supply ``vdd``.
+
+    Dynamic CMOS energy per cycle scales ~VDD^2 and is frequency-independent
+    (E = P*t = [P0 * (V/V0)^2 * f/f0] * [cycles/f] = E0 * (V/V0)^2), which is
+    exactly the knob the paper's sentence-level DVFS exploits: finishing *just
+    in time* at a lower voltage is quadratically cheaper than racing to idle.
+    """
+    cyc = layer_cycles(stats, n, use_span=use_span)
+    p_nom_mw = accel_power_mw(stats, n, use_sparsity=use_sparsity)["total"]
+    return p_nom_mw * 1e-3 * (cyc / CLOCK_HZ) * (vdd / VDD_NOM) ** 2
+
+
+def simulate(
+    stats: WorkloadStats,
+    n: int = 16,
+    *,
+    use_early_exit: bool = True,
+    use_span: bool = True,
+    use_sparsity: bool = True,
+    freq_hz: float = CLOCK_HZ,
+    vdd: float = VDD_NOM,
+) -> AccelReport:
+    """Latency + energy for one sentence inference at an operating point.
+
+    ``freq_hz``/``vdd`` default to the nominal design point [TableV]; passing
+    a DVFS table entry scales latency as cycles/f and power as (V/V0)^2 * f/f0
+    (so energy scales purely as (V/V0)^2).
+    """
+    layers = stats.avg_exit_layer if use_early_exit else stats.n_layers
+
+    per_layer = layer_cycles(stats, n, use_span=use_span)
+    total_cycles = layers * per_layer
+    latency = total_cycles / freq_hz
+
+    # --- power/energy ---
+    op_scale = (vdd / VDD_NOM) ** 2 * (freq_hz / CLOCK_HZ)
+    power = accel_power_mw(stats, n, use_sparsity=use_sparsity)
+    pu_mw_eff = power["pu_datapath"] * op_scale
+    sram_mw = power["sram"] * op_scale
+    gb_mw = GB_PERIPH_MW * op_scale
+    reram_mw = RERAM_MW * op_scale
+    total_mw = power["total"] * op_scale
+    energy = total_mw * 1e-3 * latency
+
+    return AccelReport(
+        latency_s=latency,
+        energy_j=energy,
+        breakdown_mw={
+            "pu_datapath": pu_mw_eff,
+            "gb_periph": gb_mw,
+            "sram": sram_mw,
+            "reram": reram_mw,
+            "total": total_mw,
+        },
+        area_mm2={
+            "pu_datapath": pu_area_mm2(n),
+            "gb_periph": GB_AREA,
+            "sram": SRAM_AREA,
+            "reram": RERAM_AREA,
+            "total": pu_area_mm2(n) + GB_AREA + SRAM_AREA + RERAM_AREA,
+        },
+        entropy_overhead_frac=(layers * entropy_cycles(stats)) / total_cycles,
+    )
+
+
+def simulate_mgpu(stats: WorkloadStats, *, use_early_exit=True, use_span=True) -> Dict[str, float]:
+    """Jetson TX2 baseline: same workload, GPU constants; conditional/serial
+    logic (span predication, exit checks) runs on the embedded CPU — modeled
+    as per-layer overhead the accelerator does not pay [§VI-B]."""
+    layers = stats.avg_exit_layer if use_early_exit else stats.n_layers
+    score = stats.attention_score_flops * (stats.span_factor if use_span else 1.0)
+    flops = layers * (stats.matmul_flops + score)
+    latency = flops / (MGPU_EFF_GFLOPS * 1e9) + layers * MGPU_LATENCY_OVERHEAD_S / 12.0
+    energy = MGPU_POWER_W * latency
+    return {"latency_s": latency, "energy_j": energy}
+
+
+def op_switch_overhead(
+    vdd_from: float,
+    freq_from_hz: float,
+    vdd_to: float,
+    freq_to_hz: float,
+    *,
+    power_mw_nom: float,
+) -> Dict[str, float]:
+    """Latency + energy of one LDO/ADPLL operating-point transition.
+
+    The LDO walks ``|dV| / LDO_STEP_V`` 25mV steps; a frequency retarget adds
+    one ADPLL relock.  During the transition the accelerator stalls at an idle
+    power fraction of ``power_mw_nom`` (the workload's nominal total power).
+    Identical points cost zero — callers charge this ONLY on a change.
+    """
+    steps = round(abs(vdd_to - vdd_from) / LDO_STEP_V)
+    t = steps * LDO_SETTLE_S_PER_STEP
+    if freq_to_hz != freq_from_hz:
+        t += ADPLL_RELOCK_S
+    return {
+        "time_s": t,
+        "energy_j": power_mw_nom * 1e-3 * SWITCH_IDLE_POWER_FRAC * t,
+    }
+
+
+def poweron_embedding_cost(embedding_bytes: float, bitmask_bytes: float) -> Dict[str, float]:
+    """Fig. 11: read all embeddings after power-on.
+
+    EdgeBERT: embeddings pre-loaded in integrated ReRAM -> a single ReRAM read.
+    Conventional: DRAM read, SRAM write, then SRAM read (for first use).
+    """
+    total = embedding_bytes + bitmask_bytes
+    envm_latency = total / 1e6 * RERAM_LATENCY_S_PER_MB
+    envm_energy = total * E_RERAM_READ_PJ_B * 1e-12
+    conv_latency = total / 1e6 * DRAM_LATENCY_S_PER_MB
+    # DRAM read + SRAM write + SRAM read + power-cycle overhead
+    conv_energy = (
+        total * (E_DRAM_PJ_B + 2 * E_SRAM_PJ_B) * 1e-12 + DRAM_POWERON_ENERGY_J
+    )
+    return {
+        "envm_latency_s": envm_latency,
+        "envm_energy_j": envm_energy,
+        "conventional_latency_s": conv_latency,
+        "conventional_energy_j": conv_energy,
+        "latency_advantage": conv_latency / envm_latency,
+        "energy_advantage": conv_energy / envm_energy,
+    }
+
+
+def task_swap_cost(weight_bytes: float, bitmask_bytes: float) -> Dict[str, float]:
+    """Switch-in cost of one non-resident task's weight set (§III-D applied
+    to TASK weights instead of embeddings).
+
+    The multi-task deployment keeps every task's bitmask-compressed
+    encoder/classifier weights in eNVM; a bounded SRAM working set holds the
+    resident tasks.  Serving a non-resident task streams its sparse-encoded
+    footprint (values + bitmask) out of ReRAM into SRAM — a dense parallel
+    read plus an SRAM write, charged on the shared modeled clock as a swap
+    stall.  Evictions are free: task weights are read-only, so there is no
+    write-back.
+    """
+    total = weight_bytes + bitmask_bytes
+    return {
+        "latency_s": total / 1e6 * RERAM_LATENCY_S_PER_MB,
+        "energy_j": total * (E_RERAM_READ_PJ_B + E_SRAM_PJ_B) * 1e-12,
+        "bytes": total,
+    }
+
+
+def albert_layer_stats(seq_len: int = 128, d: int = 768, ff: int = 3072, heads: int = 12) -> WorkloadStats:
+    """Analytic ALBERT-base encoder layer workload (paper Fig. 8: ~1.9 GFLOP
+    for the 12-layer pass at S=128 => ~158 MFLOP/layer)."""
+    mm = 2 * seq_len * d * (3 * d) + 2 * seq_len * d * d + 2 * seq_len * d * ff * 2
+    score = 2 * 2 * seq_len * seq_len * d
+    vec = seq_len * (2 * d + heads * seq_len + 4 * d)
+    return WorkloadStats(
+        matmul_flops=float(mm),
+        attention_score_flops=float(score),
+        vector_elems=float(vec),
+        seq_len=seq_len,
+    )

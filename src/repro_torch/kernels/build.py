@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into its own
+shared library with a plain C interface and loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  Libraries go to
+``build/repro_torch_kernels/`` at the repository root, named by a hash of
+the source, the shared header and the flags, so an edited source is rebuilt
+and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per missing
+source, all at once, and waits for every one of them.
+
+Nothing is built or loaded at import: the first launch on a CUDA tensor
+builds what it needs.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("layernorm", "softmax_entropy", "af_matmul", "span_attention")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# ctypes argument kinds for the launchers' signatures
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+_LIBS: Dict[str, ctypes.CDLL] = {}   # loaded libraries, by kernel name
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu", *HEADERS):
+        h.update((CSRC / f).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def log_path(name: str) -> Path:
+    """nvcc's output for the library (``-Xptxas -v``: registers, spills)."""
+    return lib_path(name).with_suffix(".log")
+
+
+def build(names: Iterable[str] = KERNELS) -> float:
+    """Compile every library in ``names`` that is not built yet; returns the
+    wall seconds.  Raises with nvcc's output if any compile fails."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List[tuple] = []
+    try:
+        for name in todo:
+            tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+            with open(log_path(name), "w") as log:
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                procs.append((name, tmp, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        failed = []
+        for name, tmp, proc in procs:
+            if proc.wait() != 0:
+                failed.append(name)
+            else:
+                os.replace(tmp, lib_path(name))
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        logs = "\n".join(f"--- {n}\n{log_path(n).read_text()[-4000:]}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library for kernel ``name`` (built on first use), with the
+    argument types of its launchers set; every launcher returns an int
+    CUDA error code."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error (cudaGetLastError after the
+    launch, or a failed set-up call before it)."""
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as a pointer int."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(what: str, *tensors: torch.Tensor, dtype=torch.float32) -> None:
+    """Validate what the kernel takes: CUDA, one device, contiguous, dtype."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: all inputs must be on one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")

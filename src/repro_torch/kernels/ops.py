@@ -1,0 +1,111 @@
+"""The deployed path's entry points to the kernels (the port of
+``repro/kernels/ops.py`` for the four kernels on that path).
+
+Each op takes tensors in the layout the deployed model holds, reshapes them
+for its kernel and routes by device like the kernels do: CPU tensors run the
+plain versions, CUDA tensors launch the kernels.  ``span_attention_op``
+keeps the deploy fast path of the JAX package: span-0 heads are gathered
+out on the host, the survivors run with ``window`` = their largest span,
+and dead heads get zero context vectors.  (The JAX package's traced-spans
+branch exists only for ``jit`` and has no counterpart here.)
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.adaptive_span import active_head_indices
+from repro_torch.core.adaptivfloat import AFFormat
+from repro_torch.kernels import adaptivfloat_k, layernorm, softmax_entropy, span_attention
+
+KERNEL_WRAPPERS = (
+    layernorm.layernorm,
+    softmax_entropy.softmax_entropy,
+    adaptivfloat_k.af_matmul,
+    span_attention.span_attention,
+)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel name."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def layernorm_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6):
+    shape = x.shape
+    out = layernorm.layernorm(x.reshape(-1, shape[-1]).contiguous(), gamma, beta, eps=eps)
+    return out.reshape(shape)
+
+
+def softmax_entropy_op(
+    logits: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused softmax + entropy over the last axis.
+
+    The mask only zeroes probs (no renormalisation), and the entropy is that
+    of the full softmax distribution; ``mask=None`` means no padding, the
+    off-ramp case.
+    """
+    shape = logits.shape
+    x2 = logits.reshape(-1, shape[-1]).contiguous()
+    if mask is not None:
+        if mask.shape != shape:
+            raise ValueError(f"mask shape {tuple(mask.shape)} must match logits shape {tuple(shape)}")
+        mask = mask.reshape(-1, shape[-1]).contiguous()
+    p, h = softmax_entropy.softmax_entropy(x2, mask)
+    return p.reshape(shape), h.reshape(shape[:-1])
+
+
+def af_matmul_op(x: torch.Tensor, w_codes: torch.Tensor, e_min: int, n_bits: int = 8, n_exp: int = 3):
+    return adaptivfloat_k.af_matmul(x, w_codes, e_min, fmt=AFFormat(n_bits, n_exp))
+
+
+def span_attention_op(
+    q: torch.Tensor,           # [B, S, H, dh]
+    k: torch.Tensor,           # [B, S, KV, dh]
+    v: torch.Tensor,           # [B, S, KV, dh]
+    spans: Sequence[int],      # per-head integer spans (len H; 0 = off), host-side
+    *,
+    causal: bool,
+) -> torch.Tensor:
+    """EdgeBERT deployed attention: dead heads skipped, survivors windowed.
+
+    Returns [B, S, H, dh] with zero context vectors for span-0 heads (the
+    accelerator writes zeros to the UAB for those heads, §V-D1).
+    """
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    spans_np = np.asarray(spans, np.int32)
+    active, window = active_head_indices(spans_np)
+    if len(active) == 0:
+        return torch.zeros_like(q)
+
+    # gather the active heads as [B, Ha, S, dh]; row bh = b * Ha + h
+    act = torch.as_tensor(active, device=q.device)
+    kv_idx = torch.as_tensor(active // G, device=q.device)
+    qh = q.permute(0, 2, 1, 3).index_select(1, act)
+    kh = k.permute(0, 2, 1, 3).index_select(1, kv_idx)
+    vh = v.permute(0, 2, 1, 3).index_select(1, kv_idx)
+    Ha = len(active)
+    sp = torch.as_tensor(np.tile(spans_np[active], B), dtype=torch.int32, device=q.device)
+
+    out = span_attention.span_attention(
+        qh.reshape(B * Ha, Sq, dh).contiguous(),
+        kh.reshape(B * Ha, -1, dh).contiguous(),
+        vh.reshape(B * Ha, -1, dh).contiguous(),
+        sp,
+        int(window),
+        causal=causal,
+    ).reshape(B, Ha, Sq, dh)
+
+    full = torch.zeros((B, H, Sq, dh), dtype=q.dtype, device=q.device)
+    full.index_copy_(1, act, out)
+    return full.permute(0, 2, 1, 3)

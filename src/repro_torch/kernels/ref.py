@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the four kernels on the deployed path.
+
+These repeat the JAX package's oracles (``repro/kernels/ref.py``) op for op.
+Each kernel wrapper takes its plain version for a CPU tensor; on the card
+``chip_smoke.py`` and the CUDA tests hold each kernel against these.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.adaptivfloat import AFFormat, af_decode
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6):
+    """Row LayerNorm, variance as E[X^2]-E[X]^2 (paper Eq. 5), fp32 math."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+def softmax_entropy(
+    logits: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row softmax (mask multiplied into the probs, not renormalised) and the
+    entropy of the unmasked distribution, clamped at 0."""
+    x = logits.float()
+    m = x.amax(dim=-1, keepdim=True)
+    z = x - m
+    e = torch.exp(z)
+    s = e.sum(dim=-1, keepdim=True)
+    probs = e / s
+    ent = torch.log(s[..., 0]) - (z * e).sum(dim=-1) / s[..., 0]
+    if mask is not None:
+        probs = probs * mask.float()
+    return probs.to(logits.dtype), ent.clamp_min(0.0)
+
+
+def af_matmul(
+    x: torch.Tensor,          # [M, K] float
+    w_codes: torch.Tensor,    # [K, N] uint8 AF codes
+    e_min: int,
+    fmt: AFFormat = AFFormat(),
+) -> torch.Tensor:
+    """x @ decode(codes): fp32 accumulate, fp32 out."""
+    w = af_decode(w_codes, e_min, fmt, dtype=torch.float32)
+    return x.float() @ w
+
+
+def span_attention(
+    q: torch.Tensor,          # [B, H, Sq, dh]
+    k: torch.Tensor,          # [B, KV, Sk, dh]
+    v: torch.Tensor,          # [B, KV, Sk, dh]
+    spans: torch.Tensor,      # [H] int; 0 = head fully off
+    *,
+    causal: bool,
+    kv_lens: Optional[torch.Tensor] = None,   # [B, H] (or broadcastable)
+                                              # valid keys per row
+) -> torch.Tensor:
+    """Hard-span attention: key j is visible to query i when
+    ``0 <= i-j < span`` (causal) or ``|i-j| < span`` (bidirectional), and
+    ``j < kv_len``.  A row with no visible key returns zeros."""
+    B, H, Sq, dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(dh)
+    kk = k.repeat_interleave(G, dim=1).float()
+    vv = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, kk)
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    d = qi - kj
+    if not causal:
+        d = d.abs()
+    sp = spans.to(q.device).long()[:, None, None]
+    ok = d[None] < sp
+    if causal:
+        ok = ok & (d[None] >= 0)
+    ok = ok[None]                                             # [1, H, Sq, Sk]
+    if kv_lens is not None:
+        kvl = torch.as_tensor(kv_lens, device=q.device).long()
+        ok = ok & (kj[None, None] < kvl.reshape(-1, H)[..., None, None])
+    s = torch.where(ok, s, float("-inf"))
+    row_any = ok.any(dim=-1)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp_min(1e-20), vv)
+    o = torch.where(row_any[..., None], o, torch.zeros_like(o))
+    return o.to(q.dtype)

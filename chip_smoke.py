@@ -5,16 +5,23 @@
 
 Phases, each printing one JSON line:
   1. device   — the card, as nvidia-smi reports its name and power limit;
-  2. build    — compile every CUDA kernel of the deployed path (one nvcc per
-                source, all at once) and report nvcc's register/spill lines;
-  3. kernel   — each kernel against its plain PyTorch version at the main
-                path's shapes, with a stated tolerance, and its time beside
-                the plain version's, one PyTorch library call's and its bound;
-  4. reference — the deployed model on the card against the same model on
-                the CPU (plain versions), at smoke size and at full width;
-  5. main     — full-width albert_edgebert: init_params -> deploy_albert
-                (MLC2 eNVM) -> classify -> classify_with_dvfs on 16 seeded
-                sentences of 128 tokens, with every kernel's launch count.
+  2. build    — compile all six CUDA kernels (one nvcc per source, all at
+                once) and report nvcc's register/spill lines;
+  3. kernel   — each kernel against its plain PyTorch version at its paths'
+                shapes, with a stated tolerance, and its time beside the
+                plain version's, one PyTorch library call's and its bound;
+  4. reference — the deployed model, and the classifier serving drain, on
+                the card against the same on the CPU (plain versions), at
+                smoke size and at full width;
+  5. main     — the deployed path at full width (albert_edgebert):
+                init_params -> deploy_albert (MLC2 eNVM) -> classify ->
+                classify_with_dvfs with a shared-clock arbiter, on 16 seeded
+                sentences of 128 tokens, with its kernels' launch counts;
+  6. serving  — the serving path at full width (span disabled, MLP weights
+                block-pruned at 32x32 tiles): ClassifierServer with a
+                BatchedDVFSArbiter serving 32 seeded requests of 8-128
+                tokens over buckets (32, 64, 128), with its kernels' launch
+                counts, drain times and the device time by kernel.
 Then the `{"kernels": [...]}` summary, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
@@ -36,6 +43,8 @@ OUT = ROOT / "build" / "chip_smoke.json"
 # and the fp32 rate outside the tensor cores, where these kernels compute.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# the serving path's length buckets (8 lanes each)
+BUCKETS = (32, 64, 128)
 
 RECORD: list = []
 
@@ -78,14 +87,28 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(dep, cfg, dev) -> list:
+def binade_edges(n_per_side: int = 64, k_range=(-20, 20)):
+    """Every float32 within ``n_per_side`` ulp of 2**k, both signs, one row
+    group of 32-wide rows per k: [groups * rows, 32] and rows per group."""
+    import numpy as np
+
+    groups = []
+    for k in range(k_range[0], k_range[1] + 1):
+        c = np.float32(2.0 ** k).view(np.int32)
+        v = np.arange(c - n_per_side, c + n_per_side + 1, dtype=np.int32).view(np.float32)
+        v = np.concatenate([v, -v])
+        groups.append(np.concatenate([v, np.zeros((-len(v)) % 32, np.float32)]).reshape(-1, 32))
+    return np.concatenate(groups), groups[0].shape[0]
+
+
+def check_kernels(dep, cfg, sparams, dev) -> list:
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.core.adaptivfloat import af_decode
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.adaptivfloat_k import af_matmul
+    from repro_torch.kernels import block_sparse, dispatch, ref
+    from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
     from repro_torch.kernels.layernorm import layernorm
     from repro_torch.kernels.softmax_entropy import softmax_entropy
     from repro_torch.kernels.span_attention import span_attention
@@ -96,15 +119,19 @@ def check_kernels(dep, cfg, dev) -> list:
     rows = []
 
     def row(name, source, replaces, shape, err, tol, ok, ms, plain_ms, n_bytes, flops, library_ms,
-            **detail):
+            summary=True, **detail):
+        """Emit and check one kernel row; ``summary`` rows (one per kernel)
+        go to the kernels line, the others check further shapes."""
         b_ms, b_by = bound_ms(n_bytes, flops)
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "shape": shape, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-        emit({"phase": "kernel", **r, **detail})
+        emit({"phase": "kernel", **r, **({} if summary else {"row": f"{name}@serving"}), **detail})
         if not ok:
-            raise AssertionError(f"{name}: kernel and plain version disagree beyond {tol} (max abs error {err})")
-        rows.append(r)
+            raise AssertionError(f"{name} ({shape}): kernel and plain version disagree beyond {tol} "
+                                 f"(max abs error {err})")
+        if summary:
+            rows.append(r)
 
     # layernorm [2048, 768]
     x = torch.randn(M, d, generator=g, device=dev) * 3.0
@@ -116,6 +143,15 @@ def check_kernels(dep, cfg, dev) -> list:
         time_ms(lambda: layernorm(x, gam, bet)), time_ms(lambda: ref.layernorm(x, gam, bet)),
         (2 * M * d + 2 * d) * 4, 8 * M * d,
         time_ms(lambda: F.layer_norm(x, (d,), gam, bet, eps=1e-6)))
+    # ... and at the serving step's [8 lanes x S, 768] for each bucket S
+    for S_b in BUCKETS:
+        xs_ = torch.randn(8 * S_b, d, generator=g, device=dev) * 3.0
+        err = (layernorm(xs_, gam, bet) - ref.layernorm(xs_, gam, bet)).abs().max().item()
+        row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
+            f"[{8 * S_b}, {d}] fp32", err, "atol 1e-5", err <= 1e-5,
+            time_ms(lambda: layernorm(xs_, gam, bet)), time_ms(lambda: ref.layernorm(xs_, gam, bet)),
+            (2 * 8 * S_b * d + 2 * d) * 4, 8 * 8 * S_b * d,
+            time_ms(lambda: F.layer_norm(xs_, (d,), gam, bet, eps=1e-6)), summary=False)
 
     # softmax_entropy [16, 3]
     C = cfg.edgebert.early_exit.num_classes
@@ -127,6 +163,15 @@ def check_kernels(dep, cfg, dev) -> list:
         "src/repro/kernels/softmax_entropy.py:17", f"[{B}, {C}] fp32", err, "atol 1e-6", err <= 1e-6,
         time_ms(lambda: softmax_entropy(lg)), time_ms(lambda: ref.softmax_entropy(lg)),
         (2 * B * C + B) * 4, 10 * B * C, None)
+    # ... and at the serving step's [8 lanes, 3]
+    lg8 = torch.randn(8, C, generator=g, device=dev) * 2.0
+    p, h = softmax_entropy(lg8)
+    rp, rh = ref.softmax_entropy(lg8)
+    err = max((p - rp).abs().max().item(), (h - rh).abs().max().item())
+    row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
+        "src/repro/kernels/softmax_entropy.py:17", f"[8, {C}] fp32", err, "atol 1e-6", err <= 1e-6,
+        time_ms(lambda: softmax_entropy(lg8)), time_ms(lambda: ref.softmax_entropy(lg8)),
+        (2 * 8 * C + 8) * 4, 10 * 8 * C, None, summary=False)
 
     # af_matmul: one encoder layer's six matmuls at M = 2048, on the deployed codes
     ms = plain = lib = n_bytes = flops = err = 0.0
@@ -176,6 +221,96 @@ def check_kernels(dep, cfg, dev) -> list:
         time_ms(lambda: ref.span_attention(q[None], k[None], v[None], spans, causal=False)),
         4 * BH * S * hd * 4 + BH * 4, 4.0 * hd * pairs,
         time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
+
+    # span_attention on the serving route: window = S, every span S, per-row
+    # kv_lens (one length per lane, 12 heads each), BH = 8 lanes x 12 heads
+    for Sb in BUCKETS[::-1]:
+        lanes = 8
+        BHs = lanes * H
+        qs, ks, vs = (torch.randn(BHs, Sb, hd, generator=g, device=dev) for _ in range(3))
+        lens_np = np.repeat(np.random.default_rng(Sb).integers(1, Sb + 1, lanes), H).astype(np.int32)
+        lens = torch.as_tensor(lens_np, device=dev)
+        full = torch.full((BHs,), Sb, dtype=torch.int32, device=dev)
+        want = span_attention(qs.cpu(), ks.cpu(), vs.cpu(), full.cpu(), Sb, causal=False,
+                              kv_lens=lens.cpu())
+        got = span_attention(qs, ks, vs, full, Sb, causal=False, kv_lens=lens)
+        err = (got.cpu() - want).abs().max().item()
+        kmask = torch.as_tensor(np.arange(Sb)[None, None, :] < lens_np[:, None, None], device=dev)
+        r = {"name": "span_attention", "route": "cuda", "source": "src/repro_torch/csrc/span_attention.cu",
+             "replaces": "src/repro/kernels/span_attention.py:32",
+             "shape": f"serving: BH={BHs}, S={Sb}, dh={hd}, window={Sb}, kv_lens in [1, {Sb}]",
+             "max_abs_err": err, "tolerance": "atol 2e-5",
+             "ms": time_ms(lambda: span_attention(qs, ks, vs, full, Sb, causal=False, kv_lens=lens)),
+             "plain_ms": time_ms(lambda: ref.span_attention(qs[None], ks[None], vs[None], full,
+                                                            causal=False, kv_lens=lens[None])),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=kmask))}
+        r["bound_ms"], r["bound_by"] = bound_ms(4 * BHs * Sb * hd * 4 + 2 * BHs * 4,
+                                                4.0 * hd * Sb * int(lens_np.sum()))
+        emit({"phase": "kernel", "row": "span_attention@serving", **r})
+        if not err <= 2e-5:
+            raise AssertionError(f"span_attention (kv_lens, S={Sb}): max abs error {err} beyond 2e-5")
+
+    # af_quantize: the serving step's [8 lanes x S, 768] activations at each
+    # bucket S, one bias per lane; at S = 128 also every float32 within 64
+    # ulp of 2**k, k in [-20, 20]; atol 0 against the plain version run on
+    # the CPU.  The summary row is S = 128, the others are extra rows.
+    lanes = 8
+    edges, rpg = binade_edges()
+    xe = torch.from_numpy(edges)
+    e_edges = group_exp_bias(xe, rpg)
+    for S_b in BUCKETS[::-1]:
+        xa = torch.randn(lanes * S_b, d, generator=g, device=dev) * 2.0
+        xa[3 * S_b:4 * S_b] *= 1e-3
+        xa[6 * S_b - S_b // 4:6 * S_b] *= 50.0
+        e_min = group_exp_bias(xa, S_b)
+        err = (quantize(xa, e_min, S_b).cpu() - ref.quantize(xa.cpu(), e_min.cpu(), S_b)).abs().max().item()
+        shape = f"[{lanes * S_b}, {d}] fp32, {lanes} row groups of {S_b}"
+        if S_b == BUCKETS[-1]:
+            err = max(err, (quantize(xe.to(dev), e_edges.to(dev), rpg).cpu()
+                            - ref.quantize(xe, e_edges, rpg)).abs().max().item())
+            shape += f"; + {edges.shape[0]}x32 binade edges"
+        n = xa.numel()
+        row("af_quantize", "src/repro_torch/csrc/af_quantize.cu", "src/repro/kernels/adaptivfloat_k.py:41",
+            shape, err, "atol 0 (against the CPU plain version)", err == 0.0,
+            time_ms(lambda: quantize(xa, e_min, S_b)), time_ms(lambda: ref.quantize(xa, e_min, S_b)),
+            2 * n * 4 + lanes * 4, 20.0 * n, None, summary=S_b == BUCKETS[-1])
+
+    # block_sparse_matmul: the pruned MLP weights at M = 8 lanes x S for
+    # each bucket S (the summary row is M = 1024)
+    masks = dispatch.mlp_block_masks({k: v.to(dev) for k, v in sparams["layer"]["mlp"].items()})
+    for S_b in BUCKETS[::-1]:
+        Mb = lanes * S_b
+        ms = plain = lib = n_bytes = flops = err = 0.0
+        ok = True
+        per_shape = {}
+        shapes = []
+        for name in ("w_up", "w_down"):
+            w = sparams["layer"]["mlp"][name].to(dev).float().contiguous()
+            m = masks[name]
+            if m is None:
+                raise AssertionError(f"{name} is not block-pruned")
+            K, N = w.shape
+            xk = torch.randn(Mb, K, generator=g, device=dev)
+            want = ref.block_sparse_matmul(xk, w, m.mask, m.bk, m.bn)
+            got = block_sparse.block_sparse_matmul(xk, w, m)
+            err = max(err, (got - want).abs().max().item())
+            ok = ok and torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+            t = (time_ms(lambda: block_sparse.block_sparse_matmul(xk, w, m), iters=20),
+                 time_ms(lambda: ref.block_sparse_matmul(xk, w, m.mask, m.bk, m.bn), iters=20),
+                 time_ms(lambda: torch.matmul(xk, w), iters=20))
+            tiles = m.occupied
+            nb = Mb * K * 4 + tiles * m.bk * m.bn * 4 + m.indices.numel() * 4 + Mb * N * 4
+            nf = 2.0 * Mb * tiles * m.bk * m.bn
+            per_shape[name] = {"K": K, "N": N, "occupied_tiles": tiles, "tiles": int(m.mask.size),
+                               "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                               "bound_ms": bound_ms(nb, nf)[0]}
+            ms, plain, lib = ms + t[0], plain + t[1], lib + t[2]
+            n_bytes, flops = n_bytes + nb, flops + nf
+            shapes.append(f"{K}x{N} ({tiles}/{m.mask.size} tiles)")
+        row("block_sparse_matmul", "src/repro_torch/csrc/block_sparse.cu", "src/repro/kernels/block_sparse.py:42",
+            f"M={Mb}: {' + '.join(shapes)} at 32x32 tiles (times and bound summed; bound on occupied tiles)",
+            err, "rtol 1e-5 + atol 1e-5", ok, ms, plain, n_bytes, flops, lib,
+            summary=S_b == BUCKETS[-1], per_shape=per_shape)
     return rows
 
 
@@ -228,26 +363,251 @@ def check_reference(dep_full, params_full, cfg_full, dev) -> None:
             raise AssertionError(f"card and CPU disagree on the {name} config")
 
 
+def serving_config(cfg, span: bool):
+    """The serving configuration: float32 params, as the JAX package's
+    serving tests and launch/serve.py use them, span on or off."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, dtype="float32").with_edgebert(
+        span=dataclasses.replace(cfg.edgebert.span, enabled=span))
+
+
+def serving_params(cfg, seed: int, prune: bool):
+    """Random params from ``seed`` on the CPU; with ``prune`` the shared
+    layer's w_up/w_down are magnitude-pruned in one shot at the config's
+    encoder sparsity in 32x32 tiles (configs/base.py PruneConfig), the mask
+    applied to the weights."""
+    import torch
+
+    from repro_torch.core.pruning import magnitude_mask
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    if prune:
+        mlp = params["layer"]["mlp"]
+        for name in ("w_up", "w_down"):
+            mlp[name] = mlp[name] * magnitude_mask(mlp[name], cfg.edgebert.prune.encoder_sparsity,
+                                                   block_size=32)
+    return params
+
+
+def serving_requests(cfg, n: int, max_len: int, seed: int = 0):
+    """``n`` SyntheticCLS sentences (seed ``seed``), each cut to a length
+    drawn from [8, max_len] with numpy.random.default_rng(seed)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticCLS
+
+    toks = SyntheticCLS(cfg.vocab_size, max_len, n, num_classes=cfg.edgebert.early_exit.num_classes,
+                        seed=seed).batch(0)["tokens"]
+    lens = np.random.default_rng(seed).integers(8, max_len + 1, n)
+    return [toks[i][: int(lens[i])] for i in range(n)]
+
+
+def make_server(cfg, params, dev, *, buckets, lanes=8, threshold=None, **kw):
+    """A ClassifierServer on ``dev`` (its set-up: params moved to the
+    device, block masks and their CSR index built from the weights)."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ClassifierServer
+
+    if threshold is not None:
+        cfg = cfg.with_edgebert(early_exit=dataclasses.replace(cfg.edgebert.early_exit,
+                                                               entropy_threshold=threshold))
+    return ClassifierServer(build_model(cfg), params, batch_lanes=lanes, buckets=buckets,
+                            device=dev, **kw)
+
+
+def serve(srv, requests):
+    """Submit ``requests`` and drain them; returns the server."""
+    from repro_torch.serving.engine import Request
+
+    for i, t in enumerate(requests):
+        srv.submit(Request(uid=i, tokens=t))
+    srv.run()
+    return srv
+
+
+def drain(cfg, params, requests, dev, **kw):
+    """One ClassifierServer drain of ``requests``; returns the server."""
+    return serve(make_server(cfg, params, dev, **kw), requests)
+
+
+def gap_threshold(entropies, min_gap=1e-3):
+    """Midpoint of the gap nearest the median of the observed entropies that
+    is wider than 2 * min_gap: no entropy lies within min_gap of it, so
+    float32 noise between the card and the CPU cannot flip an exit."""
+    import numpy as np
+
+    e = np.unique(np.asarray(entropies, np.float64))
+    mids = [(a + b) / 2 for a, b in zip(e, e[1:]) if b - a > 2 * min_gap]
+    if not mids:
+        raise AssertionError("no gap of 2e-3 between observed entropies")
+    return float(min(mids, key=lambda m: abs(m - np.median(e))))
+
+
+PRE_QUANT_ATOL = 1e-5
+
+
+def af_next_step(lo, e_lo, fmt):
+    """Distance from each AF grid value ``lo`` >= 0 to the next one up, on
+    the grid of bias ``e_lo`` (broadcast): from 0 the smallest normal
+    value, else one quantum of ``lo``'s binade (ref.quantize's grid)."""
+    import torch
+
+    from repro_torch.core.adaptivfloat import exact_pow2
+
+    e = (torch.frexp(lo)[1] - 1).float()
+    e = torch.minimum(torch.maximum(e, e_lo), e_lo + (fmt.n_levels_exp - 1))
+    min_pos = exact_pow2(e_lo) * (1.0 + 2.0 ** -fmt.n_mant)
+    return torch.where(lo == 0, min_pos, exact_pow2(e - fmt.n_mant))
+
+
+def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
+    """Layer by layer on the CPU's state (teacher forcing): the serving
+    layer step before activation quantization on the card and on the CPU,
+    at one ``bucket``, then the per-lane AF quantization of each.  The two
+    pre-quantization tensors must agree within PRE_QUANT_ATOL and give
+    every lane the same bias.  A quantized element that differs is a flip:
+    it must be one step between neighbouring grid points whose midpoint
+    lies within the pre-quantization difference of the CPU's value, so the
+    two values straddle an AF rounding boundary.  Every other element must
+    be equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.core.adaptivfloat import AFFormat
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.adaptivfloat_k import group_exp_bias
+    from repro_torch.models.model import build_model
+
+    q = cfg.edgebert.quant
+    fmt = AFFormat(q.n_bits, q.n_exp)
+    model = build_model(cfg.with_edgebert(quant=dataclasses.replace(q, quantize_activations=False)))
+    lanes, D = len(requests), cfg.d_model
+    toks = np.zeros((lanes, bucket), np.int64)
+    lens = np.array([len(t) for t in requests], np.int32)
+    for i, t in enumerate(requests):
+        toks[i, : len(t)] = t
+    valid = torch.as_tensor(np.arange(bucket)[None, :] < lens[:, None])       # [lanes, S]
+    sides = {}
+    for d in ("cpu", dev):
+        p = tree_to(params, torch.device(d))
+        sides[str(d)] = (p, dispatch.mlp_block_masks(p["layer"]["mlp"]), torch.as_tensor(lens).to(d))
+    h = model.embed(sides["cpu"][0], torch.as_tensor(toks)).float()
+    per_layer = []
+    for layer in range(cfg.n_layers):
+        outs = {}
+        for d, (p, masks, kv) in sides.items():
+            with torch.no_grad():
+                pre = model._dense_layer_step(p["layer"], h.to(d), causal=False, kv_len=kv,
+                                              use_kernels=True, block_masks=masks, per_lane=True)
+                outs[d] = (pre.cpu(), dispatch.act_quantize(pre, q.n_bits, q.n_exp, groups=lanes).cpu())
+        (pre_c, q_c), (pre_g, q_g) = outs["cpu"], outs[str(dev)]
+        e_c = group_exp_bias(pre_c.reshape(-1, D), bucket, fmt)
+        e_g = group_exp_bias(pre_g.reshape(-1, D), bucket, fmt)
+        pre_err = (pre_g - pre_c).abs()
+        flip = (q_g != q_c) & valid[..., None]
+        lo = torch.minimum(q_g.abs(), q_c.abs())
+        step = af_next_step(lo, e_c.float()[:, None, None], fmt)
+        one_step = ((q_g * q_c >= 0) & (lo + step == torch.maximum(q_g.abs(), q_c.abs()))) | ~flip
+        mid = (q_g + q_c) / 2
+        at_boundary = ((pre_c - mid).abs() <= pre_err + 1e-7 * pre_c.abs()) | ~flip
+        r = {"layer": layer + 1, "flips": int(flip.sum()), "elements": int(valid.sum()) * D,
+             "pre_quant_max_abs_err": float(pre_err[valid].max()),
+             "flip_max_abs": float((q_g - q_c)[flip].abs().max()) if flip.any() else 0.0,
+             "biases_equal": bool(torch.equal(e_c, e_g)),
+             "all_one_step": bool(one_step.all()), "all_at_boundary": bool(at_boundary.all())}
+        per_layer.append(r)
+        if not (r["pre_quant_max_abs_err"] <= PRE_QUANT_ATOL and r["biases_equal"]):
+            raise AssertionError(f"bucket {bucket}, layer {layer + 1}: the layer step before "
+                                 f"quantization differs beyond {PRE_QUANT_ATOL} or moves a lane's bias: {r}")
+        if not (r["all_one_step"] and r["all_at_boundary"]):
+            raise AssertionError(f"bucket {bucket}, layer {layer + 1}: a quantized element differs "
+                                 f"by more than one grid step or away from an AF boundary: {r}")
+        h = q_c
+    return {"bucket": bucket, "flips": sum(r["flips"] for r in per_layer),
+            "elements": sum(r["elements"] for r in per_layer),
+            "pre_quant_max_abs_err": max(r["pre_quant_max_abs_err"] for r in per_layer),
+            "pre_quant_atol": PRE_QUANT_ATOL,
+            "flip_max_abs": max(r["flip_max_abs"] for r in per_layer), "per_layer": per_layer}
+
+
+def check_serving_reference(cfg_full, sparams_full, dev) -> None:
+    """The classifier serving drain on the card (kernel route) against the
+    same drain on the CPU (plain versions): exits equal, logits within 1e-4
+    at smoke size (span on: the soft-span reference attention; span off
+    with a block-pruned MLP: the kernels).  At full width, activation
+    quantization flips a few elements per layer where the two sides' float32
+    sums straddle an AF rounding boundary (``quant_flips``, at each bucket,
+    holds the layer step before quantization to PRE_QUANT_ATOL and checks
+    that every difference is a one-step flip at a boundary), and twelve
+    layers carry the flips to the logits: 5e-2 there (PERF.md records the
+    flips and the logit error they cause)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_smoke_config
+
+    smoke = get_smoke_config("albert_edgebert")
+    cases = []
+    for span in (True, False):
+        scfg = serving_config(smoke, span)
+        cases.append((f"smoke_span_{'on' if span else 'off_pruned'}", scfg,
+                      serving_params(scfg, 3, prune=not span),
+                      serving_requests(scfg, 12, 32, seed=1), (16, 32), 4, 1e-4, True))
+    # full width: a short drain at full depth (threshold 0)
+    cases.append(("full_span_off_pruned", cfg_full, sparams_full,
+                  serving_requests(cfg_full, 8, 128, seed=2), BUCKETS, 8, 5e-2, False))
+    for name, cfg, params, reqs, buckets, lanes, tol, pick in cases:
+        thr = 0.0
+        if pick:
+            prof = drain(cfg, params, reqs, "cpu", buckets=buckets, lanes=lanes, threshold=0.0)
+            thr = gap_threshold(np.concatenate([prof.done[i].entropy_trace for i in range(len(reqs))]))
+        on_card = drain(cfg, params, reqs, dev, buckets=buckets, lanes=lanes, threshold=thr)
+        on_cpu = drain(cfg, params, reqs, "cpu", buckets=buckets, lanes=lanes, threshold=thr)
+        n = len(reqs)
+        exits_card = [on_card.done[i].exit_layer for i in range(n)]
+        exits_cpu = [on_cpu.done[i].exit_layer for i in range(n)]
+        err = max(float(np.abs(on_card.done[i].result - on_cpu.done[i].result).max()) for i in range(n))
+        trace_err = max(float(np.abs(np.subtract(on_card.done[i].entropy_trace,
+                                                 on_cpu.done[i].entropy_trace)).max())
+                        if len(on_card.done[i].entropy_trace) == len(on_cpu.done[i].entropy_trace)
+                        else float("inf") for i in range(n))
+        flips = ([quant_flips(cfg, params, [t[:S] for t in reqs], dev, S) for S in buckets]
+                 if name.startswith("full") else None)
+        emit({"phase": "reference", "config": f"serving_{name}", "requests": n,
+              "buckets": list(buckets), "threshold": thr, "exit_layers": exits_card,
+              "logits_max_abs_err": err, "trace_max_abs_err": trace_err, "tolerance": tol,
+              "quant_flips": flips})
+        if not (exits_card == exits_cpu and err <= tol and trace_err <= tol):
+            raise AssertionError(f"card and CPU serving drains disagree on {name}")
+
+
 KERNEL_SYMBOLS = {
     "af_matmul_kernel": "af_matmul",
     "span_attention_kernel": "span_attention",
     "layernorm_kernel": "layernorm",
     "softmax_entropy_kernel": "softmax_entropy",
+    "af_quantize_kernel": "af_quantize",
+    "block_sparse_kernel": "block_sparse_matmul",
     "Memcpy": "memcpy",
 }
 
 
-def profile_batch(dep, tokens) -> dict:
-    """Device time by kernel over one warm batch, from torch.profiler's
-    CUDA activity (the port's four kernels by name, the rest of PyTorch's
+def profile_device(fn) -> dict:
+    """Device time by kernel over one call of ``fn``, from torch.profiler's
+    CUDA activity (the port's kernels by name, the rest of PyTorch's
     kernels as "other")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    dep.classify(tokens)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dep.classify(tokens)
+        fn()
         torch.cuda.synchronize()
     groups: dict = {}
     for evt in prof.key_averages():
@@ -267,7 +627,11 @@ def run_main_path(dep, cfg, dev) -> dict:
     from repro_torch.core.early_exit import fit_exit_predictor
     from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
     from repro_torch.kernels import ops
-    from repro_torch.serving.dvfs import default_albert_controller, no_early_exit_baseline
+    from repro_torch.serving.dvfs import (
+        BatchedDVFSArbiter,
+        default_albert_controller,
+        no_early_exit_baseline,
+    )
 
     B, S = 16, 128
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
@@ -287,14 +651,20 @@ def run_main_path(dep, cfg, dev) -> dict:
         predictor=fit_exit_predictor(profile[:, 0], profile_exits, n_bins=8),
     )
 
-    # the main path, counted: one early-exit batch with its DVFS schedule
+    # the deployed path, counted: one early-exit batch under the
+    # shared-clock arbiter (one (V, f) per layer step across the batch)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, exits, reports = dep.classify_with_dvfs(tokens, controller)
+    logits, exits, lane_reports = dep.classify_with_dvfs(
+        tokens, controller, arbiter=BatchedDVFSArbiter(controller))
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
+    # the per-sentence Alg. 1 replay of the same batch (not counted)
+    _, exits_ps, reports = dep.classify_with_dvfs(tokens, controller)
+    if not np.array_equal(exits_ps, exits) or len(lane_reports) != B:
+        raise AssertionError("the arbiter and per-sentence DVFS runs disagree")
 
     if not np.isfinite(logits).all():
         raise AssertionError("non-finite logits")
@@ -302,9 +672,9 @@ def run_main_path(dep, cfg, dev) -> dict:
         raise AssertionError(f"exit layers out of range: {exits}")
     if not np.array_equal(exits, profile_exits):
         raise AssertionError(f"exits {exits} differ from the profile's {profile_exits}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ops.DEPLOY_KERNELS if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the deployed path: {missing}")
 
     # warm wall time per batch (host clock around synchronised runs)
     walls = []
@@ -323,7 +693,8 @@ def run_main_path(dep, cfg, dev) -> dict:
         torch.cuda.synchronize()
         full.append((time.perf_counter() - t0) * 1e3)
     dep.threshold = thr
-    by_kernel = profile_batch(dep, tokens)
+    dep.classify(tokens)
+    by_kernel = profile_device(lambda: dep.classify(tokens))
     busy = sum(g["ms"] for g in by_kernel.values())
     warm = float(np.median(walls))
 
@@ -346,6 +717,137 @@ def run_main_path(dep, cfg, dev) -> dict:
         "deadline_met": int(sum(r.deadline_met for r in reports)),
         "target_latency_s": target,
         "ops": sorted({f"{r.op.vdd:.3f}V/{r.op.freq_hz / 1e6:.0f}MHz" for r in reports}),
+        "arbiter_energy_j": float(sum(r.energy_j for r in lane_reports)),
+        "arbiter_deadline_met": int(sum(r.deadline_met for r in lane_reports)),
+        "arbiter_latency_s_max": float(max(r.latency_s for r in lane_reports)),
+    }
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving path
+# ---------------------------------------------------------------------------
+
+
+def host_split(srv, requests) -> dict:
+    """Wall ms of one drain split by engine hook (host clock): ``lanes_step``
+    holds the arbiter, the fused step's launches and the wait for the
+    device (its outputs come back to the host every step); ``scheduler``
+    is the rest, the lane scheduler's own Python."""
+    import torch
+
+    spent: dict = {}
+    for name in ("lane_load", "lanes_step", "lane_advance", "lane_finish"):
+        def timed(*a, _fn=getattr(srv, name), _name=name):
+            t = time.perf_counter()
+            out = _fn(*a)
+            spent[_name] = spent.get(_name, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+
+        setattr(srv, name, timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(srv, requests)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return {"wall": wall, **spent, "scheduler": wall - sum(spent.values())}
+
+
+def run_serving_path(cfg, params, dev) -> dict:
+    """Full-width ClassifierServer on the kernel route with a shared-clock
+    arbiter: 32 seeded requests of 8-128 tokens, 8 lanes, buckets
+    (32, 64, 128), threshold from a full-depth profiling drain.  Drain
+    times are submit-to-drained, server set-up (block masks from the
+    weights, a fresh arbiter) outside the clock."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.early_exit import fit_exit_predictor
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.serving.dvfs import (
+        BatchedDVFSArbiter,
+        default_albert_controller,
+        no_early_exit_baseline,
+    )
+
+    from repro_torch.common.device import tree_to
+
+    buckets, lanes, n = BUCKETS, 8, 32
+    params = tree_to(params, dev)            # set-up, once
+    reqs = serving_requests(cfg, n, 128, seed=0)
+    prof = drain(cfg, params, reqs, dev, buckets=buckets, lanes=lanes, threshold=0.0)
+    traces = np.asarray([prof.done[i].entropy_trace for i in range(n)], np.float64)
+    thr = pick_threshold(traces)
+    below = np.concatenate([traces[:, :-1] < thr, np.ones((n, 1), bool)], axis=1)
+    profile_exits = np.argmax(below, axis=1) + 1
+    target = no_early_exit_baseline(albert_layer_stats(seq_len=128))["latency_s"]
+
+    def controller():
+        return default_albert_controller(
+            target, seq_len=128, n_layers=cfg.n_layers,
+            predictor=fit_exit_predictor(traces[:, 0], profile_exits, n_bins=8))
+
+    def fresh():
+        return make_server(cfg, params, dev, buckets=buckets, lanes=lanes, threshold=thr,
+                           arbiter=BatchedDVFSArbiter(controller()))
+
+    # the serving path, counted: one drain (server set-up outside the clock)
+    srv = fresh()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve(srv, reqs)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+
+    tel = srv.telemetry()
+    exits = np.array([srv.done[i].exit_layer for i in range(n)])
+    results = np.stack([srv.done[i].result for i in range(n)])
+    if not (np.isfinite(results).all() and results.shape == (n, cfg.edgebert.early_exit.num_classes)):
+        raise AssertionError("serving logits are not finite or of the wrong shape")
+    if not np.array_equal(exits, profile_exits):
+        raise AssertionError(f"serving exits {exits} differ from the profile's {profile_exits}")
+    if tel["sentences"] != n or tel["step_traces"] > len(buckets):
+        raise AssertionError(f"serving telemetry off: {tel}")
+    missing = [k for k in ops.SERVING_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the serving path: {missing}")
+
+    walls, setup = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        warm_srv = fresh()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        serve(warm_srv, reqs)
+        torch.cuda.synchronize()
+        setup.append((t1 - t0) * 1e3)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    warm = float(np.median(walls))
+    prof_srv = fresh()
+    by_kernel = profile_device(lambda: serve(prof_srv, reqs))
+    split = host_split(fresh(), reqs)
+    busy = sum(g["ms"] for g in by_kernel.values())
+    result = {
+        "phase": "serving", "config": cfg.name, "span": False, "mlp_block_pruned": True,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "requests": n, "lanes": lanes,
+        "buckets": list(buckets), "lengths": [int(len(t)) for t in reqs], "threshold": thr,
+        "exit_layers": [int(e) for e in exits], "avg_exit_layer": tel["avg_exit_layer"],
+        "layer_calls": tel["layer_calls"], "fused_steps": tel["dense_steps"],
+        "bucket_steps": tel["bucket_steps"], "lane_occupancy": tel["lane_occupancy"],
+        "first_drain_ms": first_ms, "warm_drain_ms": walls, "warm_drain_ms_median": warm,
+        "server_setup_ms": setup, "host_split_ms": split,
+        "requests_per_s": n / (warm / 1e3),
+        "device_busy_ms": busy, "device_idle_share": (1.0 - busy / warm) if busy > 0 else None,
+        "device_ms_by_kernel": by_kernel, "launches": launches,
+        "modeled_energy_j": tel["energy_j"], "op_switches": tel["op_switches"],
+        "deadline_misses": tel["deadline_misses"], "modeled_latency_s_max": tel["modeled_latency_s"],
+        "target_latency_s": target,
+        "queue_delay_steps_p50": tel["queue_delay_steps_p50"],
+        "queue_delay_steps_p95": tel["queue_delay_steps_p95"],
     }
     emit(result)
     return result
@@ -387,14 +889,23 @@ def main() -> int:
     emit({"phase": "deploy", "config": cfg.name, "seconds": time.perf_counter() - t0,
           "spans": [int(s) for s in dep.spans]})
 
-    rows = check_kernels(dep, cfg, dev)
+    scfg = serving_config(cfg, span=False)
+    sparams = serving_params(scfg, 0, prune=True)
+
+    rows = check_kernels(dep, cfg, sparams, dev)
     check_reference(dep, params, cfg, dev)
+    check_serving_reference(scfg, sparams, dev)
     main_path = run_main_path(dep, cfg, dev)
+    serving = run_serving_path(scfg, sparams, dev)
     for r in rows:
-        r["launches"] = main_path["launches"][r["name"]]
+        by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]]}
+        # a kernel's launches on this slice's path (serving), or on the
+        # deployed path for the kernel only that path runs
+        r["launches"] = by_path["serving"] if by_path["serving"] > 0 else by_path["deploy"]
+        r["launches_by_path"] = by_path
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "launches_by_path")
     kernels = {"kernels": [{k: r[k] for k in keys} for r in rows]}
     RECORD.append(kernels)
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,7 @@ a GPU raises instead of continuing on the CPU.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Union
 
 import torch
 
@@ -38,3 +38,10 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def tree_to(tree: Any, device: torch.device) -> Any:
+    """A nested dict of tensors (or arrays) with every leaf on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)

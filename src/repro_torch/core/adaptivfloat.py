@@ -55,7 +55,16 @@ class AFFormat:
 
 
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """floor(log2(x)) as the reference computes it (see module docstring)."""
+    """floor(log2(x)) as the reference computes it (see module docstring).
+
+    On the card the float32 log is taken as ``(float)log((double)x)``:
+    CUDA's ``logf`` is not correctly rounded, and near a power of two a
+    last-ulp difference moves the floor into the other binade.  The double
+    form gives the same floor as the CPU's float32 log on every float32
+    within 64 ulp of 2**k, k in [-126, 127] (``csrc/af_quantize.cu`` does
+    the same per element)."""
+    if x.device.type == "cuda":
+        return torch.floor(torch.log(x.double()).float() * _INV_LN2)
     return torch.floor(torch.log(x) * _INV_LN2)
 
 
@@ -98,6 +107,18 @@ def af_quantize(
     min_pos = exact_pow2(e_min) * (1.0 + 1.0 / n_mant_scale)
     val = torch.where(a < 0.5 * min_pos, torch.zeros_like(val), torch.maximum(val, min_pos))
     return (sign * val).to(x.dtype)
+
+
+def fake_quant(
+    x: torch.Tensor, fmt: AFFormat, enabled: bool = True, amax: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Activation fake-quant as the reference writes it: ``x + (q - x)``
+    (a straight-through estimator under autodiff).  ``amax`` broadcast
+    against ``x`` gives one bias per slice (the serving step's lanes)."""
+    if not enabled:
+        return x
+    q = af_quantize(x, fmt, amax)
+    return x + (q - x).detach()
 
 
 def af_encode(

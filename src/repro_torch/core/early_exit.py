@@ -5,20 +5,23 @@ every encoder block; a sentence exits when H(logits) < T_E.
 
 Two parts, as in the JAX package's ``core/early_exit.py``:
 
-* tensor functions on the off-ramp: ``offramp_logits``, ``exit_decisions``,
-  ``select_exit_logits``;
+* tensor functions on the off-ramp: ``offramp_logits``, ``exit_all_layers``
+  (the dense all-layers sweep), ``exit_decisions``, ``select_exit_logits``;
 * the host-side exit-layer predictor behind the DVFS controller (paper
-  Alg. 1): ``ExitPredictor``, ``fit_exit_predictor``, ``predict_exit_layer``
-  and ``OnlineExitCalibrator``, numpy only.
+  Alg. 1): ``ExitPredictor``, ``fit_exit_predictor``, ``predict_exit_layer``,
+  ``OnlineExitCalibrator`` and the scheduler's ``predicted_remaining_layers``,
+  numpy only.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.entropy import entropy_from_logits
 
 
 class OfframpParams(NamedTuple):
@@ -33,6 +36,23 @@ def offramp_logits(h: torch.Tensor, p: OfframpParams) -> torch.Tensor:
     cls = h[..., 0, :]
     pooled = torch.tanh(cls @ p.pooler_w + p.pooler_b)
     return pooled @ p.cls_w + p.cls_b
+
+
+def exit_all_layers(
+    layer_fn: Callable[[int, torch.Tensor], torch.Tensor],
+    n_layers: int,
+    h0: torch.Tensor,
+    offramp: OfframpParams,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run every layer; return (all_logits [L, B, C], all_entropy [L, B])."""
+    h = h0
+    logits, ents = [], []
+    for i in range(n_layers):
+        h = layer_fn(i, h)
+        lg = offramp_logits(h, offramp)
+        logits.append(lg)
+        ents.append(entropy_from_logits(lg))
+    return torch.stack(logits), torch.stack(ents)
 
 
 def exit_decisions(
@@ -149,3 +169,27 @@ class OnlineExitCalibrator:
         return ExitPredictor(
             bin_edges=self.bin_edges.copy(), bin_exit=self.bin_exit.copy()
         )
+
+
+def predicted_remaining_layers(
+    entropy_trace,
+    depth: int,
+    n_layers: int,
+    *,
+    predict_fn: Optional[Callable[[float], float]] = None,
+) -> float:
+    """Remaining encoder layers a sentence is predicted to need: the
+    scheduler's EDF slack input.  ``predict_fn`` maps a first off-ramp
+    entropy to a predicted total exit layer (the DVFS controller's
+    ``predict``, so EDF and the frequency decision share one prediction).
+    Before the first off-ramp, or without ``predict_fn``, the prediction is
+    the full depth; a sentence that ran past its predicted exit reverts to
+    the full depth (the DVFS escalation guard).  At least 1."""
+    if len(entropy_trace) == 0 or predict_fn is None:
+        p = float(n_layers)
+    else:
+        p = float(predict_fn(float(entropy_trace[0])))
+    p = float(np.clip(p, 1.0, n_layers))
+    if depth >= p - 1e-9:                 # overran the prediction: escalate
+        return max(float(n_layers) - depth, 1.0)
+    return max(p - depth, 1.0)

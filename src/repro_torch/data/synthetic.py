@@ -1,0 +1,49 @@
+"""Deterministic synthetic classification data, the ``SyntheticCLS`` of the
+JAX package's ``data/synthetic.py`` (numpy only, so the copy is exact).
+
+Sentence classification with planted structure: class c plants tokens from
+a class-specific vocabulary band at random positions, with the CLS token at
+position 0.  ``signal_ratio`` (the fraction of planted positions) sets the
+difficulty, so easy sentences exit early and hard ones late.  Batches are
+deterministic in (seed, step) and host-shardable: ``shard=(host_index,
+host_count)`` slices the global batch.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+
+
+@dataclass
+class SyntheticCLS:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    num_classes: int = 3
+    seed: int = 0
+    shard: Tuple[int, int] = (0, 1)
+    signal_ratio_range: Tuple[float, float] = (0.05, 0.4)
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        host, n_hosts = self.shard
+        local = self.global_batch // n_hosts
+        rng = np.random.default_rng((self.seed + 1, step, host))
+        labels = rng.integers(0, self.num_classes, size=(local,))
+        toks = rng.integers(4, self.vocab_size, size=(local, self.seq_len))
+        # class-c signal band: tokens in [band_c, band_c + band), planted at a
+        # per-sentence signal ratio (easy/hard spread for early exit)
+        band = max((self.vocab_size - 4) // (4 * self.num_classes), 2)
+        ratios = rng.uniform(*self.signal_ratio_range, size=(local,))
+        for i in range(local):
+            n_sig = max(int(self.seq_len * ratios[i]), 1)
+            pos = rng.choice(np.arange(1, self.seq_len), size=n_sig, replace=False)
+            base = 4 + int(labels[i]) * band
+            toks[i, pos] = rng.integers(base, base + band, size=n_sig)
+        toks[:, 0] = 1  # CLS
+        return {
+            "tokens": toks.astype(np.int32),
+            "labels": labels.astype(np.int32),
+            "signal_ratio": ratios.astype(np.float32),
+        }

@@ -1,23 +1,74 @@
-"""AF8-weight matmul (paper §V-C: 8-bit multiply, 32-bit accumulate).
+"""AdaptivFloat kernels (paper §III-E + §V-C), the port of
+``repro/kernels/adaptivfloat_k.py``.
 
-Replaces the Pallas kernel ``repro/kernels/adaptivfloat_k.py:99``
-``_af_matmul_kernel`` (``pallas_call`` at :141) with the CUDA kernel in
-``csrc/af_matmul.cu``.  The weights stay uint8 AdaptivFloat codes in device
-memory and are decoded per tile in shared memory; fp32 FMAs accumulate.  It
-is bound by operations on the H100 at the encoder's shapes; the source gives
-the numbers.  The activation ``quantize`` kernel of the same JAX module
-comes with the serving slice.
+1. ``quantize`` — activation quantize-dequantize with one exponent bias per
+   group of rows.  Replaces the Pallas kernel ``_quantize_kernel`` (:41,
+   ``pallas_call`` at :68) with the CUDA kernel in ``csrc/af_quantize.cu``,
+   bit-exact to its plain version on the CPU.  ``group_exp_bias`` takes the
+   per-group amax and bias outside the kernel, as the JAX wrapper does.
+2. ``af_matmul`` — AF8-weight matmul (8-bit multiply, 32-bit accumulate).
+   Replaces ``_af_matmul_kernel`` (:99, ``pallas_call`` at :141) with
+   ``csrc/af_matmul.cu``: the weights stay uint8 codes in device memory and
+   are decoded per tile in shared memory; fp32 FMAs accumulate.
+
+The sources give each kernel's bound on the H100.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.adaptivfloat import AFFormat
+from repro_torch.core.adaptivfloat import AFFormat, exp_bias_from_amax
 from repro_torch.kernels import build, ref
 
 _SIGNATURES = {
     "repro_af_matmul": [build.PTR] * 3 + [build.INT] * 6 + [build.PTR, build.INT],
 }
+_Q_SIGNATURES = {
+    "repro_af_quantize": [build.PTR] * 3 + [build.INT] * 5 + [build.PTR, build.INT],
+}
+
+
+def group_exp_bias(x: torch.Tensor, rows_per_group: int, fmt: AFFormat = AFFormat()) -> torch.Tensor:
+    """Per-group AdaptivFloat bias of ``x`` [rows, d]: the amax over each
+    group of ``rows_per_group`` rows (all of its columns) -> int32 e_min
+    [groups], as ``quantize`` takes it."""
+    rows, d = x.shape
+    if rows % rows_per_group:
+        raise ValueError(f"quantize: {rows} rows do not split into groups of {rows_per_group}")
+    amax = x.detach().float().abs().reshape(rows // rows_per_group, rows_per_group * d).amax(dim=1)
+    return exp_bias_from_amax(amax, fmt)
+
+
+def quantize(
+    x: torch.Tensor,              # [rows, d] fp32
+    e_min: torch.Tensor,          # [groups] int32 per-group bias
+    rows_per_group: int,
+    *,
+    fmt: AFFormat = AFFormat(),
+) -> torch.Tensor:
+    """Quantize-dequantize ``x`` to the AdaptivFloat grid, row group g with
+    bias ``e_min[g]``.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return ref.quantize(x, e_min, rows_per_group, fmt)
+    build.require_cuda("quantize", x)
+    build.require_cuda("quantize", x, e_min, dtype=None)
+    rows, d = x.shape
+    groups = -(-rows // rows_per_group)
+    if e_min.dtype != torch.int32 or e_min.shape != (groups,):
+        raise TypeError(f"quantize: e_min must be int32 [{groups}], got {e_min.dtype} {tuple(e_min.shape)}")
+    out = torch.empty_like(x)
+    lib = build.library("af_quantize", _Q_SIGNATURES)
+    err = lib.repro_af_quantize(
+        out.data_ptr(), x.data_ptr(), e_min.data_ptr(), rows, d, int(rows_per_group),
+        fmt.n_bits, fmt.n_exp, build.stream_of(x), x.device.index,
+    )
+    build.check(lib, err, "quantize")
+    quantize.launches += 1
+    return out
+
+
+quantize.launches = 0
 
 
 def af_matmul(

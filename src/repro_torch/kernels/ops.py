@@ -1,5 +1,7 @@
 """The deployed path's entry points to the kernels (the port of
-``repro/kernels/ops.py`` for the four kernels on that path).
+``repro/kernels/ops.py`` for the four kernels on that path), and the launch
+counters of all six kernels.  The serving step's ``dispatch.layernorm`` and
+``dispatch.entropy`` go through ``layernorm_op`` and ``softmax_entropy_op``.
 
 Each op takes tensors in the layout the deployed model holds, reshapes them
 for its kernel and routes by device like the kernels do: CPU tensors run the
@@ -18,24 +20,40 @@ import torch
 
 from repro_torch.core.adaptive_span import active_head_indices
 from repro_torch.core.adaptivfloat import AFFormat
-from repro_torch.kernels import adaptivfloat_k, layernorm, softmax_entropy, span_attention
-
-KERNEL_WRAPPERS = (
-    layernorm.layernorm,
-    softmax_entropy.softmax_entropy,
-    adaptivfloat_k.af_matmul,
-    span_attention.span_attention,
+from repro_torch.kernels import (
+    adaptivfloat_k,
+    block_sparse,
+    layernorm,
+    softmax_entropy,
+    span_attention,
 )
+
+# every kernel wrapper, by kernel name; each counts its launches
+KERNEL_WRAPPERS = {
+    "layernorm": layernorm.layernorm,
+    "softmax_entropy": softmax_entropy.softmax_entropy,
+    "af_matmul": adaptivfloat_k.af_matmul,
+    "span_attention": span_attention.span_attention,
+    "af_quantize": adaptivfloat_k.quantize,
+    "block_sparse_matmul": block_sparse.block_sparse_matmul,
+}
+# the kernels each path launches: the deployed classifier
+# (serving/deploy.py) and the serving engine's fused step (serving/engine.py;
+# span_attention when the config has no trained spans, block_sparse_matmul
+# when the MLP weights are block-pruned)
+DEPLOY_KERNELS = ("layernorm", "softmax_entropy", "af_matmul", "span_attention")
+SERVING_KERNELS = ("layernorm", "softmax_entropy", "af_quantize", "block_sparse_matmul",
+                   "span_attention")
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
+    for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
 def layernorm_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6):

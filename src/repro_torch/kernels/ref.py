@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the four kernels on the deployed path.
+"""Plain PyTorch versions of the port's six kernels.
 
-These repeat the JAX package's oracles (``repro/kernels/ref.py``) op for op.
-Each kernel wrapper takes its plain version for a CPU tensor; on the card
-``chip_smoke.py`` and the CUDA tests hold each kernel against these.
+These repeat the JAX package's oracles (``repro/kernels/ref.py``) and, for
+``quantize``, the body of its Pallas kernel, op for op.  Each kernel wrapper
+takes its plain version for a CPU tensor; on the card ``chip_smoke.py`` and
+the CUDA tests hold each kernel against these.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.adaptivfloat import AFFormat, af_decode
+from repro_torch.core.adaptivfloat import AFFormat, af_decode, exact_pow2, floor_log2
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6):
@@ -49,6 +50,49 @@ def af_matmul(
     """x @ decode(codes): fp32 accumulate, fp32 out."""
     w = af_decode(w_codes, e_min, fmt, dtype=torch.float32)
     return x.float() @ w
+
+
+def quantize(
+    x: torch.Tensor,                # [rows, d]
+    e_min: torch.Tensor,            # [groups] int32 per-group exponent bias
+    rows_per_group: int,
+    fmt: AFFormat = AFFormat(),
+) -> torch.Tensor:
+    """AdaptivFloat quantize-dequantize with one bias per group of
+    ``rows_per_group`` rows: the algebra of the Pallas kernel's
+    ``_quant_body`` (``floor(log2)`` in XLA's ``log(x) * f32(1/ln 2)`` form,
+    exact powers of two, round half to even)."""
+    rows, d = x.shape
+    xf = x.float()
+    n_mant_scale = float(2 ** fmt.n_mant)
+    e_lo = e_min.to(xf.device, torch.float32).repeat_interleave(rows_per_group)[:rows, None]
+    e_hi = e_lo + (fmt.n_levels_exp - 1)
+    a = xf.abs()
+    sign = torch.sign(xf)
+    safe_a = a.clamp_min(1e-38)
+    e = torch.minimum(torch.maximum(floor_log2(safe_a), e_lo), e_hi)
+    scale = exact_pow2(e)
+    mant = torch.round(a / scale * n_mant_scale) / n_mant_scale
+    val = mant * scale
+    max_val = (2.0 - 1.0 / n_mant_scale) * exact_pow2(e_hi)
+    val = torch.minimum(val, max_val)
+    min_pos = exact_pow2(e_lo) * (1.0 + 1.0 / n_mant_scale)
+    val = torch.where(a < 0.5 * min_pos, torch.zeros_like(val), torch.maximum(val, min_pos))
+    return (sign * val).to(x.dtype)
+
+
+def block_sparse_matmul(
+    x: torch.Tensor,                # [M, K]
+    w: torch.Tensor,                # [K, N], zero outside occupied blocks
+    block_mask,                     # [K // bk, N // bn] bool occupancy
+    bk: int,
+    bn: int,
+) -> torch.Tensor:
+    """x @ (w restricted to its occupied blocks), fp32 out."""
+    mask = torch.as_tensor(block_mask, device=w.device)
+    mask = mask.repeat_interleave(bk, dim=0).repeat_interleave(bn, dim=1)
+    w_masked = w * mask[: w.shape[0], : w.shape[1]].to(w.dtype)
+    return x.float() @ w_masked.float()
 
 
 def span_attention(

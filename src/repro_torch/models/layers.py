@@ -1,0 +1,202 @@
+"""The encoder layer's building blocks, the port of the parts of
+``repro/models/layers.py`` that the albert classifier runs: LayerNorm,
+span-aware attention (chunked online softmax) on the cache-free path, and
+the GELU MLP.
+
+``use_kernels=True`` routes the eligible ops to the hand-written kernels
+through ``kernels.dispatch`` under the JAX package's eligibility rules;
+``False`` keeps the reference ops, which repeat the JAX package's op for op.
+RMS norm, rotary positions, qkv biases, the other activations and the
+KV-cache and cross-attention branches come with the slices that need them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import dispatch
+
+Params = Dict[str, Any]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# Norms (paper §V-D3 computes LN as E[X^2]-E[X]^2 running moments)
+# ---------------------------------------------------------------------------
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6,
+               use_kernels: bool = False) -> torch.Tensor:
+    """LayerNorm with E[X^2] - E[X]^2 variance (the albert family's norm)."""
+    if use_kernels:
+        return dispatch.layernorm(x, p["scale"], p["norm_bias"], eps=eps)
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["norm_bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, soft span, chunked online softmax)
+# ---------------------------------------------------------------------------
+
+
+def _soft_span_block_mask(z: torch.Tensor, ramp: int, q_pos: torch.Tensor,
+                          k_pos: torch.Tensor, causal: bool) -> torch.Tensor:
+    """[H, qb, kb] soft span mask for one (q block, kv block) pair."""
+    d = q_pos[:, None] - k_pos[None, :]
+    if not causal:
+        d = d.abs()
+    return ((ramp + z.float()[:, None, None] - d[None].float()) / float(ramp)).clamp(0.0, 1.0)
+
+
+def _key_mask(k_pos: torch.Tensor, kv_len: Optional[torch.Tensor], Sk: int) -> torch.Tensor:
+    """[B or 1, 1, kb] keys below each row's valid length."""
+    if kv_len is None:
+        return (k_pos < Sk)[None, None, :]
+    return k_pos[None, None, :] < kv_len.reshape(-1, 1, 1)
+
+
+def attention(
+    q: torch.Tensor,              # [B, Sq, H, hd]
+    k: torch.Tensor,              # [B, Sk, KV, hd]
+    v: torch.Tensor,              # [B, Sk, KV, hd]
+    *,
+    causal: bool,
+    span_z: Optional[torch.Tensor] = None,    # [H] soft spans
+    span_ramp: int = 32,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    kv_len: Optional[Any] = None,             # [B] (or scalar) valid keys per row
+) -> torch.Tensor:
+    """Chunked online-softmax attention (the reference twin of the span
+    kernel).  Returns [B, Sq, H, hd].  ``kv_len`` is per batch row: the
+    JAX package ``vmap``s a one-lane body with a scalar length, the port
+    writes the lane axis out."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    kvl = None if kv_len is None else torch.as_tensor(kv_len, device=dev).reshape(-1)
+    qf = (q.float() * scale).reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+
+    if Sq <= 16:
+        # short fast path: one masked softmax over the whole key range
+        s = torch.einsum("bqkgd,bskd->bqkgs", qf, kf)
+        q_pos = torch.arange(Sq, device=dev)
+        k_pos = torch.arange(Sk, device=dev)
+        valid = _key_mask(k_pos, kvl, Sk)
+        if causal:
+            valid = valid & (q_pos[:, None] >= k_pos[None, :])[None]
+        valid = valid.expand(-1, Sq, Sk)
+        s = torch.where(valid[:, :, None, None, :], s, float("-inf"))
+        if span_z is not None:
+            sm = _soft_span_block_mask(span_z, span_ramp, q_pos, k_pos, causal)
+            sm = sm.reshape(KV, G, Sq, Sk).permute(2, 0, 1, 3)
+            s = s + torch.log(sm.clamp_min(1e-20))[None]
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m)
+        p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / l.clamp_min(1e-20)
+        out = torch.einsum("bqkgs,bskd->bqkgd", p, vf)
+        return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Sk)
+    n_qb, n_kb = _ceil_div(Sq, q_block), _ceil_div(Sk, kv_block)
+    qf = F.pad(qf, (0, 0, 0, 0, 0, 0, 0, n_qb * q_block - Sq))
+    kf = F.pad(kf, (0, 0, 0, 0, 0, n_kb * kv_block - Sk))
+    vf = F.pad(vf, (0, 0, 0, 0, 0, n_kb * kv_block - Sk))
+    outs = []
+    for qb in range(n_qb):
+        q_tile = qf[:, qb * q_block:(qb + 1) * q_block]
+        q_pos = qb * q_block + torch.arange(q_block, device=dev)
+        m_run = torch.full((B, q_block, KV, G), float("-inf"), device=dev)
+        l_run = torch.zeros((B, q_block, KV, G), device=dev)
+        acc = torch.zeros((B, q_block, KV, G, hd), device=dev)
+        for kb in range(n_kb):
+            k_tile = kf[:, kb * kv_block:(kb + 1) * kv_block]
+            v_tile = vf[:, kb * kv_block:(kb + 1) * kv_block]
+            k_pos = kb * kv_block + torch.arange(kv_block, device=dev)
+            s = torch.einsum("bqkgd,bskd->bqkgs", q_tile, k_tile)
+            mask = _key_mask(k_pos, kvl, Sk)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])[None]
+            mask = mask.expand(-1, q_block, kv_block)
+            s = torch.where(mask[:, :, None, None, :], s, float("-inf"))
+            if span_z is not None:
+                sm = _soft_span_block_mask(span_z, span_ramp, q_pos, k_pos, causal)
+                sm = sm.reshape(KV, G, q_block, kv_block).permute(2, 0, 1, 3)
+                # the span modulates probabilities: log(mask) before the softmax
+                s = s + torch.log(sm.clamp_min(1e-20))[None]
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+            run_ok = torch.isfinite(m_run)
+            corr = torch.exp(torch.where(run_ok, m_run - m_safe, torch.full_like(m_run, float("-inf"))))
+            corr = torch.where(run_ok, corr, torch.zeros_like(corr))
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bqkgs,bskd->bqkgd", p, v_tile)
+            m_run = m_new
+        outs.append(acc / l_run.clamp_min(1e-20)[..., None])
+    out = torch.cat(outs, dim=1).reshape(B, n_qb * q_block, H, hd)
+    return out[:, :Sq].to(q.dtype)
+
+
+def attention_layer(
+    p: Params,
+    x: torch.Tensor,              # [B, S, d]
+    cfg,
+    *,
+    causal: bool,
+    span_z: Optional[torch.Tensor] = None,
+    span_ramp: int = 32,
+    kv_len: Optional[Any] = None,            # [B] valid key length (right padding)
+    use_kernels: bool = False,
+) -> torch.Tensor:
+    """Cache-free self-attention with the output projection.  With
+    ``use_kernels`` and no soft spans, attention goes to the span kernel
+    (full window, per-row kv_len) as in the JAX package (its
+    ``attention_layer`` eligibility test); soft spans keep the reference."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if use_kernels and span_z is None:
+        out = dispatch.dense_attention(q, k, v, causal=causal, kv_len=kv_len)
+    else:
+        out = attention(q, k, v, causal=causal, span_z=span_z, span_ramp=span_ramp, kv_len=kv_len)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def apply_mlp(
+    p: Params, x: torch.Tensor,
+    use_kernels: bool = False,
+    block_masks: Optional[Dict[str, Any]] = None,   # dispatch.mlp_block_masks
+) -> torch.Tensor:
+    """w_up -> gelu (tanh form, jax.nn.gelu's default) -> w_down; with
+    ``use_kernels`` a block-pruned weight goes to the block-sparse kernel."""
+    def mm(h_, name):
+        if use_kernels and block_masks and block_masks.get(name) is not None:
+            return dispatch.sparse_matmul(h_, p[name], block_masks[name])
+        return h_ @ p[name]
+
+    h = F.gelu(mm(x, "w_up").float(), approximate="tanh").to(x.dtype)
+    return mm(h, "w_down")

@@ -142,21 +142,28 @@ class DeployedAlbert:
         return out_logits, exit_layer
 
     def classify_with_dvfs(self, tokens: Any, controller, arbiter=None, deadlines_s=None):
-        """Kernel-path classification + per-sentence DVFS schedule.
+        """Kernel-path classification + DVFS schedule.
 
-        Returns (logits [B, C], exit_layer [B], reports): one ``DVFSReport``
-        per sentence from replaying Alg. 1 over its entropy trace.
-        ``deadlines_s`` (length B, entries optional) gives each sentence its
-        own latency budget; ``None`` entries use the controller target.
+        Returns (logits [B, C], exit_layer [B], reports).  Without
+        ``arbiter``: one ``DVFSReport`` per sentence from replaying Alg. 1
+        over its entropy trace (the single-stream analysis).  With a
+        ``BatchedDVFSArbiter``: the batch shares one LDO/ADPLL, so the
+        lock-step batch is arbitrated layer step by layer step (one (V, f)
+        per step, switching stalls charged) and per-sentence
+        ``LaneDVFSReport``s come back instead.  ``deadlines_s`` (length B,
+        entries optional) gives each sentence its own latency budget;
+        ``None`` entries use the controller target.
         """
-        if arbiter is not None:
-            raise NotImplementedError(
-                "classify_with_dvfs(arbiter=...) with a BatchedDVFSArbiter comes "
-                "with the classifier-serving slice of the port"
-            )
+        if arbiter is not None and arbiter.c is not controller:
+            raise ValueError("the arbiter was built over another controller than the one passed")
         logits, exit_layer = self.classify(tokens)
         if deadlines_s is not None and len(deadlines_s) != len(exit_layer):
             raise ValueError("deadlines_s must have one entry per sentence")
+        if arbiter is not None:
+            reports = arbiter.replay_batch(
+                self.last_entropy_traces, exit_layer, deadlines_s=deadlines_s
+            )
+            return logits, exit_layer, reports
         reports = [
             controller.sentence_report(
                 trace,

@@ -10,15 +10,20 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.adaptivfloat import af_encode
-from repro_torch.kernels import ops, ref
-from repro_torch.kernels.adaptivfloat_k import af_matmul
+from repro_torch.core.pruning import magnitude_mask
+from repro_torch.data.synthetic import SyntheticCLS
+from repro_torch.kernels import block_sparse, dispatch, ops, ref
+from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
 from repro_torch.kernels.layernorm import layernorm
 from repro_torch.kernels.softmax_entropy import softmax_entropy
 from repro_torch.kernels.span_attention import span_attention
-from repro_torch.models.model import init_params
+from repro_torch.models.model import build_model, init_params
 from repro_torch.serving.deploy import deploy_albert
+from repro_torch.serving.engine import ClassifierServer, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -101,7 +106,99 @@ def test_deployed_classify_matches_cpu(cuda):
     cpu.threshold = gpu.threshold = 0.0
     ops.reset_launch_counts()
     lg, eg = gpu.classify(tokens)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    assert all(ops.launch_counts()[k] > 0 for k in ops.DEPLOY_KERNELS)
     lc, ec = cpu.classify(tokens)
     np.testing.assert_array_equal(eg, ec)
     np.testing.assert_allclose(lg, lc, atol=1e-4)
+
+
+def _binade_edges(n_per_side=64, k_range=(-20, 20)):
+    out = []
+    for k in range(k_range[0], k_range[1] + 1):
+        c = np.float32(2.0 ** k).view(np.int32)
+        out.append(np.arange(c - n_per_side, c + n_per_side + 1, dtype=np.int32).view(np.float32))
+    v = np.concatenate(out)
+    return np.concatenate([v, -v])
+
+
+def test_af_quantize_bit_exact(cuda):
+    """atol 0 against the plain version run on the CPU: serving activations
+    with one bias per 128-row lane, and every float32 within 64 ulp of 2**k
+    for k in [-20, 20], each k its own group."""
+    lanes, S, d = 8, 128, 768
+    x = _t((lanes * S, d), 31, 2.0)
+    x[3 * S:4 * S] *= 1e-3
+    x[5 * S + 100:6 * S] *= 50.0
+    e_min = group_exp_bias(x, S)
+    before = quantize.launches
+    got = quantize(x.to(cuda), e_min.to(cuda), S)
+    assert quantize.launches == before + 1
+    assert torch.equal(got.cpu(), ref.quantize(x, e_min, S))
+    edges = [np.concatenate([e, np.zeros((-len(e)) % 32, np.float32)]).reshape(-1, 32)
+             for e in (_binade_edges(64, (k, k)) for k in range(-20, 21))]
+    v = torch.from_numpy(np.concatenate(edges))
+    e_min = group_exp_bias(v, edges[0].shape[0])
+    assert torch.equal(quantize(v.to(cuda), e_min.to(cuda), edges[0].shape[0]).cpu(),
+                       ref.quantize(v, e_min, edges[0].shape[0]))
+
+
+@pytest.mark.parametrize("M,K,N", [(1024, 768, 3072), (1024, 3072, 768), (37, 96, 128)])
+def test_block_sparse_matmul(cuda, M, K, N):
+    """rtol 1e-5 + atol 1e-5 (float32 sums in another order), on weights
+    pruned at 32x32 tiles, one n-block left with no tile (zeros out)."""
+    w = _t((K, N), 32, 1.0 / np.sqrt(K))
+    w = w * magnitude_mask(w, 0.5, block_size=32)
+    w[:, 32:64] = 0.0
+    mask = dispatch.mlp_block_masks({"w_up": w})["w_up"]
+    assert mask is not None and not mask.mask[:, 1].any()
+    x = _t((M, K), 33)
+    index = block_sparse.BlockIndex.build(mask.mask, 32, 32, cuda)
+    got = block_sparse.block_sparse_matmul(x.to(cuda), w.to(cuda), index)
+    want = ref.block_sparse_matmul(x, w, mask.mask, 32, 32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert (got[:, 32:64] == 0).all()
+
+
+@pytest.mark.parametrize("S", [32, 128])
+def test_span_attention_serving_kv_lens(cuda, S):
+    """The serving step's route: window = S, every span S, lengths drawn in
+    [1, S]; atol 2e-5."""
+    BH, dh = 96, 64
+    q, k, v = (_t((BH, S, dh), s) for s in (41, 42, 43))
+    spans = torch.full((BH,), S, dtype=torch.int32)
+    lens = torch.from_numpy(np.random.default_rng(44).integers(1, S + 1, BH // 12).astype(np.int32))
+    lens = lens.repeat_interleave(12)
+    want = span_attention(q, k, v, spans, S, causal=False, kv_lens=lens)
+    got = span_attention(q.to(cuda), k.to(cuda), v.to(cuda), spans.to(cuda), S, causal=False,
+                         kv_lens=lens.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def test_classifier_server_matches_cpu(cuda):
+    """A short smoke-size drain (span off, MLP block-pruned) on the card
+    against the same drain on the CPU: exits equal, logits atol 1e-4, and
+    every serving kernel launched."""
+    cfg = get_smoke_config("albert_edgebert")
+    cfg = dataclasses.replace(cfg, dtype="float32").with_edgebert(
+        span=dataclasses.replace(cfg.edgebert.span, enabled=False),
+        early_exit=dataclasses.replace(cfg.edgebert.early_exit, entropy_threshold=0.0))
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name in ("w_up", "w_down"):
+        w = params["layer"]["mlp"][name]
+        params["layer"]["mlp"][name] = w * magnitude_mask(w, 0.5, block_size=32)
+    toks = SyntheticCLS(cfg.vocab_size, 32, 6, num_classes=3, seed=0).batch(0)["tokens"]
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = ClassifierServer(model, params, batch_lanes=4, buckets=(16, 32), device=dev)
+        for i, n in enumerate((12, 32, 9, 24, 16, 5)):
+            srv.submit(Request(uid=i, tokens=toks[i][:n]))
+        ops.reset_launch_counts()
+        srv.run()
+        out[str(dev)] = (srv, ops.launch_counts())
+    cpu, gpu = out["cpu"][0], out[str(cuda)][0]
+    assert all(out[str(cuda)][1][k] > 0 for k in ops.SERVING_KERNELS)
+    assert all(n == 0 for n in out["cpu"][1].values())
+    for i in range(6):
+        assert gpu.done[i].exit_layer == cpu.done[i].exit_layer == cfg.n_layers
+        np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)

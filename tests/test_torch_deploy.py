@@ -139,8 +139,25 @@ def test_classify_and_dvfs_parity(setup):
         assert (r_t.op.vdd, r_t.op.freq_hz) == (r_j.op.vdd, r_j.op.freq_hz)
         assert (r_t.exit_layer, r_t.energy_j, r_t.latency_s, r_t.deadline_met) == (
             r_j.exit_layer, r_j.energy_j, r_j.latency_s, r_j.deadline_met)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        td.classify_with_dvfs(tokens, tctl, arbiter=object())
+    # the shared-clock arbiter path: the same lane reports as the JAX package's
+    # (modeled numbers from the same exits and traces, equal to 1e-9 relative)
+    deadlines = [None, 2 * target, None, 0.5 * target]
+    jl, je, jrep = jd.classify_with_dvfs(jnp.asarray(tokens), jctl, arbiter=jdvfs.BatchedDVFSArbiter(jctl),
+                                         deadlines_s=deadlines)
+    tl, te, trep = td.classify_with_dvfs(tokens, tctl, arbiter=tdvfs.BatchedDVFSArbiter(tctl),
+                                         deadlines_s=deadlines)
+    np.testing.assert_array_equal(te, np.asarray(je))
+    np.testing.assert_allclose(tl, np.asarray(jl), atol=LOGIT_ATOL)
+    assert len(trep) == len(jrep) == len(tokens)
+    for r_t, r_j in zip(trep, jrep):
+        assert (r_t.exit_layer, r_t.deadline_met, r_t.escalated_layers) == (
+            r_j.exit_layer, r_j.deadline_met, r_j.escalated_layers)
+        assert (r_t.slowest_op.vdd, r_t.slowest_op.freq_hz) == (r_j.slowest_op.vdd, r_j.slowest_op.freq_hz)
+        for f in ("predicted_exit", "latency_s", "energy_j", "target_s"):
+            assert getattr(r_t, f) == pytest.approx(getattr(r_j, f), rel=1e-9, abs=0.0)
+    with pytest.raises(ValueError, match="another controller"):
+        td.classify_with_dvfs(tokens, tctl, arbiter=tdvfs.BatchedDVFSArbiter(
+            tdvfs.default_albert_controller(target, seq_len=32, n_layers=tcfg.n_layers)))
 
 
 def test_classify_mixed_spans(setup):

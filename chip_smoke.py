@@ -6,10 +6,15 @@
 Phases, each printing one JSON line:
   1. device   — the card, as nvidia-smi reports its name and power limit;
   2. build    — compile all six CUDA kernels (one nvcc per source, all at
-                once) and report nvcc's register/spill lines;
+                once) and report each one's registers, spills and shared
+                memory;
   3. kernel   — each kernel against its plain PyTorch version at its paths'
                 shapes, with a stated tolerance, and its time beside the
-                plain version's, one PyTorch library call's and its bound;
+                plain version's, one PyTorch library call's and its bound
+                (for the two tensor-core matmuls a bound at the bf16
+                tensor-core rate, their device time alone, and the same
+                work's time at the fp32 rate); then every kernel launched
+                twice on the same inputs must give the same bits;
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -39,10 +44,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke.json"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate
-# and the fp32 rate outside the tensor cores, where these kernels compute.
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
+# the fp32 rate outside the tensor cores (where the kernels other than the
+# two matmuls compute) and the bf16 tensor-core rate (where af_matmul and
+# block_sparse_matmul compute their fp32-exact split passes).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+# bf16 tensor-core passes per fp32 product: x split three ways against
+# exact bf16 weights (af_matmul); six split-term products (block_sparse)
+TC_PASSES = {"af_matmul": 3, "block_sparse_matmul": 6}
 # the serving path's length buckets (8 lanes each)
 BUCKETS = (32, 64, 128)
 
@@ -54,19 +65,35 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(n_bytes: float, flops: float, passes: int = 0) -> tuple:
+    """The least time for the work, (ms, "bytes" or "operations"): the
+    bytes at the HBM rate, or the operations at the rate of their type:
+    ``flops`` of fp32 work, or, for a kernel that computes on the tensor
+    cores, ``passes`` bf16 products of ``flops`` each."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = passes * flops / BF16_TC_FLOP_PER_S if passes else flops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Device time per call from CUDA events over ``iters`` back-to-back calls."""
+# GPU cycles of the spin that holds the stream while the host enqueues a
+# queued timing's calls (~25 ms at the H100's clocks)
+SPIN_CYCLES = 50_000_000
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 3, queued: bool = False) -> float:
+    """Time per call from CUDA events over ``iters`` back-to-back calls.
+    Where a call's host work (wrapper, launch) outlasts its kernel, the card
+    waits for the host and the time is the host's.  ``queued`` first holds
+    the stream in a spin kernel while the host enqueues every call, so the
+    calls then run without gaps: the device time alone."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -119,14 +146,19 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     rows = []
 
     def row(name, source, replaces, shape, err, tol, ok, ms, plain_ms, n_bytes, flops, library_ms,
-            summary=True, **detail):
+            summary=True, label="serving", **detail):
         """Emit and check one kernel row; ``summary`` rows (one per kernel)
-        go to the kernels line, the others check further shapes."""
-        b_ms, b_by = bound_ms(n_bytes, flops)
+        go to the kernels line, the others check further shapes.  For the
+        tensor-core matmuls the row also gives the same work's time at the
+        fp32 rate (``fp32_rate_ms``, not a bound for them)."""
+        passes = TC_PASSES.get(name, 0)
+        b_ms, b_by = bound_ms(n_bytes, flops, passes)
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "shape": shape, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-        emit({"phase": "kernel", **r, **({} if summary else {"row": f"{name}@serving"}), **detail})
+        if passes:
+            detail["fp32_rate_ms"] = bound_ms(n_bytes, flops)[0]
+        emit({"phase": "kernel", **r, **({} if summary else {"row": f"{name}@{label}"}), **detail})
         if not ok:
             raise AssertionError(f"{name} ({shape}): kernel and plain version disagree beyond {tol} "
                                  f"(max abs error {err})")
@@ -173,34 +205,50 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         time_ms(lambda: softmax_entropy(lg8)), time_ms(lambda: ref.softmax_entropy(lg8)),
         (2 * 8 * C + 8) * 4, 10 * 8 * C, None, summary=False)
 
-    # af_matmul: one encoder layer's six matmuls at M = 2048, on the deployed codes
-    ms = plain = lib = n_bytes = flops = err = 0.0
-    ok = True
-    shapes = []
-    per_shape = {}
+    # af_matmul on the deployed codes: one encoder layer's six matmuls at
+    # M = 2048 (the summary row), at M = 512 and 128 (later layers, fewer
+    # active sentences: the split-K route), the off-ramp's pooler and
+    # classifier at M = 16, and the embed projection at M = 2048
     xs = torch.randn(M, max(d, cfg.d_ff), generator=g, device=dev)
-    for name in ("wq", "wk", "wv", "wo", "w_up", "w_down"):
-        w = dep.layer[name]
-        K, N = w.codes.shape
-        xk = xs[:, :K].contiguous()
-        want = ref.af_matmul(xk, w.codes, w.e_min)
-        got = af_matmul(xk, w.codes, w.e_min)
-        err = max(err, (got - want).abs().max().item())
-        ok = ok and torch.allclose(got, want, rtol=1e-5, atol=1e-5)
-        w_dec = af_decode(w.codes, w.e_min)
-        t = (time_ms(lambda: af_matmul(xk, w.codes, w.e_min), iters=20),
-             time_ms(lambda: ref.af_matmul(xk, w.codes, w.e_min), iters=20),
-             time_ms(lambda: torch.matmul(xk, w_dec), iters=20))
-        nb, nf = M * K * 4 + K * N + M * N * 4, 2.0 * M * K * N
-        per_shape[name] = {"K": K, "N": N, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
-                           "bound_ms": bound_ms(nb, nf)[0]}
-        ms, plain, lib = ms + t[0], plain + t[1], lib + t[2]
-        n_bytes, flops = n_bytes + nb, flops + nf
-        shapes.append(f"{K}x{N}")
-    row("af_matmul", "src/repro_torch/csrc/af_matmul.cu", "src/repro/kernels/adaptivfloat_k.py:99",
-        f"M={M}, one layer: {' + '.join(shapes)} (times and bound summed)", err,
-        "rtol 1e-5 + atol 1e-5", ok,
-        ms, plain, n_bytes, flops, lib, per_shape=per_shape)
+    off = dep.offramp
+    af_cases = [(M, "layer", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")]),
+                (512, "layer@M=512", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")]),
+                (128, "layer@M=128", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")]),
+                (B, "offramp@M=16", [("pooler_w", off["pooler_w"]), ("cls_w", off["cls_w"])])]
+    if dep.embed_proj is not None:
+        af_cases.append((M, "embed_proj", [("embed_proj", dep.embed_proj)]))
+    for Mx, label, weights in af_cases:
+        ms = plain = lib = n_bytes = flops = err = dev_ms = lib_dev = 0.0
+        ok = True
+        shapes = []
+        per_shape = {}
+        for name, w in weights:
+            K, N = w.codes.shape
+            xk = xs[:Mx, :K].contiguous()
+            want = ref.af_matmul(xk, w.codes, w.e_min)
+            got = af_matmul(xk, w.codes, w.e_min)
+            err = max(err, (got - want).abs().max().item())
+            ok = ok and torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+            w_dec = af_decode(w.codes, w.e_min)
+            t = (time_ms(lambda: af_matmul(xk, w.codes, w.e_min), iters=20),
+                 time_ms(lambda: ref.af_matmul(xk, w.codes, w.e_min), iters=20),
+                 time_ms(lambda: torch.matmul(xk, w_dec), iters=20),
+                 time_ms(lambda: af_matmul(xk, w.codes, w.e_min), iters=20, queued=True),
+                 time_ms(lambda: torch.matmul(xk, w_dec), iters=20, queued=True))
+            nb, nf = Mx * K * 4 + K * N + Mx * N * 4, 2.0 * Mx * K * N
+            per_shape[name] = {"K": K, "N": N, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                               "device_ms": t[3], "library_device_ms": t[4],
+                               "bound_ms": bound_ms(nb, nf, TC_PASSES["af_matmul"])[0],
+                               "fp32_rate_ms": bound_ms(nb, nf)[0]}
+            ms, plain, lib = ms + t[0], plain + t[1], lib + t[2]
+            dev_ms, lib_dev = dev_ms + t[3], lib_dev + t[4]
+            n_bytes, flops = n_bytes + nb, flops + nf
+            shapes.append(f"{K}x{N}")
+        row("af_matmul", "src/repro_torch/csrc/af_matmul.cu", "src/repro/kernels/adaptivfloat_k.py:99",
+            f"M={Mx}, {label}: {' + '.join(shapes)} (times and bounds summed)", err,
+            "rtol 1e-5 + atol 1e-5", ok, ms, plain, n_bytes, flops, lib,
+            summary=label == "layer", label=label, device_ms=dev_ms, library_device_ms=lib_dev,
+            per_shape=per_shape)
 
     # span_attention: BH = 16 sentences x 12 live heads, S = 128, dh = 64
     spans_np = np.tile(np.asarray(dep.spans, np.int32), B)
@@ -277,16 +325,18 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
 
     # block_sparse_matmul: the pruned MLP weights at M = 8 lanes x S for
     # each bucket S (the summary row is M = 1024)
-    masks = dispatch.mlp_block_masks({k: v.to(dev) for k, v in sparams["layer"]["mlp"].items()})
+    # the weights on the card, and their indices with the tiles packed from
+    # them (the kernel takes an index only with the weight it was packed from)
+    mlp = {k: v.to(dev).float().contiguous() for k, v in sparams["layer"]["mlp"].items()}
+    masks = dispatch.mlp_block_masks(mlp)
     for S_b in BUCKETS[::-1]:
         Mb = lanes * S_b
-        ms = plain = lib = n_bytes = flops = err = 0.0
+        ms = plain = lib = n_bytes = flops = err = dev_ms = lib_dev = 0.0
         ok = True
         per_shape = {}
         shapes = []
         for name in ("w_up", "w_down"):
-            w = sparams["layer"]["mlp"][name].to(dev).float().contiguous()
-            m = masks[name]
+            w, m = mlp[name], masks[name]
             if m is None:
                 raise AssertionError(f"{name} is not block-pruned")
             K, N = w.shape
@@ -297,21 +347,76 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             ok = ok and torch.allclose(got, want, rtol=1e-5, atol=1e-5)
             t = (time_ms(lambda: block_sparse.block_sparse_matmul(xk, w, m), iters=20),
                  time_ms(lambda: ref.block_sparse_matmul(xk, w, m.mask, m.bk, m.bn), iters=20),
-                 time_ms(lambda: torch.matmul(xk, w), iters=20))
+                 time_ms(lambda: torch.matmul(xk, w), iters=20),
+                 time_ms(lambda: block_sparse.block_sparse_matmul(xk, w, m), iters=20, queued=True),
+                 time_ms(lambda: torch.matmul(xk, w), iters=20, queued=True))
             tiles = m.occupied
             nb = Mb * K * 4 + tiles * m.bk * m.bn * 4 + m.indices.numel() * 4 + Mb * N * 4
             nf = 2.0 * Mb * tiles * m.bk * m.bn
             per_shape[name] = {"K": K, "N": N, "occupied_tiles": tiles, "tiles": int(m.mask.size),
                                "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
-                               "bound_ms": bound_ms(nb, nf)[0]}
+                               "device_ms": t[3], "library_device_ms": t[4],
+                               "bound_ms": bound_ms(nb, nf, TC_PASSES["block_sparse_matmul"])[0],
+                               "fp32_rate_ms": bound_ms(nb, nf)[0]}
             ms, plain, lib = ms + t[0], plain + t[1], lib + t[2]
+            dev_ms, lib_dev = dev_ms + t[3], lib_dev + t[4]
             n_bytes, flops = n_bytes + nb, flops + nf
             shapes.append(f"{K}x{N} ({tiles}/{m.mask.size} tiles)")
         row("block_sparse_matmul", "src/repro_torch/csrc/block_sparse.cu", "src/repro/kernels/block_sparse.py:42",
             f"M={Mb}: {' + '.join(shapes)} at 32x32 tiles (times and bound summed; bound on occupied tiles)",
             err, "rtol 1e-5 + atol 1e-5", ok, ms, plain, n_bytes, flops, lib,
-            summary=S_b == BUCKETS[-1], per_shape=per_shape)
+            summary=S_b == BUCKETS[-1], device_ms=dev_ms, library_device_ms=lib_dev,
+            per_shape=per_shape)
+
+    check_determinism(dep, masks, mlp, dev)
     return rows
+
+
+def check_determinism(dep, masks, mlp, dev) -> None:
+    """Each kernel twice on the same inputs must give the same bits: the
+    matmuls at every M whose grid takes a different split-K route (the
+    clusters reduce their partials in rank order, without atomics), the
+    other kernels at their main shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
+    from repro_torch.kernels.block_sparse import block_sparse_matmul
+    from repro_torch.kernels.layernorm import layernorm
+    from repro_torch.kernels.softmax_entropy import softmax_entropy
+    from repro_torch.kernels.span_attention import span_attention
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    checked = {}
+
+    def same(name, fn):
+        a, b = fn(), fn()
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        checked[name] = all(torch.equal(u, v) for u, v in zip(a, b))
+
+    for Mx in (2048, 512, 128, 16):
+        for name in ("w_up", "w_down"):
+            w = dep.layer[name]
+            xk = torch.randn(Mx, w.codes.shape[0], generator=g, device=dev)
+            same(f"af_matmul M={Mx} {name}", lambda: af_matmul(xk, w.codes, w.e_min))
+    for Mx in (1024, 512, 256):
+        for name in ("w_up", "w_down"):
+            w = mlp[name]
+            xk = torch.randn(Mx, w.shape[0], generator=g, device=dev)
+            same(f"block_sparse_matmul M={Mx} {name}", lambda: block_sparse_matmul(xk, w, masks[name]))
+    x = torch.randn(2048, 768, generator=g, device=dev)
+    gam, bet = torch.randn(768, generator=g, device=dev), torch.randn(768, generator=g, device=dev)
+    same("layernorm", lambda: layernorm(x, gam, bet))
+    lg = torch.randn(16, 3, generator=g, device=dev)
+    same("softmax_entropy", lambda: softmax_entropy(lg))
+    e_min = group_exp_bias(x[:1024], 128)
+    same("af_quantize", lambda: quantize(x[:1024].contiguous(), e_min, 128))
+    q, k, v = (torch.randn(192, 128, 64, generator=g, device=dev) for _ in range(3))
+    spans = torch.as_tensor(np.full(192, 64, np.int32), device=dev)
+    same("span_attention", lambda: span_attention(q, k, v, spans, 64, causal=False))
+    emit({"phase": "determinism", "bitwise_equal": checked})
+    if not all(checked.values()):
+        raise AssertionError(f"repeated launches differ: {[k for k, v in checked.items() if not v]}")
 
 
 # ---------------------------------------------------------------------------
@@ -754,6 +859,43 @@ def host_split(srv, requests) -> dict:
     return {"wall": wall, **spent, "scheduler": wall - sum(spent.values())}
 
 
+def serving_setup(cfg, params, dev, n: int = 32, lanes: int = 8) -> dict:
+    """The serving path's set-up: ``params`` on ``dev``, ``n`` seeded
+    requests of 8-128 tokens, the exit threshold from a full-depth
+    profiling drain, and ``fresh()``, which builds a ClassifierServer
+    (``lanes`` lanes, BUCKETS) with a fresh shared-clock arbiter at the
+    full-depth latency target."""
+    import numpy as np
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.core.early_exit import fit_exit_predictor
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.serving.dvfs import (
+        BatchedDVFSArbiter,
+        default_albert_controller,
+        no_early_exit_baseline,
+    )
+
+    params = tree_to(params, dev)
+    reqs = serving_requests(cfg, n, 128, seed=0)
+    prof = drain(cfg, params, reqs, dev, buckets=BUCKETS, lanes=lanes, threshold=0.0)
+    traces = np.asarray([prof.done[i].entropy_trace for i in range(n)], np.float64)
+    thr = pick_threshold(traces)
+    below = np.concatenate([traces[:, :-1] < thr, np.ones((n, 1), bool)], axis=1)
+    profile_exits = np.argmax(below, axis=1) + 1
+    target = no_early_exit_baseline(albert_layer_stats(seq_len=128))["latency_s"]
+
+    def fresh():
+        controller = default_albert_controller(
+            target, seq_len=128, n_layers=cfg.n_layers,
+            predictor=fit_exit_predictor(traces[:, 0], profile_exits, n_bins=8))
+        return make_server(cfg, params, dev, buckets=BUCKETS, lanes=lanes, threshold=thr,
+                           arbiter=BatchedDVFSArbiter(controller))
+
+    return {"params": params, "requests": reqs, "threshold": thr, "profile_exits": profile_exits,
+            "target": target, "fresh": fresh}
+
+
 def run_serving_path(cfg, params, dev) -> dict:
     """Full-width ClassifierServer on the kernel route with a shared-clock
     arbiter: 32 seeded requests of 8-128 tokens, 8 lanes, buckets
@@ -763,35 +905,12 @@ def run_serving_path(cfg, params, dev) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.early_exit import fit_exit_predictor
-    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
     from repro_torch.kernels import ops
-    from repro_torch.serving.dvfs import (
-        BatchedDVFSArbiter,
-        default_albert_controller,
-        no_early_exit_baseline,
-    )
-
-    from repro_torch.common.device import tree_to
 
     buckets, lanes, n = BUCKETS, 8, 32
-    params = tree_to(params, dev)            # set-up, once
-    reqs = serving_requests(cfg, n, 128, seed=0)
-    prof = drain(cfg, params, reqs, dev, buckets=buckets, lanes=lanes, threshold=0.0)
-    traces = np.asarray([prof.done[i].entropy_trace for i in range(n)], np.float64)
-    thr = pick_threshold(traces)
-    below = np.concatenate([traces[:, :-1] < thr, np.ones((n, 1), bool)], axis=1)
-    profile_exits = np.argmax(below, axis=1) + 1
-    target = no_early_exit_baseline(albert_layer_stats(seq_len=128))["latency_s"]
-
-    def controller():
-        return default_albert_controller(
-            target, seq_len=128, n_layers=cfg.n_layers,
-            predictor=fit_exit_predictor(traces[:, 0], profile_exits, n_bins=8))
-
-    def fresh():
-        return make_server(cfg, params, dev, buckets=buckets, lanes=lanes, threshold=thr,
-                           arbiter=BatchedDVFSArbiter(controller()))
+    ctx = serving_setup(cfg, params, dev, n, lanes)
+    reqs, thr, profile_exits = ctx["requests"], ctx["threshold"], ctx["profile_exits"]
+    target, fresh = ctx["target"], ctx["fresh"]
 
     # the serving path, counted: one drain (server set-up outside the clock)
     srv = fresh()
@@ -877,10 +996,10 @@ def main() -> int:
     seconds = build.build()
     ptxas = {
         name: [ln.strip() for ln in build.log_path(name).read_text().splitlines()
-               if "registers" in ln or "spill" in ln][:8]
+               if "registers" in ln or "spill" in ln or "smem" in ln][:8]
         for name in build.KERNELS
     }
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "resources": build.resources()})
 
     cfg = get_config("albert_edgebert")
     t0 = time.perf_counter()

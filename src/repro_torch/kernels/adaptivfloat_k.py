@@ -9,7 +9,10 @@
 2. ``af_matmul`` — AF8-weight matmul (8-bit multiply, 32-bit accumulate).
    Replaces ``_af_matmul_kernel`` (:99, ``pallas_call`` at :141) with
    ``csrc/af_matmul.cu``: the weights stay uint8 codes in device memory and
-   are decoded per tile in shared memory; fp32 FMAs accumulate.
+   are decoded per tile, exactly, into bf16; x is split exactly into three
+   bf16 terms, so three bf16 tensor-core passes give the float32 product
+   (``csrc/split_mma.cuh``).  The wrapper picks how many blocks of a
+   cluster split K when the output tiles alone would leave SMs idle.
 
 The sources give each kernel's bound on the H100.
 """
@@ -21,8 +24,10 @@ from repro_torch.core.adaptivfloat import AFFormat, exp_bias_from_amax
 from repro_torch.kernels import build, ref
 
 _SIGNATURES = {
-    "repro_af_matmul": [build.PTR] * 3 + [build.INT] * 6 + [build.PTR, build.INT],
+    "repro_af_matmul": [build.PTR] * 3 + [build.INT] * 7 + [build.PTR, build.INT],
 }
+# csrc/af_matmul.cu's output tile and k-step
+_AF_BM, _AF_BN, _AF_BK = 128, 128, 32
 _Q_SIGNATURES = {
     "repro_af_quantize": [build.PTR] * 3 + [build.INT] * 5 + [build.PTR, build.INT],
 }
@@ -90,11 +95,17 @@ def af_matmul(
     K2, N = w_codes.shape
     if K != K2:
         raise ValueError(f"af_matmul: x is [{M}, {K}] but codes are [{K2}, {N}]")
+    # the kernel's decode is exact in bf16 (7 mantissa bits) only while a
+    # code has at most 6: n_bits <= 8, as uint8 codes already imply
+    if fmt.n_bits > 8:
+        raise ValueError(f"af_matmul: AF({fmt.n_bits}, {fmt.n_exp}) codes do not fit in bf16")
+    blocks = -(-M // _AF_BM) * -(-N // _AF_BN)
+    split = build.cluster_split(blocks, -(-K // _AF_BK), build.sm_count(x.device.index))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     lib = build.library("af_matmul", _SIGNATURES)
     err = lib.repro_af_matmul(
         out.data_ptr(), x.data_ptr(), w_codes.data_ptr(), M, K, N, int(e_min),
-        fmt.n_bits, fmt.n_exp, build.stream_of(x), x.device.index,
+        fmt.n_bits, fmt.n_exp, split, build.stream_of(x), x.device.index,
     )
     build.check(lib, err, "af_matmul")
     af_matmul.launches += 1

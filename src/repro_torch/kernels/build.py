@@ -14,8 +14,10 @@ builds what it needs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("layernorm", "softmax_entropy", "af_matmul", "span_attention", "af_quantize", "block_sparse")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "split_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,6 +97,26 @@ def build(names: Iterable[str] = KERNELS) -> float:
     return time.perf_counter() - t0
 
 
+def resources(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Per built kernel library, from nvcc's ``-Xptxas -v`` log: registers,
+    spill stores and loads (bytes) and static shared memory (bytes), the
+    largest over the library's kernels, and the dynamic shared memory its
+    launcher asks for where the library exports it (``repro_smem_bytes``)."""
+    out = {}
+    for name in names:
+        text = log_path(name).read_text()
+        r = {}
+        for key, pat in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"), ("static_smem", r"(\d+) bytes smem")):
+            r[key] = max((int(v) for v in re.findall(pat, text)), default=0)
+        fn = getattr(ctypes.CDLL(str(lib_path(name))), "repro_smem_bytes", None)
+        if fn is not None:
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            r["dynamic_smem"] = fn()
+        out[name] = r
+    return out
+
+
 def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library for kernel ``name`` (built on first use), with the
     argument types of its launchers set; every launcher returns an int
@@ -124,6 +146,27 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on the tensor's device, as a pointer int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def cluster_split(blocks: int, k_steps: int, slots: int) -> int:
+    """How many blocks of a cluster share one output tile's K (split_mma.cuh).
+
+    ``blocks`` is the grid without a split, ``k_steps`` the k-steps (or
+    occupied tiles) one output tile walks, ``slots`` the blocks the card
+    holds at once.  The split doubles, up to 8 (the portable cluster size),
+    while the grid still fits in ``slots`` and every block keeps a k-step:
+    a grid that fills the card is not split, since a split adds a reduction
+    and fills no idle SM."""
+    split = 1
+    while split < 8 and blocks * split * 2 <= slots and split * 2 <= k_steps:
+        split *= 2
+    return split
 
 
 def require_cuda(what: str, *tensors: torch.Tensor, dtype=torch.float32) -> None:

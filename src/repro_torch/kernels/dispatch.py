@@ -14,8 +14,9 @@ The eligibility rules are the JAX package's:
     kernel with a full window plus per-row ``kv_len`` masking;
   * block-sparse MLP needs a static occupancy mask: ``mlp_block_masks``
     derives one from the concrete (pruned) weights when the server is
-    built, with the CSR index uploaded beside it.  Fully occupied weights
-    map to None and their matmuls stay dense.
+    built, with the CSR index and the kernel's packed bf16 tile planes
+    beside it.  Fully occupied weights map to None and their matmuls stay
+    dense.
 
 Each wrapper below routes by device as the kernels do: CPU tensors take the
 plain versions, CUDA tensors launch the kernels.
@@ -123,8 +124,9 @@ def mlp_block_masks(
 ) -> Dict[str, Optional[block_sparse.BlockIndex]]:
     """Static occupancy masks for each MLP weight matrix, from concrete
     (post-pruning) weights at server build time, each with its CSR index
-    on the weight's device.  Fully occupied matrices map to None: dense
-    weights gain nothing from tile skipping."""
+    and its occupied tiles packed for the kernel (``block_sparse.pack_tiles``,
+    once here and never per call) on the weight's device.  Fully occupied
+    matrices map to None: dense weights gain nothing from tile skipping."""
     masks: Dict[str, Optional[block_sparse.BlockIndex]] = {}
     for name in ("w_gate", "w_up", "w_down"):
         w = mlp_params.get(name)
@@ -134,14 +136,16 @@ def mlp_block_masks(
         K, N = wn.shape
         bk_, bn_ = _block_size(K, bk), _block_size(N, bn)
         occ = np.abs(wn.reshape(K // bk_, bk_, N // bn_, bn_)).sum(axis=(1, 3)) > 0
+        w = torch.as_tensor(w)
         masks[name] = (None if occ.all()
-                       else block_sparse.BlockIndex.build(occ, bk_, bn_, torch.as_tensor(w).device))
+                       else block_sparse.BlockIndex.build(occ, bk_, bn_, w.device, w=w))
     return masks
 
 
 def sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: block_sparse.BlockIndex) -> torch.Tensor:
-    """x @ w skipping pruned (all-zero) weight tiles; any leading shape."""
+    """x @ w skipping pruned (all-zero) weight tiles; any leading shape.
+    ``w`` goes through as it is: the index's packed tiles stand for it."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).float().contiguous()
-    out = block_sparse.block_sparse_matmul(x2, w.float().contiguous(), mask)
+    out = block_sparse.block_sparse_matmul(x2, w, mask)
     return out.reshape(*shape[:-1], w.shape[1]).to(x.dtype)

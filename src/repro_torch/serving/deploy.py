@@ -3,7 +3,8 @@
 
 `deploy_albert` bakes an ALBERT-EdgeBERT parameter tree into its on-chip form:
   * matmul weights -> AF8 codes (uint8 + per-tensor bias) — §V-C's 8-bit PU,
-    executed by the `af_matmul` kernel (decode in shared memory, fp32 FMA);
+    executed by the `af_matmul` kernel (codes decoded exactly into bf16,
+    float32 products from an exact split on the tensor cores);
   * learned spans -> integer registers; attention runs the `span_attention`
     kernel (dead heads gathered out, survivors windowed) — §V-D1;
   * LayerNorm -> the fused two-moment kernel — §V-D3;

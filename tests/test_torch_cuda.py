@@ -61,10 +61,15 @@ def test_softmax_entropy(cuda):
         torch.testing.assert_close(h, rh, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("m,k,n", [(2048, 768, 3072), (2048, 3072, 768), (33, 130, 67), (16, 768, 3)])
+@pytest.mark.parametrize("m,k,n", [(2048, 768, 3072), (2048, 3072, 768), (33, 130, 67), (16, 768, 3),
+                                   (128, 768, 768), (512, 3072, 768), (16, 768, 768),
+                                   (2048, 128, 768)])
 def test_af_matmul(cuda, m, k, n):
-    """rtol/atol 1e-5 on unit-scale outputs: the decode is exact, so only the
-    float32 summation order differs from the plain version's cuBLAS call."""
+    """rtol/atol 1e-5 on unit-scale outputs: the decode and the bf16 split
+    are exact, so only the float32 summation order differs from the plain
+    version's cuBLAS call.  The encoder's shapes, the split-K route (M = 128,
+    512, 16), the off-ramp (768 x 3), the embed projection (128 x 768) and
+    unaligned rows (K = 130, N = 67)."""
     codes, e_min = af_encode(_t((k, n), 7, 1.0 / np.sqrt(k)))
     x, codes = _t((m, k), 8).to(cuda), codes.to(cuda)
     got = af_matmul(x, codes, int(e_min))
@@ -93,6 +98,38 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                   torch.zeros(8, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         layernorm(x, torch.ones(8), torch.zeros(8))       # gamma on the CPU
+    # an index built from the mask alone has no packed tiles: no re-pack
+    mask = np.ones((2, 2), bool)
+    with pytest.raises(ValueError):
+        block_sparse.block_sparse_matmul(_t((4, 64), 22).to(cuda), _t((64, 64), 23).to(cuda),
+                                         block_sparse.BlockIndex.build(mask, 32, 32, cuda))
+    # the kernel reads the packed tiles, not w: another weight, or the same
+    # one modified after packing, raises instead of using stale tiles
+    w = _t((64, 64), 23).to(cuda)
+    index = block_sparse.BlockIndex.build(mask, 32, 32, cuda, w=w)
+    x = _t((4, 64), 22).to(cuda)
+    with pytest.raises(ValueError):
+        block_sparse.block_sparse_matmul(x, w.clone(), index)
+    w.mul_(2.0)
+    with pytest.raises(ValueError):
+        block_sparse.block_sparse_matmul(x, w, index)
+
+
+def test_matmul_kernels_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: the split-K
+    routes reduce their clusters' partials in rank order, without atomics."""
+    codes, e_min = af_encode(_t((3072, 768), 24, 1.0 / np.sqrt(3072)))
+    codes = codes.to(cuda)
+    for m in (128, 512, 2048):
+        x = _t((m, 3072), 25).to(cuda)
+        assert torch.equal(af_matmul(x, codes, int(e_min)), af_matmul(x, codes, int(e_min)))
+    w = _t((3072, 768), 26, 1.0 / np.sqrt(3072))
+    w = (w * magnitude_mask(w, 0.5, block_size=32)).to(cuda)
+    index = dispatch.mlp_block_masks({"w_down": w})["w_down"]
+    for m in (256, 512, 1024):
+        x = _t((m, 3072), 27).to(cuda)
+        assert torch.equal(block_sparse.block_sparse_matmul(x, w, index),
+                           block_sparse.block_sparse_matmul(x, w, index))
 
 
 def test_deployed_classify_matches_cpu(cuda):
@@ -142,18 +179,21 @@ def test_af_quantize_bit_exact(cuda):
                        ref.quantize(v, e_min, edges[0].shape[0]))
 
 
-@pytest.mark.parametrize("M,K,N", [(1024, 768, 3072), (1024, 3072, 768), (37, 96, 128)])
+@pytest.mark.parametrize("M,K,N", [(1024, 768, 3072), (1024, 3072, 768), (37, 96, 128),
+                                   (256, 3072, 768), (512, 3072, 768)])
 def test_block_sparse_matmul(cuda, M, K, N):
     """rtol 1e-5 + atol 1e-5 (float32 sums in another order), on weights
-    pruned at 32x32 tiles, one n-block left with no tile (zeros out)."""
+    pruned at 32x32 tiles, one n-block left with no tile (zeros out); the
+    kernel reads the index's packed tiles (split-K at M = 256 and 512)."""
     w = _t((K, N), 32, 1.0 / np.sqrt(K))
     w = w * magnitude_mask(w, 0.5, block_size=32)
     w[:, 32:64] = 0.0
     mask = dispatch.mlp_block_masks({"w_up": w})["w_up"]
     assert mask is not None and not mask.mask[:, 1].any()
     x = _t((M, K), 33)
-    index = block_sparse.BlockIndex.build(mask.mask, 32, 32, cuda)
-    got = block_sparse.block_sparse_matmul(x.to(cuda), w.to(cuda), index)
+    wc = w.to(cuda)
+    index = block_sparse.BlockIndex.build(mask.mask, 32, 32, cuda, w=wc)
+    got = block_sparse.block_sparse_matmul(x.to(cuda), wc, index)
     want = ref.block_sparse_matmul(x, w, mask.mask, 32, 32)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     assert (got[:, 32:64] == 0).all()

@@ -24,14 +24,19 @@ Measured per variant:
   * serving: drain walls (ms, submit to drained; 32 seeded requests of
     8-128 tokens, 8 lanes, buckets 32/64/128, a shared-clock arbiter, full
     width, as chip_smoke's serving phase; each drain on a fresh server, built
-    outside the clock) and the device busy ms of one profiled drain;
+    outside the clock) and the device busy ms of one profiled drain, with
+    its device ms by kernel;
   * deployed (baseline and change): walls of DeployedAlbert.classify on
     16 x 128 tokens at full width, early exit at chip_smoke's threshold, and
-    the device busy ms of one profiled batch;
+    the device busy ms of one profiled batch, with its device ms by kernel;
   * enqueue_us: host microseconds per call of the block-sparse and AF
-    matmul wrappers, enqueued while the stream is held by a spin kernel (the
+    matmul and layernorm ([2048, 768]) wrappers and of the deployed path's
+    attention call, ops.span_attention_op on [16, 128, 12, 64] with every
+    head live (in each checkout what the path runs around the span kernel),
+    enqueued while the stream is held by a spin kernel (the
     wrapper's Python, its checks and the launch; no device time), the least
-    over the rounds of 200 calls each.
+    over the rounds (chip_smoke.enqueue_us: the least of three sets of 200
+    calls in each round).
 
 Prints the card's name and power limit, one JSON line per variant, then a
 line of round-by-round comparisons against the baseline (the median of the
@@ -49,9 +54,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SPIN_CYCLES = 50_000_000       # ~25 ms at the H100's clocks
 MODULES = ("repro_torch.configs.base", "repro_torch.kernels.build", "repro_torch.kernels.dispatch",
            "repro_torch.kernels.adaptivfloat_k", "repro_torch.kernels.block_sparse",
+           "repro_torch.kernels.layernorm", "repro_torch.kernels.span_attention", "repro_torch.kernels.ops",
            "repro_torch.models.model", "repro_torch.serving.deploy", "repro_torch.serving.engine",
            "repro_torch.serving.dvfs", "repro_torch.common.device", "repro_torch.core.pruning",
            "repro_torch.core.early_exit", "repro_torch.hwmodel.edgebert_accel",
@@ -99,20 +104,6 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _enqueue_us(fn, n: int = 200) -> float:
-    """Host microseconds per call of ``fn`` while the stream is held."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
 class Variant:
     """One variant's set-up, built with its modules in place: its serving
     context, and (``deployed``) its deployed model and the inputs of the
@@ -150,8 +141,16 @@ class Variant:
             xa = torch.randn(2048, wq.codes.shape[0], generator=g, device=dev)
             bsm = mods["repro_torch.kernels.block_sparse"].block_sparse_matmul
             afm = mods["repro_torch.kernels.adaptivfloat_k"].af_matmul
+            ln = mods["repro_torch.kernels.layernorm"].layernorm
+            span_op = mods["repro_torch.kernels.ops"].span_attention_op
+            xl = torch.randn(2048, 768, generator=g, device=dev)
+            gam, bet = torch.randn(768, generator=g, device=dev), torch.randn(768, generator=g, device=dev)
+            q, k, v = (torch.randn(16, 128, 12, 64, generator=g, device=dev) for _ in range(3))
+            spans = [64] * 12
             self.calls = {"block_sparse_matmul": lambda: bsm(xs, mlp["w_up"], masks["w_up"]),
-                          "af_matmul": lambda: afm(xa, wq.codes, wq.e_min)}
+                          "af_matmul": lambda: afm(xa, wq.codes, wq.e_min),
+                          "layernorm": lambda: ln(xl, gam, bet),
+                          "span_attention_op": lambda: span_op(q, k, v, spans, causal=False)}
         self.drains, self.batches = [], []
         self.enqueue = {k: [] for k in self.calls}
 
@@ -174,7 +173,7 @@ class Variant:
             if not warm:
                 self.batches.append(ms)
         for k, fn in self.calls.items():
-            us = _enqueue_us(fn)
+            us = cs.enqueue_us(fn)
             if not warm:
                 self.enqueue[k].append(us)
 
@@ -183,16 +182,16 @@ class Variant:
 
         use(self.mods)
         srv = self.server()
-        busy = sum(g["ms"] for g in cs.profile_device(
-            lambda: cs.serve(srv, self.ctx["requests"])).values())
+        by_kernel = cs.profile_device(lambda: cs.serve(srv, self.ctx["requests"]))
         out = {"variant": self.name,
                "serving": {"walls": self.drains, "median": _median(self.drains),
-                           "device_busy_ms": busy}}
+                           "device_busy_ms": sum(g["ms"] for g in by_kernel.values()),
+                           "device_ms_by_kernel": by_kernel}}
         if self.dep is not None:
-            busy = sum(g["ms"] for g in cs.profile_device(
-                lambda: self.dep.classify(self.tokens)).values())
+            by_kernel = cs.profile_device(lambda: self.dep.classify(self.tokens))
             out["deployed"] = {"walls": self.batches, "median": _median(self.batches),
-                               "device_busy_ms": busy}
+                               "device_busy_ms": sum(g["ms"] for g in by_kernel.values()),
+                               "device_ms_by_kernel": by_kernel}
             out["enqueue_us"] = {k: min(v) for k, v in self.enqueue.items()}
         return out
 

@@ -10,11 +10,17 @@ Phases, each printing one JSON line:
                 memory;
   3. kernel   — each kernel against its plain PyTorch version at its paths'
                 shapes, with a stated tolerance, and its time beside the
-                plain version's, one PyTorch library call's and its bound
-                (for the two tensor-core matmuls a bound at the bf16
-                tensor-core rate, their device time alone, and the same
-                work's time at the fp32 rate); then every kernel launched
-                twice on the same inputs must give the same bits;
+                plain version's, one PyTorch library call's and its bound:
+                back to back (`ms`) and queued behind a spin (`device_ms`,
+                `library_device_ms`: the card's time alone), with the
+                host's cost per call (`enqueue_us`) for layernorm and span
+                attention; for the three tensor-core kernels the bound is at
+                the bf16 tensor-core rate, beside the same work's time at
+                the fp32 rate (span attention is called as the paths call
+                it, on [B, S, H, dh] views with per-head spans or per-lane
+                kv_lens); then every kernel launched twice on the same
+                inputs (span attention also with kv_lens and through
+                strided [B, S, H, dh] views) must give the same bits;
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -45,15 +51,17 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke.json"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
-# the fp32 rate outside the tensor cores (where the kernels other than the
-# two matmuls compute) and the bf16 tensor-core rate (where af_matmul and
-# block_sparse_matmul compute their fp32-exact split passes).
+# the fp32 rate outside the tensor cores (where layernorm, softmax_entropy
+# and af_quantize compute) and the bf16 tensor-core rate (where af_matmul,
+# block_sparse_matmul and span_attention compute their fp32-exact split
+# passes).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
 # bf16 tensor-core passes per fp32 product: x split three ways against
-# exact bf16 weights (af_matmul); six split-term products (block_sparse)
-TC_PASSES = {"af_matmul": 3, "block_sparse_matmul": 6}
+# exact bf16 weights (af_matmul); six split-term products (block_sparse,
+# and both products of span_attention)
+TC_PASSES = {"af_matmul": 3, "block_sparse_matmul": 6, "span_attention": 6}
 # the serving path's length buckets (8 lanes each)
 BUCKETS = (32, 64, 128)
 
@@ -102,6 +110,40 @@ def time_ms(fn, iters: int = 50, warmup: int = 3, queued: bool = False) -> float
     return start.elapsed_time(end) / iters
 
 
+def enqueue_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (the wrapper's Python, its checks
+    and the launch) while a spin kernel holds the stream, so no call waits
+    for the device; the least of three rounds of ``n`` calls."""
+    import torch
+
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def kernel_times(fn, plain, lib=None, iters: int = 50, enqueue: bool = False) -> dict:
+    """A kernel's times beside its plain version's and one library call's:
+    back-to-back (``ms``, bounded by the host where its launches outlast the
+    kernel) and queued behind a spin (``device_ms``, the card's time alone);
+    with ``enqueue`` also the host's cost per call of the kernel's wrapper
+    and of the library call."""
+    t = {"ms": time_ms(fn, iters), "device_ms": time_ms(fn, iters, queued=True),
+         "plain_ms": time_ms(plain, iters),
+         "library_ms": None if lib is None else time_ms(lib, iters),
+         "library_device_ms": None if lib is None else time_ms(lib, iters, queued=True)}
+    if enqueue:
+        t["enqueue_us"] = enqueue_us(fn)
+        t["library_enqueue_us"] = None if lib is None else enqueue_us(lib)
+    return t
+
+
 def nvidia_smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -138,24 +180,25 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
     from repro_torch.kernels.layernorm import layernorm
     from repro_torch.kernels.softmax_entropy import softmax_entropy
-    from repro_torch.kernels.span_attention import span_attention
+    from repro_torch.kernels.span_attention import span_attention_heads
 
     g = torch.Generator(device=dev).manual_seed(1)
     B, S, d, H, hd = 16, 128, cfg.d_model, cfg.n_heads, cfg.head_dim
     M = B * S
     rows = []
 
-    def row(name, source, replaces, shape, err, tol, ok, ms, plain_ms, n_bytes, flops, library_ms,
-            summary=True, label="serving", **detail):
+    def row(name, source, replaces, shape, err, tol, ok, n_bytes, flops, *, ms, plain_ms, library_ms,
+            device_ms, library_device_ms=None, summary=True, label="serving", **detail):
         """Emit and check one kernel row; ``summary`` rows (one per kernel)
         go to the kernels line, the others check further shapes.  For the
-        tensor-core matmuls the row also gives the same work's time at the
+        tensor-core kernels the row also gives the same work's time at the
         fp32 rate (``fp32_rate_ms``, not a bound for them)."""
         passes = TC_PASSES.get(name, 0)
         b_ms, b_by = bound_ms(n_bytes, flops, passes)
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "shape": shape, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+             "device_ms": device_ms, "library_device_ms": library_device_ms}
         if passes:
             detail["fp32_rate_ms"] = bound_ms(n_bytes, flops)[0]
         emit({"phase": "kernel", **r, **({} if summary else {"row": f"{name}@{label}"}), **detail})
@@ -171,19 +214,19 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     bet = 0.1 * torch.randn(d, generator=g, device=dev)
     err = (layernorm(x, gam, bet) - ref.layernorm(x, gam, bet)).abs().max().item()
     row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
-        f"[{M}, {d}] fp32", err, "atol 1e-5", err <= 1e-5,
-        time_ms(lambda: layernorm(x, gam, bet)), time_ms(lambda: ref.layernorm(x, gam, bet)),
-        (2 * M * d + 2 * d) * 4, 8 * M * d,
-        time_ms(lambda: F.layer_norm(x, (d,), gam, bet, eps=1e-6)))
+        f"[{M}, {d}] fp32", err, "atol 1e-5", err <= 1e-5, (2 * M * d + 2 * d) * 4, 8 * M * d,
+        **kernel_times(lambda: layernorm(x, gam, bet), lambda: ref.layernorm(x, gam, bet),
+                       lambda: F.layer_norm(x, (d,), gam, bet, eps=1e-6), enqueue=True))
     # ... and at the serving step's [8 lanes x S, 768] for each bucket S
     for S_b in BUCKETS:
         xs_ = torch.randn(8 * S_b, d, generator=g, device=dev) * 3.0
         err = (layernorm(xs_, gam, bet) - ref.layernorm(xs_, gam, bet)).abs().max().item()
         row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
             f"[{8 * S_b}, {d}] fp32", err, "atol 1e-5", err <= 1e-5,
-            time_ms(lambda: layernorm(xs_, gam, bet)), time_ms(lambda: ref.layernorm(xs_, gam, bet)),
             (2 * 8 * S_b * d + 2 * d) * 4, 8 * 8 * S_b * d,
-            time_ms(lambda: F.layer_norm(xs_, (d,), gam, bet, eps=1e-6)), summary=False)
+            **kernel_times(lambda: layernorm(xs_, gam, bet), lambda: ref.layernorm(xs_, gam, bet),
+                           lambda: F.layer_norm(xs_, (d,), gam, bet, eps=1e-6), enqueue=True),
+            summary=False)
 
     # softmax_entropy [16, 3]
     C = cfg.edgebert.early_exit.num_classes
@@ -193,8 +236,8 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     err = max((p - rp).abs().max().item(), (h - rh).abs().max().item())
     row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
         "src/repro/kernels/softmax_entropy.py:17", f"[{B}, {C}] fp32", err, "atol 1e-6", err <= 1e-6,
-        time_ms(lambda: softmax_entropy(lg)), time_ms(lambda: ref.softmax_entropy(lg)),
-        (2 * B * C + B) * 4, 10 * B * C, None)
+        (2 * B * C + B) * 4, 10 * B * C,
+        **kernel_times(lambda: softmax_entropy(lg), lambda: ref.softmax_entropy(lg)))
     # ... and at the serving step's [8 lanes, 3]
     lg8 = torch.randn(8, C, generator=g, device=dev) * 2.0
     p, h = softmax_entropy(lg8)
@@ -202,8 +245,8 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     err = max((p - rp).abs().max().item(), (h - rh).abs().max().item())
     row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
         "src/repro/kernels/softmax_entropy.py:17", f"[8, {C}] fp32", err, "atol 1e-6", err <= 1e-6,
-        time_ms(lambda: softmax_entropy(lg8)), time_ms(lambda: ref.softmax_entropy(lg8)),
-        (2 * 8 * C + 8) * 4, 10 * 8 * C, None, summary=False)
+        (2 * 8 * C + 8) * 4, 10 * 8 * C,
+        **kernel_times(lambda: softmax_entropy(lg8), lambda: ref.softmax_entropy(lg8)), summary=False)
 
     # af_matmul on the deployed codes: one encoder layer's six matmuls at
     # M = 2048 (the summary row), at M = 512 and 128 (later layers, fewer
@@ -246,57 +289,72 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             shapes.append(f"{K}x{N}")
         row("af_matmul", "src/repro_torch/csrc/af_matmul.cu", "src/repro/kernels/adaptivfloat_k.py:99",
             f"M={Mx}, {label}: {' + '.join(shapes)} (times and bounds summed)", err,
-            "rtol 1e-5 + atol 1e-5", ok, ms, plain, n_bytes, flops, lib,
-            summary=label == "layer", label=label, device_ms=dev_ms, library_device_ms=lib_dev,
+            "rtol 1e-5 + atol 1e-5", ok, n_bytes, flops, ms=ms, plain_ms=plain, library_ms=lib,
+            device_ms=dev_ms, library_device_ms=lib_dev, summary=label == "layer", label=label,
             per_shape=per_shape)
 
-    # span_attention: BH = 16 sentences x 12 live heads, S = 128, dh = 64
-    spans_np = np.tile(np.asarray(dep.spans, np.int32), B)
+    # span_attention through the wrapper the paths run, called as they call
+    # it: [B, S, H, dh] activations read through permuted [B, H, S, dh] views
+    # and the result written into a fresh [B, S, H, dh] tensor, with per-head
+    # spans (ops.span_attention_op, every head live) or per-lane kv_lens
+    # (dispatch.dense_attention).  The plain version and SDPA take the same
+    # views.
+    def heads_call(q4, k4, v4, spans_t, window, kv_lens=None):
+        out = torch.empty_like(q4)
+        span_attention_heads(q4.permute(0, 2, 1, 3), k4.permute(0, 2, 1, 3), v4.permute(0, 2, 1, 3), spans_t,
+                             window, causal=False, kv_lens=kv_lens, out=out.permute(0, 2, 1, 3))
+        return out
+
+    def heads(t):
+        return t.permute(0, 2, 1, 3)
+
+    # deployed: 16 sentences x 12 live heads, S = 128, dh = 64
+    spans_np = np.asarray(dep.spans, np.int32)
     window = int(spans_np.max())
-    BH = spans_np.size
-    q, k, v = (torch.randn(BH, S, hd, generator=g, device=dev) for _ in range(3))
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev) for _ in range(3))
     spans = torch.as_tensor(spans_np, device=dev)
-    want = span_attention(q.cpu(), k.cpu(), v.cpu(), spans.cpu(), window, causal=False)
-    got = span_attention(q, k, v, spans, window, causal=False)
+    want = ref.span_attention(heads(q).cpu(), heads(k).cpu(), heads(v).cpu(), spans.cpu(), causal=False)
+    got = heads(heads_call(q, k, v, spans, window))
     err = (got.cpu() - want).abs().max().item()
     dist = np.abs(np.arange(S)[:, None] - np.arange(S)[None, :])
-    pairs = sum(int((dist < s).sum()) for s in spans_np)
+    pairs = B * sum(int((dist < s).sum()) for s in spans_np)
     mask = torch.as_tensor(dist[None] < spans_np[:, None, None], device=dev)
     row("span_attention", "src/repro_torch/csrc/span_attention.cu",
         "src/repro/kernels/span_attention.py:32",
-        f"BH={BH}, S={S}, dh={hd}, window={window}, bidirectional", err, "atol 2e-5", err <= 2e-5,
-        time_ms(lambda: span_attention(q, k, v, spans, window, causal=False)),
-        time_ms(lambda: ref.span_attention(q[None], k[None], v[None], spans, causal=False)),
-        4 * BH * S * hd * 4 + BH * 4, 4.0 * hd * pairs,
-        time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
+        f"B={B}, S={S}, H={H}, dh={hd}, window={window}, bidirectional, [B, S, H, dh] views", err,
+        "atol 2e-5", err <= 2e-5, 4 * B * H * S * hd * 4 + H * 4, 4.0 * hd * pairs,
+        **kernel_times(lambda: heads_call(q, k, v, spans, window),
+                       lambda: ref.span_attention(heads(q), heads(k), heads(v), spans, causal=False),
+                       lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask),
+                       enqueue=True))
 
-    # span_attention on the serving route: window = S, every span S, per-row
-    # kv_lens (one length per lane, 12 heads each), BH = 8 lanes x 12 heads
+    # serving: window = S, no spans, one kv_len per lane, 8 lanes x 12 heads;
+    # the keys at or past a lane's kv_len are neither read nor needed
     for Sb in BUCKETS[::-1]:
         lanes = 8
-        BHs = lanes * H
-        qs, ks, vs = (torch.randn(BHs, Sb, hd, generator=g, device=dev) for _ in range(3))
-        lens_np = np.repeat(np.random.default_rng(Sb).integers(1, Sb + 1, lanes), H).astype(np.int32)
+        qs, ks, vs = (torch.randn(lanes, Sb, H, hd, generator=g, device=dev) for _ in range(3))
+        lens_np = np.random.default_rng(Sb).integers(1, Sb + 1, lanes).astype(np.int32)
         lens = torch.as_tensor(lens_np, device=dev)
-        full = torch.full((BHs,), Sb, dtype=torch.int32, device=dev)
-        want = span_attention(qs.cpu(), ks.cpu(), vs.cpu(), full.cpu(), Sb, causal=False,
-                              kv_lens=lens.cpu())
-        got = span_attention(qs, ks, vs, full, Sb, causal=False, kv_lens=lens)
+        full = torch.full((H,), Sb, dtype=torch.int32)
+        full_d = full.to(dev)
+        want = ref.span_attention(heads(qs).cpu(), heads(ks).cpu(), heads(vs).cpu(), full, causal=False,
+                                  kv_lens=lens.cpu()[:, None].expand(-1, H))
+        got = heads(heads_call(qs, ks, vs, None, Sb, lens))
         err = (got.cpu() - want).abs().max().item()
-        kmask = torch.as_tensor(np.arange(Sb)[None, None, :] < lens_np[:, None, None], device=dev)
-        r = {"name": "span_attention", "route": "cuda", "source": "src/repro_torch/csrc/span_attention.cu",
-             "replaces": "src/repro/kernels/span_attention.py:32",
-             "shape": f"serving: BH={BHs}, S={Sb}, dh={hd}, window={Sb}, kv_lens in [1, {Sb}]",
-             "max_abs_err": err, "tolerance": "atol 2e-5",
-             "ms": time_ms(lambda: span_attention(qs, ks, vs, full, Sb, causal=False, kv_lens=lens)),
-             "plain_ms": time_ms(lambda: ref.span_attention(qs[None], ks[None], vs[None], full,
-                                                            causal=False, kv_lens=lens[None])),
-             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=kmask))}
-        r["bound_ms"], r["bound_by"] = bound_ms(4 * BHs * Sb * hd * 4 + 2 * BHs * 4,
-                                                4.0 * hd * Sb * int(lens_np.sum()))
-        emit({"phase": "kernel", "row": "span_attention@serving", **r})
-        if not err <= 2e-5:
-            raise AssertionError(f"span_attention (kv_lens, S={Sb}): max abs error {err} beyond 2e-5")
+        kmask = torch.as_tensor(np.arange(Sb)[None, None, None, :] < lens_np[:, None, None, None], device=dev)
+        key_rows = H * int(lens_np.sum())
+        row("span_attention", "src/repro_torch/csrc/span_attention.cu",
+            "src/repro/kernels/span_attention.py:32",
+            f"serving: B={lanes}, S={Sb}, H={H}, dh={hd}, window={Sb}, kv_lens in [1, {Sb}], "
+            "[B, S, H, dh] views", err, "atol 2e-5", err <= 2e-5,
+            (2 * lanes * H * Sb * hd + 2 * hd * key_rows) * 4 + lanes * 4, 4.0 * hd * Sb * key_rows,
+            **kernel_times(lambda: heads_call(qs, ks, vs, None, Sb, lens),
+                           lambda: ref.span_attention(heads(qs), heads(ks), heads(vs), full_d,
+                                                      causal=False, kv_lens=lens[:, None].expand(-1, H)),
+                           lambda: F.scaled_dot_product_attention(heads(qs), heads(ks), heads(vs),
+                                                                  attn_mask=kmask),
+                           enqueue=True),
+            summary=False)
 
     # af_quantize: the serving step's [8 lanes x S, 768] activations at each
     # bucket S, one bias per lane; at S = 128 also every float32 within 64
@@ -319,9 +377,9 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             shape += f"; + {edges.shape[0]}x32 binade edges"
         n = xa.numel()
         row("af_quantize", "src/repro_torch/csrc/af_quantize.cu", "src/repro/kernels/adaptivfloat_k.py:41",
-            shape, err, "atol 0 (against the CPU plain version)", err == 0.0,
-            time_ms(lambda: quantize(xa, e_min, S_b)), time_ms(lambda: ref.quantize(xa, e_min, S_b)),
-            2 * n * 4 + lanes * 4, 20.0 * n, None, summary=S_b == BUCKETS[-1])
+            shape, err, "atol 0 (against the CPU plain version)", err == 0.0, 2 * n * 4 + lanes * 4, 20.0 * n,
+            **kernel_times(lambda: quantize(xa, e_min, S_b), lambda: ref.quantize(xa, e_min, S_b)),
+            summary=S_b == BUCKETS[-1])
 
     # block_sparse_matmul: the pruned MLP weights at M = 8 lanes x S for
     # each bucket S (the summary row is M = 1024)
@@ -364,8 +422,8 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             shapes.append(f"{K}x{N} ({tiles}/{m.mask.size} tiles)")
         row("block_sparse_matmul", "src/repro_torch/csrc/block_sparse.cu", "src/repro/kernels/block_sparse.py:42",
             f"M={Mb}: {' + '.join(shapes)} at 32x32 tiles (times and bound summed; bound on occupied tiles)",
-            err, "rtol 1e-5 + atol 1e-5", ok, ms, plain, n_bytes, flops, lib,
-            summary=S_b == BUCKETS[-1], device_ms=dev_ms, library_device_ms=lib_dev,
+            err, "rtol 1e-5 + atol 1e-5", ok, n_bytes, flops, ms=ms, plain_ms=plain, library_ms=lib,
+            device_ms=dev_ms, library_device_ms=lib_dev, summary=S_b == BUCKETS[-1],
             per_shape=per_shape)
 
     check_determinism(dep, masks, mlp, dev)
@@ -384,7 +442,7 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     from repro_torch.kernels.block_sparse import block_sparse_matmul
     from repro_torch.kernels.layernorm import layernorm
     from repro_torch.kernels.softmax_entropy import softmax_entropy
-    from repro_torch.kernels.span_attention import span_attention
+    from repro_torch.kernels.span_attention import span_attention, span_attention_heads
 
     g = torch.Generator(device=dev).manual_seed(2)
     checked = {}
@@ -414,6 +472,28 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     q, k, v = (torch.randn(192, 128, 64, generator=g, device=dev) for _ in range(3))
     spans = torch.as_tensor(np.full(192, 64, np.int32), device=dev)
     same("span_attention", lambda: span_attention(q, k, v, spans, 64, causal=False))
+    lens = torch.as_tensor(np.random.default_rng(3).integers(1, 129, 192).astype(np.int32), device=dev)
+    same("span_attention kv_lens", lambda: span_attention(q, k, v, spans, 64, causal=False, kv_lens=lens))
+    # the strided route: [B, S, H, dh] views in, a [B, S, H, dh] tensor out
+    qs, ks, vs = (torch.randn(16, 128, 12, 64, generator=g, device=dev) for _ in range(3))
+    lane_lens = lens[:16].contiguous()
+
+    def strided():
+        out = torch.empty_like(qs)
+        span_attention_heads(qs.permute(0, 2, 1, 3), ks.permute(0, 2, 1, 3), vs.permute(0, 2, 1, 3), None,
+                             128, causal=False, kv_lens=lane_lens, out=out.permute(0, 2, 1, 3))
+        return out
+
+    same("span_attention strided [B, S, H, dh]", strided)
+
+    def strided_spans():
+        out = torch.empty_like(qs)
+        span_attention_heads(qs.permute(0, 2, 1, 3), ks.permute(0, 2, 1, 3), vs.permute(0, 2, 1, 3), head_spans,
+                             64, causal=False, out=out.permute(0, 2, 1, 3))
+        return out
+
+    head_spans = spans[:12].contiguous()
+    same("span_attention strided [B, S, H, dh], per-head spans", strided_spans)
     emit({"phase": "determinism", "bitwise_equal": checked})
     if not all(checked.values()):
         raise AssertionError(f"repeated launches differ: {[k for k, v in checked.items() if not v]}")
@@ -1024,7 +1104,7 @@ def main() -> int:
         r["launches_by_path"] = by_path
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "launches_by_path")
+            "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "launches_by_path")
     kernels = {"kernels": [{k: r[k] for k in keys} for r in rows]}
     RECORD.append(kernels)
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
-// fp32-exact products on bf16 tensor cores, shared by af_matmul.cu and
-// block_sparse.cu.
+// fp32-exact products on bf16 tensor cores, shared by af_matmul.cu,
+// block_sparse.cu and span_attention.cu.
 //
 // Every float32 x is exactly x0 + x1 + x2 of three bf16 values:
 // x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (round to nearest
@@ -16,8 +16,8 @@
 // an ordinary round-to-nearest add, so the truncation never compounds over K.
 //
 // Here: the split, mma.sync m16n8k16 (bf16 in, f32 accumulate) with its
-// fragment layouts, 16-byte cp.async with zero fill, and split-K over a
-// thread-block cluster: its reduction and the cluster launch.
+// fragment layouts, ldmatrix.trans, 16-byte cp.async with zero fill, and
+// split-K over a thread-block cluster: its reduction and the cluster launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -89,6 +89,34 @@ template <int N>
 __device__ __forceinline__ void promote(float (&acc)[N], const float (&tc)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], tc[i]);
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16: lanes 8i..8i+7 give the 16-byte
+// rows 0..7 of 8 x 8 bf16 matrix i, and register ri receives matrix i: lane
+// (g, t) gets (row g, col 2t) in the low half and (row g, col 2t+1) in the
+// high half.  For a row-major [m][k] operand that is the A fragment above:
+// matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+// (rows 8-15, k 8-15) give a[0..3].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: lanes 8i..8i+7 give the
+// 16-byte rows 0..7 of 8 x 8 bf16 matrix i, and register ri receives matrix
+// i transposed: lane (g, t) gets (row 2t, col g) in the low half and (row
+// 2t+1, col g) in the high half.  For a row-major [k][n] operand that is
+// the B fragment above: rows k 0..7 of an n8 tile give b[0], rows 8..15 b[1].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(s)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------

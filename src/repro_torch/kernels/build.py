@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 
 # ctypes argument kinds for the launchers' signatures
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, INT64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 _LIBS: Dict[str, ctypes.CDLL] = {}   # loaded libraries, by kernel name
 
@@ -97,18 +97,27 @@ def build(names: Iterable[str] = KERNELS) -> float:
     return time.perf_counter() - t0
 
 
+_RESOURCE_PATTERNS = (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                      ("spill_loads", r"(\d+) bytes spill loads"), ("static_smem", r"(\d+) bytes smem"))
+
+
+def _largest(text: str) -> dict:
+    return {key: max((int(v) for v in re.findall(pat, text)), default=0) for key, pat in _RESOURCE_PATTERNS}
+
+
 def resources(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     """Per built kernel library, from nvcc's ``-Xptxas -v`` log: registers,
     spill stores and loads (bytes) and static shared memory (bytes), the
-    largest over the library's kernels, and the dynamic shared memory its
-    launcher asks for where the library exports it (``repro_smem_bytes``)."""
+    largest over the library's kernels, the same for each kernel instance
+    by its (mangled) name under ``functions``, and the dynamic shared
+    memory its launcher asks for where the library exports it
+    (``repro_smem_bytes``)."""
     out = {}
     for name in names:
         text = log_path(name).read_text()
-        r = {}
-        for key, pat in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
-                         ("spill_loads", r"(\d+) bytes spill loads"), ("static_smem", r"(\d+) bytes smem")):
-            r[key] = max((int(v) for v in re.findall(pat, text)), default=0)
+        r = _largest(text)
+        chunks = text.split("Compiling entry function '")[1:]
+        r["functions"] = {c.split("'", 1)[0]: _largest(c) for c in chunks}
         fn = getattr(ctypes.CDLL(str(lib_path(name))), "repro_smem_bytes", None)
         if fn is not None:
             fn.argtypes, fn.restype = [], ctypes.c_int
@@ -120,18 +129,20 @@ def resources(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
 def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library for kernel ``name`` (built on first use), with the
     argument types of its launchers set; every launcher returns an int
-    CUDA error code."""
+    CUDA error code.  After the first call this is one dictionary lookup,
+    and ``lib.<launcher>`` an attribute read (ctypes keeps the function)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(str(lib_path(name)))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    _LIBS[name] = lib
     return lib
 
 
@@ -143,8 +154,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+# PyTorch's raw current-stream query (an int, no Stream object), where this
+# PyTorch build has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on the tensor's device, as a pointer int."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -169,13 +187,16 @@ def cluster_split(blocks: int, k_steps: int, slots: int) -> int:
     return split
 
 
-def require_cuda(what: str, *tensors: torch.Tensor, dtype=torch.float32) -> None:
-    """Validate what the kernel takes: CUDA, one device, contiguous, dtype."""
-    dev = tensors[0].device
+def require_cuda(what: str, *tensors: torch.Tensor, dtype=torch.float32, contiguous: bool = True) -> int:
+    """Validate what the kernel takes (CUDA, one device, contiguous where
+    ``contiguous``, ``dtype`` unless None) with attribute reads only;
+    returns the device index."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{what}: all inputs must be on one CUDA device, got {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
         if dtype is not None and t.dtype != dtype:
             raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    return dev

@@ -91,20 +91,22 @@ def dense_attention(
 ) -> torch.Tensor:
     """Span kernel with window = Sk (full attention) and per-row kv_len:
     the serving step's attention, whose lanes are right-padded to the bucket
-    length and carry their true lengths."""
+    length and carry their true lengths.  The kernel reads q, k and v
+    through permuted views and writes the [B, Sq, H, dh] result in place;
+    only grouped KV heads (KV < H) are expanded first."""
     B, Sq, H, dh = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    KV = k.shape[2]
     G = H // KV
-    qh = q.permute(0, 2, 1, 3).reshape(B * H, Sq, dh).float().contiguous()
-    kh = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(B * H, Sk, dh).float().contiguous()
-    vh = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(B * H, Sk, dh).float().contiguous()
-    spans = torch.full((B * H,), Sk, dtype=torch.int32, device=q.device)
+    kh, vh = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    if G > 1:
+        kh, vh = kh.repeat_interleave(G, dim=1), vh.repeat_interleave(G, dim=1)
     kvl = None
     if kv_len is not None:
-        kvl = torch.as_tensor(kv_len, device=q.device).to(torch.int32).reshape(-1)
-        kvl = kvl.expand(B).repeat_interleave(H).contiguous()
-    out = _span_k.span_attention(qh, kh, vh, spans, Sk, causal=causal, kv_lens=kvl)
-    return out.reshape(B, H, Sq, dh).permute(0, 2, 1, 3).to(q.dtype)
+        kvl = torch.as_tensor(kv_len, device=q.device).to(torch.int32).reshape(-1).expand(B)
+    out = torch.empty((B, Sq, H, dh), dtype=torch.float32, device=q.device)
+    _span_k.span_attention_heads(q.float().permute(0, 2, 1, 3), kh, vh, None, k.shape[1],
+                                 causal=causal, kv_lens=kvl, out=out.permute(0, 2, 1, 3))
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 
 Replaces the Pallas kernel ``repro/kernels/layernorm.py:17``
 ``_layernorm_kernel`` (``pallas_call`` at :44) with the CUDA kernel in
-``csrc/layernorm.cu``: one warp per row, fp32 sums of x and x*x, fused
-gamma/beta.  It is bound by bytes on the H100 (one read and one write of
-the rows); the source says what its simple design leaves for later.
+``csrc/layernorm.cu``: one warp per row held in registers as float4, fp32
+sums of x and x*x, fused gamma/beta.  It is bound by bytes on the H100 (one
+read and one write of the rows); at the serving shapes its time is launch
+latency and the host's cost per call, so the wrapper resolves its launcher
+once (``build.library``) and keeps its checks to attribute reads
+(``build.require_cuda``).
 """
 from __future__ import annotations
 
@@ -18,19 +21,18 @@ _SIGNATURES = {"repro_layernorm": [build.PTR] * 4 + [build.INT, build.INT, build
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """x: [rows, d] (callers flatten leading dims).  A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ref.layernorm(x, gamma, beta, eps)
-    build.require_cuda("layernorm", x, gamma, beta)
+    dev = build.require_cuda("layernorm", x, gamma, beta)
     rows, d = x.shape
     if gamma.shape != (d,) or beta.shape != (d,):
         raise ValueError(f"layernorm: gamma/beta must be [{d}]")
-    out = torch.empty_like(x)
     lib = build.library("layernorm", _SIGNATURES)
-    err = lib.repro_layernorm(
-        out.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        rows, d, eps, build.stream_of(x), x.device.index,
-    )
-    build.check(lib, err, "layernorm")
+    out = torch.empty_like(x)
+    err = lib.repro_layernorm(out.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), rows, d, eps,
+                              build.stream_of(x), dev)
+    if err:
+        build.check(lib, err, "layernorm")
     layernorm.launches += 1
     return out
 

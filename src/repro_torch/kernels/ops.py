@@ -96,7 +96,9 @@ def span_attention_op(
     """EdgeBERT deployed attention: dead heads skipped, survivors windowed.
 
     Returns [B, S, H, dh] with zero context vectors for span-0 heads (the
-    accelerator writes zeros to the UAB for those heads, §V-D1).
+    accelerator writes zeros to the UAB for those heads, §V-D1).  When every
+    head is live (and KV == H) the kernel reads q, k and v through permuted
+    views and writes the [B, S, H, dh] result in place: no copies.
     """
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
@@ -106,24 +108,38 @@ def span_attention_op(
     if len(active) == 0:
         return torch.zeros_like(q)
 
+    if len(active) == H:
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        if G > 1:
+            kh, vh = kh.repeat_interleave(G, dim=1), vh.repeat_interleave(G, dim=1)
+        out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+        span_attention.span_attention_heads(
+            q.permute(0, 2, 1, 3), kh, vh, _head_spans(spans_np, q.device), int(window),
+            causal=causal, out=out.permute(0, 2, 1, 3))
+        return out
+
     # gather the active heads as [B, Ha, S, dh]; row bh = b * Ha + h
     act = torch.as_tensor(active, device=q.device)
     kv_idx = torch.as_tensor(active // G, device=q.device)
     qh = q.permute(0, 2, 1, 3).index_select(1, act)
     kh = k.permute(0, 2, 1, 3).index_select(1, kv_idx)
     vh = v.permute(0, 2, 1, 3).index_select(1, kv_idx)
-    Ha = len(active)
-    sp = torch.as_tensor(np.tile(spans_np[active], B), dtype=torch.int32, device=q.device)
-
-    out = span_attention.span_attention(
-        qh.reshape(B * Ha, Sq, dh).contiguous(),
-        kh.reshape(B * Ha, -1, dh).contiguous(),
-        vh.reshape(B * Ha, -1, dh).contiguous(),
-        sp,
-        int(window),
-        causal=causal,
-    ).reshape(B, Ha, Sq, dh)
+    out = span_attention.span_attention_heads(
+        qh, kh, vh, _head_spans(spans_np[active], q.device), int(window), causal=causal)
 
     full = torch.zeros((B, H, Sq, dh), dtype=q.dtype, device=q.device)
     full.index_copy_(1, act, out)
     return full.permute(0, 2, 1, 3)
+
+
+_HEAD_SPANS: dict = {}
+
+
+def _head_spans(spans_np: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The per-head spans as an int32 tensor on ``device``, uploaded once
+    per distinct set of spans (the deployed spans are fixed registers)."""
+    key = (spans_np.tobytes(), str(device))
+    t = _HEAD_SPANS.get(key)
+    if t is None:
+        t = _HEAD_SPANS[key] = torch.as_tensor(spans_np, dtype=torch.int32, device=device)
+    return t

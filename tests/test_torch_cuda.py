@@ -4,7 +4,9 @@ Every test needs an NVIDIA GPU and nvcc and skips elsewhere.  The file
 imports no JAX (the plain versions are held against the JAX package in
 test_torch_kernels.py), so it runs where JAX is not installed:
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX.)
 """
 import numpy as np
 import pytest
@@ -20,7 +22,7 @@ from repro_torch.kernels import block_sparse, dispatch, ops, ref
 from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
 from repro_torch.kernels.layernorm import layernorm
 from repro_torch.kernels.softmax_entropy import softmax_entropy
-from repro_torch.kernels.span_attention import span_attention
+from repro_torch.kernels.span_attention import span_attention, span_attention_heads
 from repro_torch.models.model import build_model, init_params
 from repro_torch.serving.deploy import deploy_albert
 from repro_torch.serving.engine import ClassifierServer, Request
@@ -48,6 +50,16 @@ def test_layernorm(cuda):
     got = layernorm(x, g, b)
     assert layernorm.launches == before + 1
     torch.testing.assert_close(got, ref.layernorm(x, g, b), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rows,d", [(37, 64), (301, 100), (1025, 768), (259, 3072), (1, 768), (513, 640),
+                                    (97, 896)])
+def test_layernorm_widths(cuda, rows, d):
+    """atol 1e-5 at every width: the generic path (d = 64, 100, 3072), the
+    register-resident float4 rows (d = 128 * 1..8: 640, 768, 896), ragged
+    row counts that leave warps of the last block idle."""
+    x, g, b = _t((rows, d), 6, 3.0).to(cuda), _t((d,), 7).to(cuda), _t((d,), 8).to(cuda)
+    torch.testing.assert_close(layernorm(x, g, b), ref.layernorm(x, g, b), atol=1e-5, rtol=0)
 
 
 def test_softmax_entropy(cuda):
@@ -91,6 +103,30 @@ def test_span_attention(cuda, causal, BH, S, dh, window):
         torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_span_attention_strided_heads(cuda, dh, causal):
+    """[B, S, H, dh] operands read through permuted views and the result
+    written into a permuted view of a [B, S, H, dh] tensor; kv_len below one
+    32-key tile, on a tile edge (32, 64), ragged S; atol 2e-5 against the
+    plain version on contiguous copies."""
+    B, S, H = 3, 100, 4
+    q, k, v = (_t((B, S, H, dh), s) for s in (51, 52, 53))
+    spans = torch.tensor([64, 3, 100, 0], dtype=torch.int32)
+    lens = torch.tensor([5, 32, 64], dtype=torch.int32)
+    flat = [x.permute(0, 2, 1, 3).reshape(B * H, S, dh).contiguous() for x in (q, k, v)]
+    want = span_attention(*flat, spans.repeat(B), 100, causal=causal, kv_lens=lens.repeat_interleave(H))
+    out = torch.full((B, S, H, dh), float("nan"), device=cuda)
+    got = span_attention_heads(*(x.to(cuda).permute(0, 2, 1, 3) for x in (q, k, v)), spans.to(cuda), 100,
+                               causal=causal, kv_lens=lens.to(cuda), out=out.permute(0, 2, 1, 3))
+    assert got.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(out.permute(0, 2, 1, 3).reshape(B * H, S, dh).cpu(), want, atol=2e-5, rtol=0)
+    # repeated launches give the same bits
+    again = span_attention_heads(*(x.to(cuda).permute(0, 2, 1, 3) for x in (q, k, v)), spans.to(cuda), 100,
+                                 causal=causal, kv_lens=lens.to(cuda))
+    assert torch.equal(again, out.permute(0, 2, 1, 3))
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = _t((4, 8), 21).to(cuda)
     with pytest.raises(TypeError):
@@ -98,6 +134,16 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                   torch.zeros(8, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         layernorm(x, torch.ones(8), torch.zeros(8))       # gamma on the CPU
+    # span attention needs every row 16-byte aligned and the dh axis contiguous
+    q = torch.zeros(2 * 64 * 16 + 1, device=cuda)[1:].view(2, 64, 16)
+    spans = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        span_attention(q, q, q, spans, 8, causal=False)
+    qt = torch.zeros(2, 16, 64, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        span_attention(qt, qt, qt, spans, 8, causal=False)
+    with pytest.raises(TypeError):
+        span_attention(qt.contiguous(), qt.contiguous(), qt.contiguous(), spans.long(), 8, causal=False)
     # an index built from the mask alone has no packed tiles: no re-pack
     mask = np.ones((2, 2), bool)
     with pytest.raises(ValueError):

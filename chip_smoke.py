@@ -20,7 +20,12 @@ Phases, each printing one JSON line:
                 it, on [B, S, H, dh] views with per-head spans or per-lane
                 kv_lens); then every kernel launched twice on the same
                 inputs (span attention also with kv_lens and through
-                strided [B, S, H, dh] views) must give the same bits;
+                strided [B, S, H, dh] views; the off-ramp head on both
+                weight forms; the grouped quantize at every bucket) must
+                give the same bits.  softmax_entropy is timed as the
+                off-ramp head and af_quantize as the grouped launch
+                (quantize_groups), each beside the chain of launches it
+                replaces (`replaced_device_ms`, `replaced_enqueue_us`);
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -176,11 +181,18 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     import torch.nn.functional as F
 
     from repro_torch.core.adaptivfloat import af_decode
-    from repro_torch.kernels import block_sparse, dispatch, ref
-    from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
+    from repro_torch.core.early_exit import OfframpParams, offramp_logits
+    from repro_torch.kernels import block_sparse, dispatch, ops, ref
+    from repro_torch.kernels.adaptivfloat_k import (
+        af_matmul,
+        group_exp_bias,
+        quantize,
+        quantize_groups,
+    )
     from repro_torch.kernels.layernorm import layernorm
-    from repro_torch.kernels.softmax_entropy import softmax_entropy
+    from repro_torch.kernels.softmax_entropy import offramp_head, softmax_entropy
     from repro_torch.kernels.span_attention import span_attention_heads
+    from repro_torch.serving import deploy
 
     g = torch.Generator(device=dev).manual_seed(1)
     B, S, d, H, hd = 16, 128, cfg.d_model, cfg.n_heads, cfg.head_dim
@@ -228,36 +240,95 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
                            lambda: F.layer_norm(xs_, (d,), gam, bet, eps=1e-6), enqueue=True),
             summary=False)
 
-    # softmax_entropy [16, 3]
+    # softmax_entropy as the off-ramp head, one launch for pooler, classifier,
+    # softmax entropy and retire: the serving step's [8 lanes, 768] on fp32
+    # weights (the summary row) and the deployed [16, 768] on AF8 codes, the
+    # CLS rows read by stride from [lanes, 128, 768] hidden states.  Beside
+    # each, the chain it replaces, run as the paths ran it before
+    # (`replaced_*`): gemm, add, tanh, gemm, add, the softmax-entropy kernel
+    # and the retire compare (serving); two af_matmul launches on a copy of
+    # the CLS rows, add, tanh, add and the softmax-entropy kernel (deployed).
+    # Logits and entropies within 1e-5 of the plain version, retire equal
+    # wherever the entropy lies 1e-4 or more from the threshold (the median).
+    # the card's floor for one small launch: an empty kernel (a spin of 0
+    # cycles), queued back to back like every `device_ms`
+    launch_floor = time_ms(lambda: torch.cuda._sleep(0), iters=100, queued=True)
     C = cfg.edgebert.early_exit.num_classes
-    lg = torch.randn(B, C, generator=g, device=dev) * 2.0
-    p, h = softmax_entropy(lg)
-    rp, rh = ref.softmax_entropy(lg)
-    err = max((p - rp).abs().max().item(), (h - rh).abs().max().item())
-    row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
-        "src/repro/kernels/softmax_entropy.py:17", f"[{B}, {C}] fp32", err, "atol 1e-6", err <= 1e-6,
-        (2 * B * C + B) * 4, 10 * B * C,
-        **kernel_times(lambda: softmax_entropy(lg), lambda: ref.softmax_entropy(lg)))
-    # ... and at the serving step's [8 lanes, 3]
-    lg8 = torch.randn(8, C, generator=g, device=dev) * 2.0
-    p, h = softmax_entropy(lg8)
-    rp, rh = ref.softmax_entropy(lg8)
-    err = max((p - rp).abs().max().item(), (h - rh).abs().max().item())
-    row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
-        "src/repro/kernels/softmax_entropy.py:17", f"[8, {C}] fp32", err, "atol 1e-6", err <= 1e-6,
-        (2 * 8 * C + 8) * 4, 10 * 8 * C,
-        **kernel_times(lambda: softmax_entropy(lg8), lambda: ref.softmax_entropy(lg8)), summary=False)
+    so = sparams["offramp"]
+    serv_w = OfframpParams(*(so[k].to(dev).float().contiguous() for k in (
+        "offramp_pooler_w", "offramp_pooler_b", "offramp_cls_w", "offramp_cls_b")))
+    off = dep.offramp
+    for label, Bh, af in (("serving", 8, False), ("deployed", B, True)):
+        hh = torch.randn(Bh, S, d, generator=g, device=dev)
+        act = torch.arange(Bh, device=dev) % 4 != 1
+        if af:
+            pw, pb, cw, cb = off["pooler_w"], off["pooler_b"], off["cls_w"], off["cls_b"]
+            args, e_min = (pw.codes, pb, cw.codes, cb), (pw.e_min, cw.e_min)
+            w_bytes = d * d + d * C
+            act = None
+
+            def chain(hh=hh):
+                pooled = torch.tanh(deploy._mm(hh[:, 0, :], off["pooler_w"]) + off["pooler_b"])
+                lg = deploy._mm(pooled, off["cls_w"]) + off["cls_b"]
+                return lg, ops.softmax_entropy_op(lg)[1]
+        else:
+            args, e_min = tuple(serv_w), None
+            w_bytes = (d * d + d * C) * 4
+
+            def chain(hh=hh, act=act):
+                lg = offramp_logits(hh, serv_w)
+                ent = ops.softmax_entropy_op(lg)[1]
+                return lg, ent, act & (ent < thr)
+
+        want = ref.offramp_head(hh, *args, act, 0.0, e_min)
+        thr = float(want[:, C].median())
+        want = ref.offramp_head(hh, *args, act, thr, e_min)
+        got = offramp_head(hh, *args, active=act, threshold=thr, e_min=e_min)
+        err = (got[:, :C + 1] - want[:, :C + 1]).abs().max().item()
+        clear = (want[:, C] - thr).abs() >= 1e-4
+        retire_ok = torch.equal(got[:, C + 1][clear], want[:, C + 1][clear])
+        chain_out = chain()
+        chain_err = max((got[:, :C] - chain_out[0]).abs().max().item(),
+                        (got[:, C] - chain_out[1]).abs().max().item())
+        n_bytes = Bh * d * 4 + w_bytes + (d + C) * 4 + Bh + Bh * (C + 2) * 4
+        flops = 2.0 * Bh * d * d + 2.0 * Bh * d * C + 12.0 * Bh * C
+        row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
+            "src/repro/kernels/softmax_entropy.py:17",
+            f"off-ramp head, {label}: h [{Bh}, {S}, {d}] by stride, pooler {d}x{d} + classifier {d}x{C} "
+            f"{'AF8 codes' if af else 'fp32'}, packed [{Bh}, {C + 2}]", err,
+            "atol 1e-5 (logits, entropy); retire equal 1e-4 from the threshold",
+            err <= 1e-5 and retire_ok and chain_err <= 1e-5, n_bytes, flops,
+            **kernel_times(lambda: offramp_head(hh, *args, active=act, threshold=thr, e_min=e_min),
+                           lambda: ref.offramp_head(hh, *args, act, thr, e_min), enqueue=True),
+            replaced_ms=time_ms(chain), replaced_device_ms=time_ms(chain, queued=True),
+            replaced_enqueue_us=enqueue_us(chain), replaced_max_abs_err=chain_err,
+            retire_equal=retire_ok, retire_compared=int(clear.sum()), launch_floor_device_ms=launch_floor,
+            summary=label == "serving", label=label)
+
+    # ... and given logits (+ mask), the TPU kernel's own function: [16, 3]
+    # and the serving step's [8 lanes, 3]
+    for rows_ in (B, 8):
+        lg = torch.randn(rows_, C, generator=g, device=dev) * 2.0
+        mk = (torch.rand(rows_, C, generator=g, device=dev) > 0.3).float()
+        err = 0.0
+        for m_ in (None, mk):
+            p, h = softmax_entropy(lg, m_)
+            rp, rh = ref.softmax_entropy(lg, m_)
+            err = max(err, (p - rp).abs().max().item(), (h - rh).abs().max().item())
+        row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
+            "src/repro/kernels/softmax_entropy.py:17", f"logits [{rows_}, {C}] fp32 (+ mask)", err,
+            "atol 1e-6", err <= 1e-6, (2 * rows_ * C + rows_) * 4, 10 * rows_ * C,
+            **kernel_times(lambda: softmax_entropy(lg), lambda: ref.softmax_entropy(lg)), summary=False,
+            label=f"logits[{rows_}]")
 
     # af_matmul on the deployed codes: one encoder layer's six matmuls at
     # M = 2048 (the summary row), at M = 512 and 128 (later layers, fewer
-    # active sentences: the split-K route), the off-ramp's pooler and
-    # classifier at M = 16, and the embed projection at M = 2048
+    # active sentences: the split-K route), and the embed projection at
+    # M = 2048 (the off-ramp's two matmuls now run inside the off-ramp head)
     xs = torch.randn(M, max(d, cfg.d_ff), generator=g, device=dev)
-    off = dep.offramp
     af_cases = [(M, "layer", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")]),
                 (512, "layer@M=512", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")]),
-                (128, "layer@M=128", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")]),
-                (B, "offramp@M=16", [("pooler_w", off["pooler_w"]), ("cls_w", off["cls_w"])])]
+                (128, "layer@M=128", [(n, dep.layer[n]) for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")])]
     if dep.embed_proj is not None:
         af_cases.append((M, "embed_proj", [("embed_proj", dep.embed_proj)]))
     for Mx, label, weights in af_cases:
@@ -356,10 +427,17 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
                            enqueue=True),
             summary=False)
 
-    # af_quantize: the serving step's [8 lanes x S, 768] activations at each
-    # bucket S, one bias per lane; at S = 128 also every float32 within 64
-    # ulp of 2**k, k in [-20, 20]; atol 0 against the plain version run on
-    # the CPU.  The summary row is S = 128, the others are extra rows.
+    # af_quantize through quantize_groups, the serving path's one launch
+    # (amax, bias and quantize): the serving step's [8 lanes x S, 768]
+    # activations at each bucket S, one bias per lane; at S = 128 also every
+    # float32 within 64 ulp of 2**k, k in [-20, 20], through the same
+    # launch (one group per k) and through `quantize` with the biases
+    # given; atol 0 and equal biases against the plain version run on the
+    # CPU (group_exp_bias + ref.quantize).  Beside it the chain it replaces
+    # (`replaced_*`): group_exp_bias's PyTorch ops, then `quantize`; and a
+    # PyTorch copy of the same tensor (`copy_device_ms`: one read and one
+    # write, what the bound counts).  The summary row is S = 128, the
+    # others are extra rows.
     lanes = 8
     edges, rpg = binade_edges()
     xe = torch.from_numpy(edges)
@@ -368,18 +446,35 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         xa = torch.randn(lanes * S_b, d, generator=g, device=dev) * 2.0
         xa[3 * S_b:4 * S_b] *= 1e-3
         xa[6 * S_b - S_b // 4:6 * S_b] *= 50.0
-        e_min = group_exp_bias(xa, S_b)
-        err = (quantize(xa, e_min, S_b).cpu() - ref.quantize(xa.cpu(), e_min.cpu(), S_b)).abs().max().item()
+        e_cpu = group_exp_bias(xa.cpu(), S_b)
+        q, e_min = quantize_groups(xa, S_b)
+        err = (q.cpu() - ref.quantize(xa.cpu(), e_cpu, S_b)).abs().max().item()
+        ok = torch.equal(e_min.cpu(), e_cpu)
         shape = f"[{lanes * S_b}, {d}] fp32, {lanes} row groups of {S_b}"
         if S_b == BUCKETS[-1]:
-            err = max(err, (quantize(xe.to(dev), e_edges.to(dev), rpg).cpu()
-                            - ref.quantize(xe, e_edges, rpg)).abs().max().item())
+            qe, ee = quantize_groups(xe.to(dev), rpg)
+            ok = ok and torch.equal(ee.cpu(), e_edges)
+            err = max(err, (qe.cpu() - ref.quantize(xe, e_edges, rpg)).abs().max().item(),
+                      (quantize(xe.to(dev), e_edges.to(dev), rpg).cpu()
+                       - ref.quantize(xe, e_edges, rpg)).abs().max().item())
             shape += f"; + {edges.shape[0]}x32 binade edges"
         n = xa.numel()
+
+        def chain(xa=xa, S_b=S_b):
+            return quantize(xa, group_exp_bias(xa, S_b), S_b)
+
+        copy_to = torch.empty_like(xa)
+
         row("af_quantize", "src/repro_torch/csrc/af_quantize.cu", "src/repro/kernels/adaptivfloat_k.py:41",
-            shape, err, "atol 0 (against the CPU plain version)", err == 0.0, 2 * n * 4 + lanes * 4, 20.0 * n,
-            **kernel_times(lambda: quantize(xa, e_min, S_b), lambda: ref.quantize(xa, e_min, S_b)),
-            summary=S_b == BUCKETS[-1])
+            shape, err, "atol 0 and equal biases (against the CPU plain version)", ok and err == 0.0,
+            2 * n * 4 + lanes * 4, 20.0 * n,
+            **kernel_times(lambda: quantize_groups(xa, S_b), lambda: ref.quantize(xa, e_min, S_b),
+                           enqueue=True),
+            replaced_ms=time_ms(chain), replaced_device_ms=time_ms(chain, queued=True),
+            replaced_enqueue_us=enqueue_us(chain),
+            launch_floor_device_ms=launch_floor,
+            copy_device_ms=time_ms(lambda: copy_to.copy_(xa), queued=True),
+            summary=S_b == BUCKETS[-1], label=f"S={S_b}")
 
     # block_sparse_matmul: the pruned MLP weights at M = 8 lanes x S for
     # each bucket S (the summary row is M = 1024)
@@ -438,10 +533,11 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize, quantize_groups
     from repro_torch.kernels.block_sparse import block_sparse_matmul
     from repro_torch.kernels.layernorm import layernorm
-    from repro_torch.kernels.softmax_entropy import softmax_entropy
+    from repro_torch.kernels.softmax_entropy import offramp_head, softmax_entropy
     from repro_torch.kernels.span_attention import span_attention, span_attention_heads
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -467,8 +563,21 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     same("layernorm", lambda: layernorm(x, gam, bet))
     lg = torch.randn(16, 3, generator=g, device=dev)
     same("softmax_entropy", lambda: softmax_entropy(lg))
+    # the off-ramp head: its partials are summed in block order by whichever
+    # block ends last, on fp32 weights (serving, with an active mask) and on
+    # the deployed AF8 codes
+    hh = torch.randn(16, 128, 768, generator=g, device=dev)
+    act = torch.arange(16, device=dev) % 3 != 0
+    pw, pb = torch.randn(768, 768, generator=g, device=dev) * 0.03, torch.randn(768, generator=g, device=dev)
+    cw, cb = torch.randn(768, 3, generator=g, device=dev) * 0.03, torch.randn(3, generator=g, device=dev)
+    same("softmax_entropy off-ramp head fp32", lambda: offramp_head(hh[:8], pw, pb, cw, cb, active=act[:8],
+                                                                    threshold=1.0))
+    same("softmax_entropy off-ramp head AF8", lambda: ops.offramp_head_op(hh, dep.offramp))
     e_min = group_exp_bias(x[:1024], 128)
     same("af_quantize", lambda: quantize(x[:1024].contiguous(), e_min, 128))
+    for S_b in BUCKETS:
+        same(f"af_quantize groups of {S_b} rows", lambda: quantize_groups(x[:8 * S_b].contiguous(), S_b))
+    same("af_quantize one group of 2048 rows (read twice)", lambda: quantize_groups(x, 2048))
     q, k, v = (torch.randn(192, 128, 64, generator=g, device=dev) for _ in range(3))
     spans = torch.as_tensor(np.full(192, 64, np.int32), device=dev)
     same("span_attention", lambda: span_attention(q, k, v, spans, 64, causal=False))
@@ -667,7 +776,7 @@ def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
     from repro_torch.common.device import tree_to
     from repro_torch.core.adaptivfloat import AFFormat
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.adaptivfloat_k import group_exp_bias
+    from repro_torch.kernels.adaptivfloat_k import quantize_groups
     from repro_torch.models.model import build_model
 
     q = cfg.edgebert.quant
@@ -691,10 +800,11 @@ def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
             with torch.no_grad():
                 pre = model._dense_layer_step(p["layer"], h.to(d), causal=False, kv_len=kv,
                                               use_kernels=True, block_masks=masks, per_lane=True)
-                outs[d] = (pre.cpu(), dispatch.act_quantize(pre, q.n_bits, q.n_exp, groups=lanes).cpu())
-        (pre_c, q_c), (pre_g, q_g) = outs["cpu"], outs[str(dev)]
-        e_c = group_exp_bias(pre_c.reshape(-1, D), bucket, fmt)
-        e_g = group_exp_bias(pre_g.reshape(-1, D), bucket, fmt)
+                # the path's quantization (dispatch.act_quantize) is this
+                # call; on the card its biases come from the kernel
+                qd, ed = quantize_groups(pre.reshape(-1, D).contiguous(), bucket, fmt=fmt)
+                outs[d] = (pre.cpu(), qd.reshape(pre.shape).cpu(), ed.cpu())
+        (pre_c, q_c, e_c), (pre_g, q_g, e_g) = outs["cpu"], outs[str(dev)]
         pre_err = (pre_g - pre_c).abs()
         flip = (q_g != q_c) & valid[..., None]
         lo = torch.minimum(q_g.abs(), q_c.abs())
@@ -774,6 +884,8 @@ def check_serving_reference(cfg_full, sparams_full, dev) -> None:
 
 KERNEL_SYMBOLS = {
     "af_matmul_kernel": "af_matmul",
+    "af_quantize_groups_kernel": "af_quantize",
+    "offramp_head_kernel": "softmax_entropy",
     "span_attention_kernel": "span_attention",
     "layernorm_kernel": "layernorm",
     "softmax_entropy_kernel": "softmax_entropy",

@@ -1,4 +1,5 @@
-// Fused row softmax + entropy (paper Alg. 1 + Eq. 4, the GB unit).
+// Fused row softmax + entropy (paper Alg. 1 + Eq. 4, the GB unit), alone
+// and as the last stage of the off-ramp head.
 //
 // Replaces the Pallas kernel repro/kernels/softmax_entropy.py:17
 // _sm_ent_kernel (pallas_call at :48).  Same math: z = x - max(x),
@@ -6,16 +7,75 @@
 // and NOT renormalised); entropy = log(s) - sum(z * e) / s of the unmasked
 // distribution, clamped at 0.  A null mask means all ones.
 //
-// Bound on the H100 at the main path's shape ([16, 3] off-ramp logits):
-// bytes, and at 0.4 KB both bounds are far below the launch latency, which
-// is what this kernel's time really measures.  Design: one warp per row,
-// lanes stride the row; the exponentials are recomputed in the second pass
-// instead of staged, so any row length is legal.
+// Two entry points:
+//   repro_softmax_entropy  given logits (+ mask): probs and entropy, one
+//                          warp per row;
+//   repro_offramp_head     the whole off-ramp the paths run after a layer
+//                          (repro/serving/step_math.py:85-92,
+//                          repro/serving/deploy.py:97-103):
+//                            pooled = tanh(h[:, 0, :] @ pooler_w + pooler_b)
+//                            logits = pooled @ cls_w + cls_b
+//                            ent    = entropy(softmax(logits))
+//                            retire = active & (ent < threshold)
+//                          into one packed fp32 row per sentence,
+//                          [logits (C) | ent | retire as 1.0 / 0.0].  The
+//                          weights are fp32, or AF8 uint8 codes with their
+//                          per-tensor e_min, decoded exactly as
+//                          csrc/af_matmul.cu does (one template).
+//
+// Bound on the H100 at the paths' shapes: bytes of the pooler weight.  The
+// head reads it once: 2.36 MB fp32 at D = 768 (serving, 0.70 us at
+// 3.35 TB/s) or 0.59 MB of codes (deployed, 0.18 us); its arithmetic is
+// 2 B D^2 = 18.9 MFLOP at B = 16 (0.28 us at 67 TFLOP/s fp32).  At the
+// [8-16, 3] logits alone the kernel's time is launch latency.
+//
+// Design of the head: a GEMV-shaped reduction spread over the card.
+//   * block j owns pooler columns [8 j, 8 j + 8) for every sentence: 96
+//     blocks at D = 768.  Its weight slice (D x 8, fp32 or codes) and the
+//     CLS rows, 8 at a time for B <= 8 (serving) and 16 otherwise (read by
+//     the batch stride: no copy of h), come into shared memory by
+//     cp.async, all in flight together; codes are then decoded in shared
+//     memory;
+//   * 256 threads = 2 groups of 4 columns x 128 k-slices; each thread sums
+//     its k-slice for its 4 columns and all rows of the chunk (a float4 of
+//     weights per k, each CLS value used 4 times), the slices are reduced
+//     by warp shuffles and then across warps in a fixed order, and the
+//     block applies bias and tanh and forms its partial classifier sums
+//     [B, C];
+//   * the last block to finish (a counter, __threadfence) loads every
+//     block's partials into shared memory at once, sums them in
+//     block-index order (a fixed shuffle tree), adds the bias, and writes
+//     softmax, entropy and retire: the same bits on every launch, whichever
+//     block ends last.  It resets the counter for the next launch.  The
+//     counter and scratch must not be shared by two launches that may run
+//     at once: the wrapper keeps a pair per (device, stream).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
+
+// z, e and their sums over one row of n logits, held by one warp.
+__device__ __forceinline__ void row_stats(const float* xr, int n, int lane, float& m, float& s,
+                                          float& sz) {
+  m = -INFINITY;
+  for (int j = lane; j < n; j += 32) m = fmaxf(m, xr[j]);
+  m = warp_max(m);
+  s = 0.f;
+  sz = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float z = xr[j] - m;
+    const float e = expf(z);
+    s += e;
+    sz += z * e;
+  }
+  s = warp_sum(s);
+  sz = warp_sum(sz);
+}
+
+__device__ __forceinline__ float row_entropy(float s, float sz) {
+  return fmaxf(logf(s) - sz / s, 0.f);
+}
 
 __global__ void __launch_bounds__(kWarps * 32)
 softmax_entropy_kernel(float* __restrict__ probs, float* __restrict__ ent,
@@ -25,26 +85,294 @@ softmax_entropy_kernel(float* __restrict__ probs, float* __restrict__ ent,
   const long row = static_cast<long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const float* xr = x + row * n;
-  float m = -INFINITY;
-  for (int j = lane; j < n; j += 32) m = fmaxf(m, xr[j]);
-  m = warp_max(m);
-  float s = 0.f, sz = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float z = xr[j] - m;
-    const float e = expf(z);
-    s += e;
-    sz += z * e;
-  }
-  s = warp_sum(s);
-  sz = warp_sum(sz);
+  float m, s, sz;
+  row_stats(xr, n, lane, m, s, sz);
   float* pr = probs + row * n;
   for (int j = lane; j < n; j += 32) {
     float p = expf(xr[j] - m) / s;
     if (mask != nullptr) p *= mask[row * n + j];
     pr[j] = p;
   }
-  if (lane == 0) ent[row] = fmaxf(logf(s) - sz / s, 0.f);
+  if (lane == 0) ent[row] = row_entropy(s, sz);
 }
+
+// ---------------------------------------------------------------------------
+// The off-ramp head
+// ---------------------------------------------------------------------------
+
+constexpr int kHeadThreads = 256;
+constexpr int kHeadWarps = kHeadThreads / 32;
+constexpr int kNB = 8;                    // pooler columns per block
+constexpr int kCPT = 4;                   // of them per thread
+constexpr int kCG = kNB / kCPT;           // column groups
+constexpr int kKS = kHeadThreads / kCG;   // k-slices
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// AF code [s | e (n_exp) | m (n_mant)] -> (-1)^s 2^(e + e_min) (1 + m / 2^n_mant),
+// e = m = 0 -> signed zero; built from bits, exact.
+__device__ __forceinline__ float af_decode(uint32_t code, int e_min, int n_bits, int n_exp) {
+  const int n_mant = n_bits - 1 - n_exp;
+  const uint32_t sign = (code >> (n_bits - 1)) & 1u;
+  const uint32_t mag = code & ((1u << (n_bits - 1)) - 1u);
+  if (mag == 0u) return __uint_as_float(sign << 31);
+  const uint32_t e = mag >> n_mant, m = mag & ((1u << n_mant) - 1u);
+  return __uint_as_float((sign << 31) | ((e + static_cast<uint32_t>(e_min + 127)) << 23) |
+                         (m << (23 - n_mant)));
+}
+
+template <bool AF>
+__device__ __forceinline__ float weight(const void* w, long i, int e_min, int n_bits, int n_exp) {
+  if constexpr (AF) {
+    return af_decode(static_cast<const uint8_t*>(w)[i], e_min, n_bits, n_exp);
+  } else {
+    return static_cast<const float*>(w)[i];
+  }
+}
+
+struct HeadArgs {
+  float* out;                 // [B, C + 2]
+  float* partial;             // [gridDim.x, B, C] scratch
+  unsigned* counter;          // 0 between launches; one launch at a time
+  const float* h;             // CLS row b at h + b * row_stride, D contiguous floats
+  long row_stride;
+  int B, D, C;
+  const void* pooler_w;       // [D, D] fp32 or codes
+  const float* pooler_b;      // [D]
+  const void* cls_w;          // [D, C] fp32 or codes
+  const float* cls_b;         // [C]
+  const uint8_t* active;      // [B] bool, or null (all active)
+  float threshold;
+  int pooler_e_min, cls_e_min, n_bits, n_exp;
+  int h_vec, w_vec;           // 16-byte rows of h; vector rows of the weight slice
+  long smem_floats;           // the block's shared memory, in floats
+};
+
+// Shared memory, in floats: weight slice [D][kNB], CLS rows [RB][D],
+// per-warp column sums [kHeadWarps][RB][kNB], pooled [RB][kNB], the
+// classifier slice [kNB][C]; then raw codes [D][kNB] bytes (AF only).
+long head_smem_floats(int RB, int D, int C) {
+  return static_cast<long>(D) * kNB + static_cast<long>(RB) * D + kHeadWarps * RB * kNB +
+         RB * kNB + static_cast<long>(kNB) * C;
+}
+
+// RB: CLS rows per chunk (8 or 16; the launcher takes 8 for B <= 8).
+template <bool AF, int RB>
+__global__ void __launch_bounds__(kHeadThreads)
+offramp_head_kernel(const HeadArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = a.D, C = a.C, B = a.B;
+  float* ws = smem;                              // [D][kNB]
+  float* xs = ws + static_cast<long>(D) * kNB;   // [RB][D]
+  float* red = xs + static_cast<long>(RB) * D;   // [kHeadWarps][RB][kNB]
+  float* pooled = red + kHeadWarps * RB * kNB;   // [RB][kNB]
+  float* wc = pooled + RB * kNB;                 // [kNB][C]
+  uint8_t* codes = reinterpret_cast<uint8_t*>(wc + static_cast<long>(kNB) * C);   // [D][kNB]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * kNB;
+  const int ncols = D - n0 < kNB ? D - n0 : kNB;
+
+  // the pooler slice: rows of kNB columns
+  if constexpr (AF) {
+    const uint8_t* w = static_cast<const uint8_t*>(a.pooler_w);
+    if (a.w_vec) {         // D % kNB == 0: every slice is kNB columns wide
+      for (int k = tid; k < D; k += kHeadThreads)
+        cp_async8(codes + k * kNB, w + static_cast<long>(k) * D + n0, 8);
+    } else {
+      for (int e = tid; e < D * kNB; e += kHeadThreads) {
+        const int k = e / kNB, n = e % kNB;
+        codes[e] = n < ncols ? w[static_cast<long>(k) * D + n0 + n] : 0;
+      }
+    }
+  } else {
+    const float* w = static_cast<const float*>(a.pooler_w);
+    if (a.w_vec) {         // D % kNB == 0: every slice is kNB columns wide
+      for (int e = tid; e < D * 2; e += kHeadThreads) {
+        const int k = e >> 1, half = (e & 1) * 4;
+        cp_async16(ws + k * kNB + half, w + static_cast<long>(k) * D + n0 + half, 16);
+      }
+    } else {
+      for (int e = tid; e < D * kNB; e += kHeadThreads) {
+        const int k = e / kNB, n = e % kNB;
+        ws[e] = n < ncols ? w[static_cast<long>(k) * D + n0 + n] : 0.f;
+      }
+    }
+  }
+  // the classifier slice: rows n0 .. n0 + ncols of cls_w
+  for (int e = tid; e < kNB * C; e += kHeadThreads) {
+    const int n = e / C, c = e % C;
+    wc[e] = n < ncols ? weight<AF>(a.cls_w, static_cast<long>(n0 + n) * C + c, a.cls_e_min,
+                                   a.n_bits, a.n_exp)
+                      : 0.f;
+  }
+
+  // thread: columns cg * kCPT .. + kCPT of the slice, k = ks, ks + kKS, ...
+  const int cg = tid % kCG, ks = tid / kCG;
+  for (int r0 = 0; r0 < B; r0 += RB) {
+    const int rows = B - r0 < RB ? B - r0 : RB;
+    // CLS rows r0 .. r0 + rows (zeros past B)
+    if (a.h_vec) {
+      const int q = D / 4;
+      for (int e = tid; e < RB * q; e += kHeadThreads) {
+        const int b = e / q, c4 = (e % q) * 4;
+        const bool ok = b < rows;
+        cp_async16(xs + b * D + c4, a.h + (ok ? (r0 + b) * a.row_stride + c4 : 0), ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < RB * D; e += kHeadThreads) {
+        const int b = e / D, k = e % D;
+        xs[e] = b < rows ? a.h[(r0 + b) * a.row_stride + k] : 0.f;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (AF) {
+      if (r0 == 0) {
+        for (int e = tid; e < D * kNB; e += kHeadThreads)
+          ws[e] = af_decode(codes[e], a.pooler_e_min, a.n_bits, a.n_exp);
+        __syncthreads();
+      }
+    }
+
+    float acc[RB][kCPT];
+#pragma unroll
+    for (int b = 0; b < RB; ++b)
+#pragma unroll
+      for (int c = 0; c < kCPT; ++c) acc[b][c] = 0.f;
+    for (int k = ks; k < D; k += kKS) {
+      const float4 w = *reinterpret_cast<const float4*>(ws + k * kNB + cg * kCPT);
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const float x = xs[b * D + k];
+        acc[b][0] = fmaf(x, w.x, acc[b][0]);
+        acc[b][1] = fmaf(x, w.y, acc[b][1]);
+        acc[b][2] = fmaf(x, w.z, acc[b][2]);
+        acc[b][3] = fmaf(x, w.w, acc[b][3]);
+      }
+    }
+    // the warp's k-slices (lanes kCG apart), then the warps in order
+#pragma unroll
+    for (int off = kCG; off < 32; off <<= 1)
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+#pragma unroll
+        for (int c = 0; c < kCPT; ++c) acc[b][c] += __shfl_xor_sync(0xffffffffu, acc[b][c], off);
+    if (lane < kCG) {
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+#pragma unroll
+        for (int c = 0; c < kCPT; ++c) red[(warp * RB + b) * kNB + lane * kCPT + c] = acc[b][c];
+    }
+    __syncthreads();
+    if (tid < RB * kNB) {
+      const int b = tid / kNB, col = tid % kNB;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kHeadWarps; ++w) s += red[(w * RB + b) * kNB + col];
+      pooled[tid] = col < ncols ? tanhf(s + a.pooler_b[n0 + col]) : 0.f;
+    }
+    __syncthreads();
+    // this block's share of the classifier: columns n0 .. n0 + kNB
+    for (int e = tid; e < rows * C; e += kHeadThreads) {
+      const int b = e / C, c = e % C;
+      float s = 0.f;
+#pragma unroll
+      for (int col = 0; col < kNB; ++col) s = fmaf(pooled[b * kNB + col], wc[col * C + c], s);
+      a.partial[(static_cast<long>(blockIdx.x) * B + r0 + b) * C + c] = s;
+    }
+    __syncthreads();      // xs, red and pooled are reused by the next chunk
+  }
+
+  // the last block to finish reduces every block's partials
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // rows in passes whose partials fit in shared memory (the launcher checks
+  // that one row does); each pass loads them all at once, then sums each
+  // logit over the blocks in index order
+  const int G = gridDim.x, BC = B * C;
+  const int per = static_cast<int>(a.smem_floats / (static_cast<long>(G + 1) * C)) < B
+                      ? static_cast<int>(a.smem_floats / (static_cast<long>(G + 1) * C))
+                      : B;
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int nb = B - b0 < per ? B - b0 : per, P = nb * C;
+    float* ps = smem;                  // [G][P]
+    float* lg = ps + static_cast<long>(G) * P;   // [P]
+    for (int e = tid; e < G * P; e += kHeadThreads)
+      ps[e] = __ldcg(a.partial + static_cast<long>(e / P) * BC + b0 * C + e % P);
+    __syncthreads();
+    for (int p = warp; p < P; p += kHeadWarps) {
+      float s = 0.f;
+      for (int i = lane; i < G; i += 32) s += ps[i * P + p];
+      s = warp_sum(s);
+      if (lane == 0) lg[p] = s + a.cls_b[p % C];
+    }
+    __syncthreads();
+    for (int b = warp; b < nb; b += kHeadWarps) {
+      float m, s, sz;
+      row_stats(lg + b * C, C, lane, m, s, sz);
+      float* o = a.out + static_cast<long>(b0 + b) * (C + 2);
+      for (int c = lane; c < C; c += 32) o[c] = lg[b * C + c];
+      if (lane == 0) {
+        const float ent = row_entropy(s, sz);
+        const bool act = a.active == nullptr || a.active[b0 + b] != 0;
+        o[C] = ent;
+        o[C + 1] = (act && ent < a.threshold) ? 1.f : 0.f;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) *a.counter = 0u;
+}
+
+// dynamic shared memory each instance may use on each device, as opted in
+long g_opted_in[64][2][2];
+
+template <bool AF, int RB>
+cudaError_t launch_head(HeadArgs a, cudaStream_t stream, int device) {
+  a.smem_floats = head_smem_floats(RB, a.D, a.C);
+  const long bytes = a.smem_floats * 4 + (AF ? static_cast<long>(a.D) * kNB : 0);
+  const int grid = (a.D + kNB - 1) / kNB;
+  // the last block's reduction needs one row's partials in shared memory
+  if (static_cast<long>(grid + 1) * a.C > a.smem_floats) return cudaErrorInvalidValue;
+  if (bytes > g_opted_in[device][AF][RB == 16]) {
+    // above 48 KB only after an opt-in (the card refuses more than it has)
+    const cudaError_t err = cudaFuncSetAttribute(
+        offramp_head_kernel<AF, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    g_opted_in[device][AF][RB == 16] = bytes;
+  }
+  offramp_head_kernel<AF, RB><<<grid, kHeadThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool AF>
+cudaError_t launch_head_rows(const HeadArgs& a, cudaStream_t stream, int device) {
+  return a.B <= 8 ? launch_head<AF, 8>(a, stream, device) : launch_head<AF, 16>(a, stream, device);
+}
+
+bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 }  // namespace
 
@@ -58,4 +386,50 @@ REPRO_EXPORT int repro_softmax_entropy(float* probs, float* ent, const float* x,
   softmax_entropy_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       probs, ent, x, mask, rows, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of one head launch (the rows of its partial scratch).
+REPRO_EXPORT int repro_offramp_head_blocks(int D) { return (D + kNB - 1) / kNB; }
+
+// out [B, C + 2] fp32; partial [repro_offramp_head_blocks(D), B, C] fp32
+// scratch; counter: one unsigned, 0 between launches; h: CLS row b at
+// h + b * row_stride (D contiguous floats); pooler_w [D, D], cls_w [D, C]:
+// fp32 when af == 0, else uint8 AF(n_bits, n_exp) codes with biases
+// pooler_e_min / cls_e_min; active [B] bool or null.
+REPRO_EXPORT int repro_offramp_head(float* out, float* partial, unsigned* counter, const float* h,
+                                    long long row_stride, int B, int D, int C,
+                                    const void* pooler_w, const float* pooler_b,
+                                    const void* cls_w, const float* cls_b,
+                                    const uint8_t* active, float threshold, int af,
+                                    int pooler_e_min, int cls_e_min, int n_bits, int n_exp,
+                                    void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= 64 || D <= 0 || C <= 0 || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  HeadArgs a;
+  a.out = out;
+  a.partial = partial;
+  a.counter = counter;
+  a.h = h;
+  a.row_stride = static_cast<long>(row_stride);
+  a.B = B;
+  a.D = D;
+  a.C = C;
+  a.pooler_w = pooler_w;
+  a.pooler_b = pooler_b;
+  a.cls_w = cls_w;
+  a.cls_b = cls_b;
+  a.active = active;
+  a.threshold = threshold;
+  a.pooler_e_min = pooler_e_min;
+  a.cls_e_min = cls_e_min;
+  a.n_bits = n_bits;
+  a.n_exp = n_exp;
+  a.h_vec = D % 4 == 0 && row_stride % 4 == 0 && aligned(h, 16);
+  a.w_vec = D % kNB == 0 && aligned(pooler_w, af ? 8 : 16);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(af ? launch_head_rows<true>(a, s, device)
+                             : launch_head_rows<false>(a, s, device));
 }

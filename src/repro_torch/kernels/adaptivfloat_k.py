@@ -1,11 +1,14 @@
 """AdaptivFloat kernels (paper §III-E + §V-C), the port of
 ``repro/kernels/adaptivfloat_k.py``.
 
-1. ``quantize`` — activation quantize-dequantize with one exponent bias per
-   group of rows.  Replaces the Pallas kernel ``_quantize_kernel`` (:41,
-   ``pallas_call`` at :68) with the CUDA kernel in ``csrc/af_quantize.cu``,
-   bit-exact to its plain version on the CPU.  ``group_exp_bias`` takes the
-   per-group amax and bias outside the kernel, as the JAX wrapper does.
+1. ``quantize_groups`` — activation quantize-dequantize with one exponent
+   bias per group of rows, the bias taken from the group's amax in the same
+   launch.  Replaces the Pallas kernel ``_quantize_kernel`` (:41,
+   ``pallas_call`` at :68) and the amax and bias its wrapper ``quantize``
+   (:47-66) takes around it with the CUDA kernel in ``csrc/af_quantize.cu``
+   (one thread-block cluster per group), bit-exact to its plain version on
+   the CPU (``group_exp_bias`` + ``ref.quantize``).  ``quantize`` is the
+   same source's entry with the biases given.
 2. ``af_matmul`` — AF8-weight matmul (8-bit multiply, 32-bit accumulate).
    Replaces ``_af_matmul_kernel`` (:99, ``pallas_call`` at :141) with
    ``csrc/af_matmul.cu``: the weights stay uint8 codes in device memory and
@@ -17,6 +20,8 @@
 The sources give each kernel's bound on the H100.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -30,6 +35,7 @@ _SIGNATURES = {
 _AF_BM, _AF_BN, _AF_BK = 128, 128, 32
 _Q_SIGNATURES = {
     "repro_af_quantize": [build.PTR] * 3 + [build.INT] * 5 + [build.PTR, build.INT],
+    "repro_af_quantize_groups": [build.PTR] * 3 + [build.INT] * 5 + [build.PTR, build.INT],
 }
 
 
@@ -74,6 +80,37 @@ def quantize(
 
 
 quantize.launches = 0
+
+
+def quantize_groups(
+    x: torch.Tensor,              # [rows, d] fp32, rows = groups * rows_per_group
+    rows_per_group: int,
+    *,
+    fmt: AFFormat = AFFormat(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize-dequantize ``x`` with one bias per group of
+    ``rows_per_group`` rows, each from its group's amax -> (quantized
+    [rows, d], e_min [groups] int32).  A CPU tensor takes the plain version
+    (``group_exp_bias`` then ``quantize``); a CUDA tensor launches the
+    kernel, one launch for amax, bias and quantize, or raises.  Its
+    launches count on ``quantize.launches`` (one kernel source)."""
+    if x.device.type == "cpu":
+        e_min = group_exp_bias(x, rows_per_group, fmt)
+        return ref.quantize(x, e_min, rows_per_group, fmt), e_min
+    build.require_cuda("quantize_groups", x)
+    rows, d = x.shape
+    if rows_per_group <= 0 or rows % rows_per_group:
+        raise ValueError(f"quantize_groups: {rows} rows do not split into groups of {rows_per_group}")
+    out = torch.empty_like(x)
+    e_min = torch.empty(rows // rows_per_group, dtype=torch.int32, device=x.device)
+    lib = build.library("af_quantize", _Q_SIGNATURES)
+    err = lib.repro_af_quantize_groups(
+        out.data_ptr(), e_min.data_ptr(), x.data_ptr(), rows, d, int(rows_per_group),
+        fmt.n_bits, fmt.n_exp, build.stream_of(x), x.device.index,
+    )
+    build.check(lib, err, "quantize_groups")
+    quantize.launches += 1
+    return out, e_min
 
 
 def af_matmul(

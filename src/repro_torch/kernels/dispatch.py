@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.adaptivfloat import AFFormat
+from repro_torch.core.early_exit import OfframpParams
 from repro_torch.kernels import adaptivfloat_k, block_sparse, ops
+from repro_torch.kernels import softmax_entropy as _sm_k
 from repro_torch.kernels import span_attention as _span_k
 
 
@@ -48,11 +50,20 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, eps: 
 # ---------------------------------------------------------------------------
 
 
-def entropy(logits: torch.Tensor) -> torch.Tensor:
-    """Entropy of softmax(logits) over the last axis -> logits.shape[:-1].
-    No mask: off-ramp logits are [lanes, C] class scores with no padded
+def offramp_head(
+    h: torch.Tensor,               # [lanes, S_bucket, D]
+    offramp: OfframpParams,
+    active: torch.Tensor,          # [lanes] bool
+    threshold: float,
+) -> torch.Tensor:
+    """The serving step's off-ramp in one kernel: pooler, classifier,
+    entropy and retire -> packed [lanes, C + 2] fp32 rows [logits | entropy
+    | retire as 1.0 / 0.0] (``softmax_entropy.offramp_head``).  The entropy
+    has no mask: off-ramp logits are [lanes, C] class scores with no padded
     positions (lane padding is masked upstream, in attention)."""
-    return ops.softmax_entropy_op(logits.float())[1]
+    return _sm_k.offramp_head(h.float(), offramp.pooler_w.float(), offramp.pooler_b.float(),
+                              offramp.cls_w.float(), offramp.cls_b.float(), active=active,
+                              threshold=threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -64,15 +75,13 @@ def act_quantize(x: torch.Tensor, n_bits: int, n_exp: int, *, groups: int = 1) -
     """Quantize-dequantize ``x`` with one bias per slice of its leading axis
     split into ``groups`` (the serving step passes one group per lane, as
     the JAX package's ``vmap`` over lanes gives each lane its own amax over
-    its whole padded ``[S_bucket, D]`` slab)."""
+    its whole padded ``[S_bucket, D]`` slab): one launch for the amaxes,
+    biases and quantization."""
     shape = x.shape
     x2 = (x.reshape(-1, shape[-1]) if x.ndim > 1 else x.reshape(1, -1)).float().contiguous()
     if x2.shape[0] % groups:
         raise ValueError(f"act_quantize: {x2.shape[0]} rows do not split into {groups} groups")
-    rpg = x2.shape[0] // groups
-    fmt = AFFormat(n_bits, n_exp)
-    e_min = adaptivfloat_k.group_exp_bias(x2, rpg, fmt)
-    out = adaptivfloat_k.quantize(x2, e_min, rpg, fmt=fmt)
+    out, _ = adaptivfloat_k.quantize_groups(x2, x2.shape[0] // groups, fmt=AFFormat(n_bits, n_exp))
     return out.reshape(shape).to(x.dtype)
 
 

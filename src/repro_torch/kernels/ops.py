@@ -1,7 +1,7 @@
 """The deployed path's entry points to the kernels (the port of
 ``repro/kernels/ops.py`` for the four kernels on that path), and the launch
-counters of all six kernels.  The serving step's ``dispatch.layernorm`` and
-``dispatch.entropy`` go through ``layernorm_op`` and ``softmax_entropy_op``.
+counters of all six kernels.  The serving step's ``dispatch.layernorm`` goes
+through ``layernorm_op``; the deployed off-ramp runs ``offramp_head_op``.
 
 Each op takes tensors in the layout the deployed model holds, reshapes them
 for its kernel and routes by device like the kernels do: CPU tensors run the
@@ -28,7 +28,9 @@ from repro_torch.kernels import (
     span_attention,
 )
 
-# every kernel wrapper, by kernel name; each counts its launches
+# every kernel, by name, with the wrapper that holds its launch count (a
+# source's other entries count on the same: quantize_groups on quantize,
+# offramp_head on softmax_entropy)
 KERNEL_WRAPPERS = {
     "layernorm": layernorm.layernorm,
     "softmax_entropy": softmax_entropy.softmax_entropy,
@@ -79,6 +81,16 @@ def softmax_entropy_op(
         mask = mask.reshape(-1, shape[-1]).contiguous()
     p, h = softmax_entropy.softmax_entropy(x2, mask)
     return p.reshape(shape), h.reshape(shape[:-1])
+
+
+def offramp_head_op(h: torch.Tensor, offramp: dict) -> torch.Tensor:
+    """The deployed off-ramp (pooler, classifier, softmax entropy) on its
+    AF8 weights in one kernel: h [B, S, D] -> packed [B, C + 2] rows
+    [logits | entropy | retire] (retire unused: the deployed loop decides
+    exits on the host)."""
+    pw, cw = offramp["pooler_w"], offramp["cls_w"]
+    return softmax_entropy.offramp_head(h, pw.codes, offramp["pooler_b"], cw.codes, offramp["cls_b"],
+                                        e_min=(pw.e_min, cw.e_min), fmt=pw.fmt)
 
 
 def af_matmul_op(x: torch.Tensor, w_codes: torch.Tensor, e_min: int, n_bits: int = 8, n_exp: int = 3):

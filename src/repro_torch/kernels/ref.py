@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's six kernels.
 
 These repeat the JAX package's oracles (``repro/kernels/ref.py``) and, for
-``quantize``, the body of its Pallas kernel, op for op.  Each kernel wrapper
-takes its plain version for a CPU tensor; on the card ``chip_smoke.py`` and
-the CUDA tests hold each kernel against these.
+``quantize``, the body of its Pallas kernel, op for op; ``offramp_head`` is
+the off-ramp the paths run around ``softmax_entropy`` (pooler, classifier,
+softmax and entropy, retire).  Each kernel wrapper takes its plain version
+for a CPU tensor; on the card ``chip_smoke.py`` and the CUDA tests hold
+each kernel against these.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.adaptivfloat import AFFormat, af_decode, exact_pow2, floor_log2
+from repro_torch.core.early_exit import OfframpParams, offramp_logits
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6):
@@ -39,6 +42,32 @@ def softmax_entropy(
     if mask is not None:
         probs = probs * mask.float()
     return probs.to(logits.dtype), ent.clamp_min(0.0)
+
+
+def offramp_head(
+    h: torch.Tensor,                # [B, S, D]; the CLS rows h[:, 0, :] are read
+    pooler_w: torch.Tensor,         # [D, D] fp32, or uint8 AF codes
+    pooler_b: torch.Tensor,         # [D]
+    cls_w: torch.Tensor,            # [D, C] fp32, or uint8 AF codes
+    cls_b: torch.Tensor,            # [C]
+    active: Optional[torch.Tensor] = None,   # [B] bool; None = all active
+    threshold: float = 0.0,
+    e_min: Optional[Tuple[int, int]] = None,  # (pooler, cls) biases of AF codes
+    fmt: AFFormat = AFFormat(),
+) -> torch.Tensor:
+    """The off-ramp after a layer: ``offramp_logits``, then
+    ``softmax_entropy``, then retire = active & (entropy < threshold),
+    packed into [B, C + 2] fp32 rows [logits | entropy | retire as 1.0 /
+    0.0].  With ``e_min`` the weights are AF codes, decoded first."""
+    if e_min is not None:
+        pooler_w = af_decode(pooler_w, e_min[0], fmt, dtype=torch.float32)
+        cls_w = af_decode(cls_w, e_min[1], fmt, dtype=torch.float32)
+    lg = offramp_logits(h, OfframpParams(pooler_w, pooler_b, cls_w, cls_b))
+    _, ent = softmax_entropy(lg)
+    retire = ent < threshold
+    if active is not None:
+        retire = active & retire
+    return torch.cat([lg.float(), ent[:, None], retire[:, None].float()], dim=1)
 
 
 def af_matmul(

@@ -8,7 +8,8 @@
   * learned spans -> integer registers; attention runs the `span_attention`
     kernel (dead heads gathered out, survivors windowed) — §V-D1;
   * LayerNorm -> the fused two-moment kernel — §V-D3;
-  * off-ramp evaluation -> the fused softmax+entropy kernel — Alg. 1 + Eq. 4;
+  * off-ramp evaluation (pooler, classifier, softmax + entropy) -> one
+    off-ramp head kernel on the AF8 weights — Alg. 1 + Eq. 4;
   * embeddings come back from the eNVM round-trip (bitmask in SLC, AF8 codes
     in MLC2) — §III-D.
 
@@ -92,14 +93,6 @@ class DeployedAlbert:
         mo = _mm(act, lp["w_down"])
         return ops.layernorm_op(h + mo, lp["norm2_scale"], lp["norm2_bias"])
 
-    def _offramp_entropy(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pooler + classifier + fused softmax/entropy kernel (GB unit)."""
-        o = self.offramp
-        pooled = torch.tanh(_mm(h[:, 0, :], o["pooler_w"]) + o["pooler_b"])
-        logits = _mm(pooled, o["cls_w"]) + o["cls_b"]
-        _, ent = ops.softmax_entropy_op(logits)
-        return logits, ent
-
     # -------------------------------------------------------------- public --
     def classify(self, tokens: Any) -> Tuple[np.ndarray, np.ndarray]:
         """Early-exit classification. tokens [B, S] -> (logits [B, C], exit [B]).
@@ -131,9 +124,12 @@ class DeployedAlbert:
             # active rows are written in place on the device (same result:
             # exited rows keep the state they exited with)
             h.index_copy_(0, idx, h_act)
-            logits, ent = self._offramp_entropy(h_act)
-            ent = ent.cpu().numpy()
-            lg = logits.cpu().numpy()
+            # the off-ramp (pooler, classifier, softmax/entropy: the GB
+            # unit) in one kernel on the AF8 weights, and one copy back per
+            # layer of its packed [B, C + 2] rows
+            packed = ops.offramp_head_op(h_act, self.offramp).cpu().numpy()
+            C = packed.shape[1] - 2
+            lg, ent = packed[:, :C], packed[:, C]
             for j, i in enumerate(active):
                 self.last_entropy_traces[i].append(float(ent[j]))
                 if ent[j] < self.threshold or li == cfg.n_layers - 1:

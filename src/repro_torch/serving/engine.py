@@ -316,15 +316,20 @@ class ClassifierServer:
                 self._arb_acc[k] += after[k] - before[k]
             st["dt"] = max(arb.now_s - self.sched.now_s, 0.0)
         self._built("step", bucket)
-        with torch.no_grad():
-            h, lg, ent, retire = step_math.classifier_fused_step(
-                self.model, self.params, st["h"],
+        args = (self.model, self.params, st["h"],
                 torch.from_numpy(np.asarray(active, bool)).to(self.device),
-                torch.from_numpy(st["len"]).to(self.device), float(self.threshold),
-                use_kernels=self.use_kernels, block_masks=self._block_masks,
-            )
+                torch.from_numpy(st["len"]).to(self.device), float(self.threshold))
+        with torch.no_grad():
+            if self.use_kernels:
+                # one device-to-host copy: the off-ramp head's packed rows
+                h, packed = step_math.classifier_head_step(*args, block_masks=self._block_masks)
+                lg, ent, retire = step_math.unpack_head(packed.cpu().numpy())
+                retire = retire != 0
+            else:
+                h, lg, ent, retire = step_math.classifier_fused_step(*args, block_masks=self._block_masks)
+                lg, ent, retire = lg.cpu().numpy(), ent.cpu().numpy(), retire.cpu().numpy()
         st["h"] = h
-        st["out"] = (lg.cpu().numpy(), ent.cpu().numpy(), retire.cpu().numpy(), decision)
+        st["out"] = (lg, ent, retire, decision)
         return st["out"]
 
     def lane_advance(self, bucket: int, lane: int, req: Request, out, depth: int) -> bool:

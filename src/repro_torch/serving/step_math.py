@@ -29,6 +29,14 @@ def classifier_embed(model: Model, params: Any, tokens: torch.Tensor) -> torch.T
     return model.embed(params, tokens)
 
 
+def _layer(model, params, h, active, lengths, use_kernels, block_masks) -> torch.Tensor:
+    h_new = model._dense_layer_step(
+        params["layer"], h, causal=False, span_z=model._span_for_layer(params, 0),
+        kv_len=lengths, use_kernels=use_kernels, block_masks=block_masks, per_lane=True,
+    )
+    return torch.where(active[:, None, None], h_new, h)
+
+
 def classifier_fused_step(
     model: Model,
     params: Any,
@@ -44,17 +52,44 @@ def classifier_fused_step(
 
     Positions beyond a lane's length are bucket padding, masked out of
     attention by its kv_len, so a padded sentence computes the same function
-    as at its native length.  Returns ``(h, logits, entropy, retire)``.
+    as at its native length.  Returns ``(h, logits, entropy, retire)``.  On
+    the kernel route the last three are the views ``unpack_head`` gives of
+    ``classifier_head_step``'s packed buffer, retire as 1.0 / 0.0.
     """
-    h_new = model._dense_layer_step(
-        params["layer"], h, causal=False, span_z=model._span_for_layer(params, 0),
-        kv_len=lengths, use_kernels=use_kernels, block_masks=block_masks, per_lane=True,
-    )
-    h = torch.where(active[:, None, None], h_new, h)
+    if use_kernels:
+        h, packed = classifier_head_step(model, params, h, active, lengths, threshold,
+                                         block_masks=block_masks)
+        return (h, *unpack_head(packed))
+    h = _layer(model, params, h, active, lengths, False, block_masks)
     lg = offramp_logits(h, model._offramp(params))
-    ent = dispatch.entropy(lg) if use_kernels else entropy_from_logits(lg)
+    ent = entropy_from_logits(lg)
     retire = active & (ent < threshold)
     return h, lg, ent, retire
+
+
+def classifier_head_step(
+    model: Model,
+    params: Any,
+    h: torch.Tensor,
+    active: torch.Tensor,
+    lengths: torch.Tensor,
+    threshold: float,
+    *,
+    block_masks: Optional[Dict[str, Any]] = None,
+):
+    """The kernel route of ``classifier_fused_step``: the encoder layer on
+    the kernels, then the whole off-ramp in one launch
+    (``dispatch.offramp_head``) -> ``(h, packed)``, packed [lanes, C + 2]
+    fp32 rows [logits | entropy | retire as 1.0 / 0.0]."""
+    h = _layer(model, params, h, active, lengths, True, block_masks)
+    return h, dispatch.offramp_head(h, model._offramp(params), active, threshold)
+
+
+def unpack_head(packed):
+    """``(logits, entropy, retire)`` views of the off-ramp head's packed
+    rows, a tensor or a numpy array."""
+    C = packed.shape[-1] - 2
+    return packed[:, :C], packed[:, C], packed[:, C + 1]
 
 
 def lane_insert(h: torch.Tensor, lane: int, h_new: torch.Tensor) -> None:

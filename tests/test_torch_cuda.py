@@ -19,9 +19,14 @@ from repro_torch.core.adaptivfloat import af_encode
 from repro_torch.core.pruning import magnitude_mask
 from repro_torch.data.synthetic import SyntheticCLS
 from repro_torch.kernels import block_sparse, dispatch, ops, ref
-from repro_torch.kernels.adaptivfloat_k import af_matmul, group_exp_bias, quantize
+from repro_torch.kernels.adaptivfloat_k import (
+    af_matmul,
+    group_exp_bias,
+    quantize,
+    quantize_groups,
+)
 from repro_torch.kernels.layernorm import layernorm
-from repro_torch.kernels.softmax_entropy import softmax_entropy
+from repro_torch.kernels.softmax_entropy import offramp_head, softmax_entropy
 from repro_torch.kernels.span_attention import span_attention, span_attention_heads
 from repro_torch.models.model import build_model, init_params
 from repro_torch.serving.deploy import deploy_albert
@@ -223,6 +228,132 @@ def test_af_quantize_bit_exact(cuda):
     e_min = group_exp_bias(v, edges[0].shape[0])
     assert torch.equal(quantize(v.to(cuda), e_min.to(cuda), edges[0].shape[0]).cpu(),
                        ref.quantize(v, e_min, edges[0].shape[0]))
+
+
+@pytest.mark.parametrize("rows,d,rpg", [(1024, 768, 128), (512, 768, 64), (256, 768, 32), (111, 100, 37),
+                                        (35, 33, 7), (4096, 768, 4096), (1, 5, 1), (2048, 96, 2)])
+def test_af_quantize_groups_bit_exact(cuda, rows, d, rpg):
+    """One launch for amax, bias and quantize: e_min equal to
+    group_exp_bias and the output bit-exact (atol 0) to the plain version,
+    both on the CPU.  The serving shapes (one group per 128 / 64 / 32-row
+    lane), groups that are not 16-byte multiples (the scalar route: 37 x 100
+    is, 7 x 33 is not), one 4096 x 768 group too large for its cluster's
+    registers (read twice), a single element, many small groups; a group
+    of lane 3 scaled down and one of lane 5 up, so the biases differ."""
+    x = _t((rows, d), 34, 2.0)
+    groups = rows // rpg
+    if groups > 5:
+        x[3 * rpg:4 * rpg] *= 1e-3
+        x[5 * rpg:6 * rpg] *= 50.0
+    before = quantize.launches
+    got, e_min = quantize_groups(x.to(cuda), rpg)
+    assert quantize.launches == before + 1
+    want_e = group_exp_bias(x, rpg)
+    assert torch.equal(e_min.cpu(), want_e)
+    assert torch.equal(got.cpu(), ref.quantize(x, want_e, rpg))
+    # repeated launches give the same bits
+    again, e_again = quantize_groups(x.to(cuda), rpg)
+    assert torch.equal(again, got) and torch.equal(e_again, e_min)
+
+
+def test_af_quantize_groups_binade_edges(cuda):
+    """Every float32 within 64 ulp of 2**k, k in [-20, 20], one group per k,
+    through the grouped kernel (its bias from each group's amax, its floor
+    without the double log away from the binade edges): bit-exact."""
+    edges = [np.concatenate([e, np.zeros((-len(e)) % 32, np.float32)]).reshape(-1, 32)
+             for e in (_binade_edges(64, (k, k)) for k in range(-20, 21))]
+    rpg = edges[0].shape[0]
+    v = torch.from_numpy(np.concatenate(edges))
+    got, e_min = quantize_groups(v.to(cuda), rpg)
+    want_e = group_exp_bias(v, rpg)
+    assert torch.equal(e_min.cpu(), want_e)
+    assert torch.equal(got.cpu(), ref.quantize(v, want_e, rpg))
+
+
+def _head_inputs(B, S, D, C, af, seed):
+    h = _t((B, S, D), seed)
+    pw, cw = _t((D, D), seed + 1, 1 / np.sqrt(D)), _t((D, C), seed + 2, 2 / np.sqrt(D))
+    pb, cb = _t((D,), seed + 3, 0.1), _t((C,), seed + 4, 0.1)
+    e_min = None
+    if af:
+        (pw, pe), (cw, ce) = af_encode(pw), af_encode(cw)
+        e_min = (int(pe), int(ce))
+    active = torch.from_numpy(np.random.default_rng(seed + 5).random(B) < 0.7)
+    return h, pw, pb, cw, cb, active, e_min
+
+
+@pytest.mark.parametrize("af", [False, True])
+@pytest.mark.parametrize("B,S,D,C", [(8, 32, 768, 3), (16, 128, 768, 3), (37, 5, 100, 7), (1, 1, 64, 2),
+                                     (20, 3, 96, 3), (3, 2, 66, 3)])
+def test_offramp_head(cuda, af, B, S, D, C):
+    """The head against its plain version on the card (cuBLAS matmuls,
+    tanh, softmax entropy, retire): logits and entropies within 1e-5, retire
+    equal wherever the entropy lies 1e-4 or more from the threshold (the
+    median entropy); the CLS rows read through a strided view of a larger
+    h; more than 16 rows (two chunks), widths off the 8-column slices,
+    fp32 weights and AF8 codes, rows and slices that are not 16-byte
+    multiples (D = 66: the scalar loads); bitwise repeatable."""
+    h, pw, pb, cw, cb, active, e_min = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                                        for t in _head_inputs(B, 2 * S, D, C, af, 61))
+    hv = h[:, 1::2]                         # every other position: row stride 2 S D, rows at offset D
+    want = ref.offramp_head(hv, pw, pb, cw, cb, active, 0.0, e_min)
+    thr = float(want[:, C].median())
+    want = ref.offramp_head(hv, pw, pb, cw, cb, active, thr, e_min)
+    before = softmax_entropy.launches
+    got = offramp_head(hv, pw, pb, cw, cb, active=active, threshold=thr, e_min=e_min)
+    assert softmax_entropy.launches == before + 1
+    torch.testing.assert_close(got[:, :C + 1], want[:, :C + 1], atol=1e-5, rtol=0)
+    clear = (want[:, C] - thr).abs() >= 1e-4
+    assert torch.equal(got[:, C + 1][clear], want[:, C + 1][clear])
+    assert torch.equal(offramp_head(hv, pw, pb, cw, cb, active=active, threshold=thr, e_min=e_min), got)
+    # all active without a mask
+    got = offramp_head(hv, pw, pb, cw, cb, threshold=thr, e_min=e_min)
+    want = ref.offramp_head(hv, pw, pb, cw, cb, None, thr, e_min)
+    torch.testing.assert_close(got[:, :C + 1], want[:, :C + 1], atol=1e-5, rtol=0)
+    assert torch.equal(got[:, C + 1][clear], want[:, C + 1][clear])
+
+
+def test_offramp_head_shared_workspace(cuda):
+    """The head's counter and partial scratch are kept per (device,
+    stream): launches of different B and D queued back to back on one
+    stream, then the same launches spread over two streams at once, each
+    give the plain version's result."""
+    cases = [_head_inputs(B, 3, D, C, af, 80 + i)
+             for i, (B, D, C, af) in enumerate([(16, 768, 3, False), (5, 100, 7, True), (8, 768, 3, True),
+                                                (37, 96, 2, False)])]
+    cases = [tuple(t.to(cuda) if isinstance(t, torch.Tensor) else t for t in c) for c in cases]
+    wants = [ref.offramp_head(h, pw, pb, cw, cb, active, 0.0, e) for h, pw, pb, cw, cb, active, e in cases]
+
+    def check(gots):
+        for got, want in zip(gots, wants):
+            C = want.shape[1] - 2
+            torch.testing.assert_close(got[:, :C + 1], want[:, :C + 1], atol=1e-5, rtol=0)
+
+    check([offramp_head(h, pw, pb, cw, cb, active=active, e_min=e) for h, pw, pb, cw, cb, active, e in cases])
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    gots = []
+    for _ in range(20):
+        for i, (h, pw, pb, cw, cb, active, e) in enumerate(cases):
+            with torch.cuda.stream(streams[i % 2]):
+                gots.append(offramp_head(h, pw, pb, cw, cb, active=active, e_min=e))
+    torch.cuda.synchronize(cuda)
+    for k in range(0, len(gots), len(cases)):
+        check(gots[k:k + len(cases)])
+
+
+def test_offramp_head_raises(cuda):
+    h, pw, pb, cw, cb, active, _ = _head_inputs(4, 2, 64, 3, False, 71)
+    h, pw, pb, cw, cb, active = (t.to(cuda) for t in (h, pw, pb, cw, cb, active))
+    with pytest.raises(TypeError):
+        offramp_head(h, pw, pb, cw, cb, active=active.int())       # active must be bool
+    with pytest.raises(TypeError):
+        offramp_head(h, pw, pb, cw, cb, e_min=(0, 0))              # fp32 weights passed as codes
+    with pytest.raises(ValueError):
+        offramp_head(h.transpose(1, 2), pw, pb, cw, cb)           # D not contiguous
+    with pytest.raises(ValueError):
+        offramp_head(h, pw[:, :32], pb, cw, cb)                   # pooler not [D, D]
 
 
 @pytest.mark.parametrize("M,K,N", [(1024, 768, 3072), (1024, 3072, 768), (37, 96, 128),

@@ -136,7 +136,7 @@ def test_drain_matches_jax(variant, monkeypatch):
     """use_kernels=True against the JAX package's use_pallas=True: exits
     equal, logits within 2e-4, scheduler telemetry equal; and the kernel
     route takes the ops its eligibility rules give it."""
-    calls = {name: 0 for name in ("layernorm", "entropy", "act_quantize", "dense_attention",
+    calls = {name: 0 for name in ("layernorm", "offramp_head", "act_quantize", "dense_attention",
                                   "sparse_matmul")}
     for name in calls:
         orig = getattr(dispatch, name)
@@ -150,7 +150,7 @@ def test_drain_matches_jax(variant, monkeypatch):
     _assert_same_drain(tsrv, variant["jsrv"], len(variant["tokens"]), variant["tcfg"].n_layers)
     steps = tsrv.telemetry()["dense_steps"]
     assert calls["layernorm"] == 2 * steps
-    assert calls["entropy"] == calls["act_quantize"] == steps
+    assert calls["offramp_head"] == calls["act_quantize"] == steps
     assert calls["dense_attention"] == (0 if variant["name"] == "span" else steps)
     assert calls["sparse_matmul"] == (2 * steps if variant["name"] == "pruned" else 0)
 

@@ -19,10 +19,10 @@ from repro.core.pruning import magnitude_mask as j_magnitude_mask
 from repro.kernels import block_sparse as jbs
 from repro.kernels import dispatch as jdispatch
 from repro.kernels.adaptivfloat_k import quantize as j_quantize
-from repro_torch.core.adaptivfloat import AFFormat
+from repro_torch.core.adaptivfloat import AFFormat, floor_log2
 from repro_torch.core.pruning import magnitude_mask
 from repro_torch.kernels import block_sparse, dispatch, ops, ref
-from repro_torch.kernels.adaptivfloat_k import group_exp_bias, quantize
+from repro_torch.kernels.adaptivfloat_k import group_exp_bias, quantize, quantize_groups
 
 
 def _np(shape, seed, scale=1.0):
@@ -93,11 +93,50 @@ def test_quantize_binade_edges_bit_exact():
     np.testing.assert_array_equal(ref.quantize(v, e_min, rows).numpy(), want)
 
 
+@pytest.mark.parametrize("fmt", [(8, 3), (8, 4), (6, 2)])
+@pytest.mark.parametrize("lanes,S,d", [(4, 16, 48), (3, 5, 33), (1, 32, 64)])
+def test_quantize_groups_matches_jax(fmt, lanes, S, d):
+    """quantize_groups, the serving path's one launch: its e_min equals
+    group_exp_bias, and its output is bit-exact (atol 0) to the JAX
+    package's act_quantize on each lane alone (its serving step's vmap),
+    amax in the padding included."""
+    x = _lanes(1 + S, lanes, S, d, lambda lane: 2 + 3 * lane)
+    edges = _near_binade_edges(4, (-2, 2))            # 90 values near 2**k
+    x[0, :3].reshape(-1)[: len(edges)] = edges[: 3 * d]
+    want = np.asarray(jax.vmap(lambda xl: jdispatch.act_quantize(xl, *fmt))(jnp.asarray(x)))
+    got, e_min = quantize_groups(_t(x.reshape(lanes * S, d)), S, fmt=AFFormat(*fmt))
+    np.testing.assert_array_equal(got.numpy().reshape(x.shape), want)
+    assert e_min.dtype == torch.int32 and e_min.shape == (lanes,)
+    assert torch.equal(e_min, group_exp_bias(_t(x.reshape(lanes * S, d)), S, AFFormat(*fmt)))
+
+
+def test_floor_log2_away_from_binade_edges_is_the_exponent():
+    """What csrc/af_quantize.cu's grouped kernel rests on: a float32 whose
+    mantissa field lies at least 4096 ulp (kEdgeUlps) from both ends of its
+    binade has floor(log(x) * f32(1/ln 2)), taken with the CPU's float32
+    log as the plain version takes it, equal to its exponent field, so the
+    kernel reads the exponent there instead of taking a double log.  Every
+    exponent of the normal range, every mantissa within 2048 ulp beyond each
+    cut-off, and 4096 random mantissas between them."""
+    edge, span = 4096, 2048
+    rng = np.random.default_rng(11)
+    mants = np.concatenate([np.arange(edge, edge + span), np.arange(2 ** 23 - edge - span, 2 ** 23 - edge + 1),
+                            rng.integers(edge, 2 ** 23 - edge, 4096)]).astype(np.int64)
+    for lo in range(1, 255, 32):
+        expo = np.arange(lo, min(lo + 32, 255), dtype=np.int64)
+        bits = (expo[:, None] << 23) | mants[None, :]
+        x = torch.from_numpy(bits.astype(np.uint32).view(np.float32))
+        got = floor_log2(x).numpy()
+        np.testing.assert_array_equal(got, np.broadcast_to((expo - 127)[:, None], got.shape).astype(np.float32))
+
+
 def test_quantize_rejects_rows_that_do_not_split():
     with pytest.raises(ValueError, match="groups"):
         dispatch.act_quantize(torch.zeros(3, 5, 8), 8, 3, groups=2)
     with pytest.raises(ValueError, match="groups of"):
         group_exp_bias(torch.zeros(10, 4), 3)
+    with pytest.raises(ValueError, match="groups of"):
+        quantize_groups(torch.zeros(10, 4), 3)
 
 
 def _pruned_mask(Kb, Nb, seed, empty_col=True):

@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
                 once) and report each one's registers, spills and shared
                 memory;
   3. kernel   — each kernel against its plain PyTorch version at its paths'
-                shapes, with a stated tolerance, and its time beside the
+                shapes (the deployed batch, the serving phase's 8 lanes
+                over buckets 32/64/128, the replay's 4 lanes over buckets
+                16/32), with a stated tolerance, and its time beside the
                 plain version's, one PyTorch library call's and its bound:
                 back to back (`ms`) and queued behind a spin (`device_ms`,
                 `library_device_ms`: the card's time alone), with the
@@ -37,8 +39,24 @@ Phases, each printing one JSON line:
                 block-pruned at 32x32 tiles): ClassifierServer with a
                 BatchedDVFSArbiter serving 32 seeded requests of 8-128
                 tokens over buckets (32, 64, 128), with its kernels' launch
-                counts, drain times and the device time by kernel.
-Then the `{"kernels": [...]}` summary, the nvidia-smi line, and last
+                counts, drain times and the device time by kernel;
+  7. replay   — the multi-task path at the same width
+                (launch/replay.py): a seeded 1000-event mmpp_multitask
+                trace through per-task AdmissionControllers over a
+                ResidencyRouter of four tasks with their own weights, one
+                shared embedding and one arbiter; the replay kernels'
+                launch counts, determinism on the card, the replay
+                contract, replay wall time, device time by kernel and the
+                host time by hook (1000 events, half the example's trace,
+                for time); then the card against the CPU: quant_flips at
+                the replay's lanes and buckets, the first 96 events at full
+                depth (tasks, exits, summaries; logits and first entropies
+                within 5e-2 as served, within 1e-4 with activation
+                quantization off) and the whole smoke-size replay.
+Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
+kernel, at the replay's largest step shape with the replay's launches, or
+for af_matmul, which only the deployed path runs, at the deployed layer
+with that path's launches), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero at once.  A copy of every
@@ -69,6 +87,18 @@ BF16_TC_FLOP_PER_S = 989e12
 TC_PASSES = {"af_matmul": 3, "block_sparse_matmul": 6, "span_attention": 6}
 # the serving path's length buckets (8 lanes each)
 BUCKETS = (32, 64, 128)
+# the replay phase: the trace length (half the example's 2000: at 2000 the
+# phase took 169 s of the script, over the time it may add), the prefix
+# replayed on the card and on the CPU at full width, and the smoke-size
+# replay's length
+REPLAY_EVENTS = 1000
+REPLAY_PREFIX = 96
+SMOKE_REPLAY_EVENTS = 200
+# card against CPU at full width: logits (and entropies) where activation
+# quantization flips carry through twelve layers (see quant_flips), and the
+# replay's per-request logits and first entropies without it
+FULL_WIDTH_ATOL = 5e-2
+REPLAY_ATOL = 1e-4
 
 RECORD: list = []
 
@@ -192,28 +222,40 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     from repro_torch.kernels.layernorm import layernorm
     from repro_torch.kernels.softmax_entropy import offramp_head, softmax_entropy
     from repro_torch.kernels.span_attention import span_attention_heads
+    from repro_torch.launch import replay as rp
     from repro_torch.serving import deploy
 
     g = torch.Generator(device=dev).manual_seed(1)
     B, S, d, H, hd = 16, 128, cfg.d_model, cfg.n_heads, cfg.head_dim
     M = B * S
     rows = []
+    # the fused step's shapes, (path, lanes, bucket): the serving phase's 8
+    # lanes over BUCKETS and the replay's lanes over its buckets.  The
+    # replay's largest bucket gives each serving kernel its summary row, so
+    # the kernels line pairs the replay's launch counts with its own shapes.
+    replay_buckets = tuple(int(b) for b in rp.MMPP_MULTITASK["buckets"])
+    step_shapes = ([("serving", 8, S_b) for S_b in BUCKETS[::-1]]
+                   + [("replay", rp.LANES, S_b) for S_b in replay_buckets[::-1]])
+
+    def summary_of(path, S_b):
+        return "replay" if (path, S_b) == ("replay", max(replay_buckets)) else None
 
     def row(name, source, replaces, shape, err, tol, ok, n_bytes, flops, *, ms, plain_ms, library_ms,
-            device_ms, library_device_ms=None, summary=True, label="serving", **detail):
-        """Emit and check one kernel row; ``summary`` rows (one per kernel)
-        go to the kernels line, the others check further shapes.  For the
-        tensor-core kernels the row also gives the same work's time at the
-        fp32 rate (``fp32_rate_ms``, not a bound for them)."""
+            device_ms, library_device_ms=None, summary=None, label, **detail):
+        """Emit and check one kernel row.  A ``summary`` row (one per kernel)
+        goes to the kernels line with the launches of that path ("replay" or
+        "deploy"); the others check further shapes.  For the tensor-core
+        kernels the row also gives the same work's time at the fp32 rate
+        (``fp32_rate_ms``, not a bound for them)."""
         passes = TC_PASSES.get(name, 0)
         b_ms, b_by = bound_ms(n_bytes, flops, passes)
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "shape": shape, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-             "device_ms": device_ms, "library_device_ms": library_device_ms}
+             "device_ms": device_ms, "library_device_ms": library_device_ms, "path": summary}
         if passes:
             detail["fp32_rate_ms"] = bound_ms(n_bytes, flops)[0]
-        emit({"phase": "kernel", **r, **({} if summary else {"row": f"{name}@{label}"}), **detail})
+        emit({"phase": "kernel", **r, "row": f"{name}@{label}", **detail})
         if not ok:
             raise AssertionError(f"{name} ({shape}): kernel and plain version disagree beyond {tol} "
                                  f"(max abs error {err})")
@@ -228,22 +270,26 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
         f"[{M}, {d}] fp32", err, "atol 1e-5", err <= 1e-5, (2 * M * d + 2 * d) * 4, 8 * M * d,
         **kernel_times(lambda: layernorm(x, gam, bet), lambda: ref.layernorm(x, gam, bet),
-                       lambda: F.layer_norm(x, (d,), gam, bet, eps=1e-6), enqueue=True))
-    # ... and at the serving step's [8 lanes x S, 768] for each bucket S
-    for S_b in BUCKETS:
-        xs_ = torch.randn(8 * S_b, d, generator=g, device=dev) * 3.0
+                       lambda: F.layer_norm(x, (d,), gam, bet, eps=1e-6), enqueue=True),
+        label="deployed")
+    # ... and at the fused step's [lanes x S, 768] for each bucket S
+    for path, ln_lanes, S_b in step_shapes:
+        n_rows = ln_lanes * S_b
+        xs_ = torch.randn(n_rows, d, generator=g, device=dev) * 3.0
         err = (layernorm(xs_, gam, bet) - ref.layernorm(xs_, gam, bet)).abs().max().item()
         row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
-            f"[{8 * S_b}, {d}] fp32", err, "atol 1e-5", err <= 1e-5,
-            (2 * 8 * S_b * d + 2 * d) * 4, 8 * 8 * S_b * d,
+            f"{path}: [{n_rows}, {d}] fp32", err, "atol 1e-5", err <= 1e-5,
+            (2 * n_rows * d + 2 * d) * 4, 8 * n_rows * d,
             **kernel_times(lambda: layernorm(xs_, gam, bet), lambda: ref.layernorm(xs_, gam, bet),
                            lambda: F.layer_norm(xs_, (d,), gam, bet, eps=1e-6), enqueue=True),
-            summary=False)
+            summary=summary_of(path, S_b), label=f"{path}@S={S_b}")
 
     # softmax_entropy as the off-ramp head, one launch for pooler, classifier,
-    # softmax entropy and retire: the serving step's [8 lanes, 768] on fp32
-    # weights (the summary row) and the deployed [16, 768] on AF8 codes, the
-    # CLS rows read by stride from [lanes, 128, 768] hidden states.  Beside
+    # softmax entropy and retire: the fused step's [lanes, 768] on fp32
+    # weights (serving: 8 lanes at S = 128; replay: its lanes at each of its
+    # buckets, the summary row at the largest) and the deployed [16, 768] on
+    # AF8 codes, the CLS rows read by stride from [lanes, S, 768] hidden
+    # states.  Beside
     # each, the chain it replaces, run as the paths ran it before
     # (`replaced_*`): gemm, add, tanh, gemm, add, the softmax-entropy kernel
     # and the retire compare (serving); two af_matmul launches on a copy of
@@ -258,8 +304,10 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     serv_w = OfframpParams(*(so[k].to(dev).float().contiguous() for k in (
         "offramp_pooler_w", "offramp_pooler_b", "offramp_cls_w", "offramp_cls_b")))
     off = dep.offramp
-    for label, Bh, af in (("serving", 8, False), ("deployed", B, True)):
-        hh = torch.randn(Bh, S, d, generator=g, device=dev)
+    head_cases = ([("serving", 8, S, False), ("deployed", B, S, True)]
+                  + [(f"replay@S={S_b}", rp.LANES, S_b, False) for S_b in replay_buckets[::-1]])
+    for label, Bh, Sh, af in head_cases:
+        hh = torch.randn(Bh, Sh, d, generator=g, device=dev)
         act = torch.arange(Bh, device=dev) % 4 != 1
         if af:
             pw, pb, cw, cb = off["pooler_w"], off["pooler_b"], off["cls_w"], off["cls_b"]
@@ -294,7 +342,7 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         flops = 2.0 * Bh * d * d + 2.0 * Bh * d * C + 12.0 * Bh * C
         row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
             "src/repro/kernels/softmax_entropy.py:17",
-            f"off-ramp head, {label}: h [{Bh}, {S}, {d}] by stride, pooler {d}x{d} + classifier {d}x{C} "
+            f"off-ramp head, {label}: h [{Bh}, {Sh}, {d}] by stride, pooler {d}x{d} + classifier {d}x{C} "
             f"{'AF8 codes' if af else 'fp32'}, packed [{Bh}, {C + 2}]", err,
             "atol 1e-5 (logits, entropy); retire equal 1e-4 from the threshold",
             err <= 1e-5 and retire_ok and chain_err <= 1e-5, n_bytes, flops,
@@ -303,7 +351,7 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             replaced_ms=time_ms(chain), replaced_device_ms=time_ms(chain, queued=True),
             replaced_enqueue_us=enqueue_us(chain), replaced_max_abs_err=chain_err,
             retire_equal=retire_ok, retire_compared=int(clear.sum()), launch_floor_device_ms=launch_floor,
-            summary=label == "serving", label=label)
+            summary="replay" if label == f"replay@S={max(replay_buckets)}" else None, label=label)
 
     # ... and given logits (+ mask), the TPU kernel's own function: [16, 3]
     # and the serving step's [8 lanes, 3]
@@ -318,7 +366,7 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
             "src/repro/kernels/softmax_entropy.py:17", f"logits [{rows_}, {C}] fp32 (+ mask)", err,
             "atol 1e-6", err <= 1e-6, (2 * rows_ * C + rows_) * 4, 10 * rows_ * C,
-            **kernel_times(lambda: softmax_entropy(lg), lambda: ref.softmax_entropy(lg)), summary=False,
+            **kernel_times(lambda: softmax_entropy(lg), lambda: ref.softmax_entropy(lg)),
             label=f"logits[{rows_}]")
 
     # af_matmul on the deployed codes: one encoder layer's six matmuls at
@@ -361,8 +409,8 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         row("af_matmul", "src/repro_torch/csrc/af_matmul.cu", "src/repro/kernels/adaptivfloat_k.py:99",
             f"M={Mx}, {label}: {' + '.join(shapes)} (times and bounds summed)", err,
             "rtol 1e-5 + atol 1e-5", ok, n_bytes, flops, ms=ms, plain_ms=plain, library_ms=lib,
-            device_ms=dev_ms, library_device_ms=lib_dev, summary=label == "layer", label=label,
-            per_shape=per_shape)
+            device_ms=dev_ms, library_device_ms=lib_dev, summary="deploy" if label == "layer" else None,
+            label=label, per_shape=per_shape)
 
     # span_attention through the wrapper the paths run, called as they call
     # it: [B, S, H, dh] activations read through permuted [B, H, S, dh] views
@@ -397,12 +445,12 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         **kernel_times(lambda: heads_call(q, k, v, spans, window),
                        lambda: ref.span_attention(heads(q), heads(k), heads(v), spans, causal=False),
                        lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask),
-                       enqueue=True))
+                       enqueue=True),
+        label="deployed")
 
-    # serving: window = S, no spans, one kv_len per lane, 8 lanes x 12 heads;
-    # the keys at or past a lane's kv_len are neither read nor needed
-    for Sb in BUCKETS[::-1]:
-        lanes = 8
+    # the fused step: window = S, no spans, one kv_len per lane, lanes x 12
+    # heads; the keys at or past a lane's kv_len are neither read nor needed
+    for path, lanes, Sb in step_shapes:
         qs, ks, vs = (torch.randn(lanes, Sb, H, hd, generator=g, device=dev) for _ in range(3))
         lens_np = np.random.default_rng(Sb).integers(1, Sb + 1, lanes).astype(np.int32)
         lens = torch.as_tensor(lens_np, device=dev)
@@ -416,7 +464,7 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         key_rows = H * int(lens_np.sum())
         row("span_attention", "src/repro_torch/csrc/span_attention.cu",
             "src/repro/kernels/span_attention.py:32",
-            f"serving: B={lanes}, S={Sb}, H={H}, dh={hd}, window={Sb}, kv_lens in [1, {Sb}], "
+            f"{path}: B={lanes}, S={Sb}, H={H}, dh={hd}, window={Sb}, kv_lens in [1, {Sb}], "
             "[B, S, H, dh] views", err, "atol 2e-5", err <= 2e-5,
             (2 * lanes * H * Sb * hd + 2 * hd * key_rows) * 4 + lanes * 4, 4.0 * hd * Sb * key_rows,
             **kernel_times(lambda: heads_call(qs, ks, vs, None, Sb, lens),
@@ -425,33 +473,33 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
                            lambda: F.scaled_dot_product_attention(heads(qs), heads(ks), heads(vs),
                                                                   attn_mask=kmask),
                            enqueue=True),
-            summary=False)
+            summary=summary_of(path, Sb), label=f"{path}@S={Sb}")
 
     # af_quantize through quantize_groups, the serving path's one launch
-    # (amax, bias and quantize): the serving step's [8 lanes x S, 768]
-    # activations at each bucket S, one bias per lane; at S = 128 also every
+    # (amax, bias and quantize): the fused step's [lanes x S, 768]
+    # activations at each path's buckets S, one bias per lane (one lane
+    # scaled down, the tail of another up); at S = 128 also every
     # float32 within 64 ulp of 2**k, k in [-20, 20], through the same
     # launch (one group per k) and through `quantize` with the biases
     # given; atol 0 and equal biases against the plain version run on the
     # CPU (group_exp_bias + ref.quantize).  Beside it the chain it replaces
     # (`replaced_*`): group_exp_bias's PyTorch ops, then `quantize`; and a
     # PyTorch copy of the same tensor (`copy_device_ms`: one read and one
-    # write, what the bound counts).  The summary row is S = 128, the
-    # others are extra rows.
-    lanes = 8
+    # write, what the bound counts).
     edges, rpg = binade_edges()
     xe = torch.from_numpy(edges)
     e_edges = group_exp_bias(xe, rpg)
-    for S_b in BUCKETS[::-1]:
+    for path, lanes, S_b in step_shapes:
         xa = torch.randn(lanes * S_b, d, generator=g, device=dev) * 2.0
-        xa[3 * S_b:4 * S_b] *= 1e-3
-        xa[6 * S_b - S_b // 4:6 * S_b] *= 50.0
+        tiny, hot = 3 * lanes // 8, 5 * lanes // 8
+        xa[tiny * S_b:(tiny + 1) * S_b] *= 1e-3
+        xa[(hot + 1) * S_b - S_b // 4:(hot + 1) * S_b] *= 50.0
         e_cpu = group_exp_bias(xa.cpu(), S_b)
         q, e_min = quantize_groups(xa, S_b)
         err = (q.cpu() - ref.quantize(xa.cpu(), e_cpu, S_b)).abs().max().item()
         ok = torch.equal(e_min.cpu(), e_cpu)
-        shape = f"[{lanes * S_b}, {d}] fp32, {lanes} row groups of {S_b}"
-        if S_b == BUCKETS[-1]:
+        shape = f"{path}: [{lanes * S_b}, {d}] fp32, {lanes} row groups of {S_b}"
+        if (path, S_b) == ("serving", BUCKETS[-1]):
             qe, ee = quantize_groups(xe.to(dev), rpg)
             ok = ok and torch.equal(ee.cpu(), e_edges)
             err = max(err, (qe.cpu() - ref.quantize(xe, e_edges, rpg)).abs().max().item(),
@@ -474,15 +522,15 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             replaced_enqueue_us=enqueue_us(chain),
             launch_floor_device_ms=launch_floor,
             copy_device_ms=time_ms(lambda: copy_to.copy_(xa), queued=True),
-            summary=S_b == BUCKETS[-1], label=f"S={S_b}")
+            summary=summary_of(path, S_b), label=f"{path}@S={S_b}")
 
-    # block_sparse_matmul: the pruned MLP weights at M = 8 lanes x S for
-    # each bucket S (the summary row is M = 1024)
+    # block_sparse_matmul: the pruned MLP weights at M = lanes x S for each
+    # path's buckets S
     # the weights on the card, and their indices with the tiles packed from
     # them (the kernel takes an index only with the weight it was packed from)
     mlp = {k: v.to(dev).float().contiguous() for k, v in sparams["layer"]["mlp"].items()}
     masks = dispatch.mlp_block_masks(mlp)
-    for S_b in BUCKETS[::-1]:
+    for path, lanes, S_b in step_shapes:
         Mb = lanes * S_b
         ms = plain = lib = n_bytes = flops = err = dev_ms = lib_dev = 0.0
         ok = True
@@ -516,10 +564,10 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             n_bytes, flops = n_bytes + nb, flops + nf
             shapes.append(f"{K}x{N} ({tiles}/{m.mask.size} tiles)")
         row("block_sparse_matmul", "src/repro_torch/csrc/block_sparse.cu", "src/repro/kernels/block_sparse.py:42",
-            f"M={Mb}: {' + '.join(shapes)} at 32x32 tiles (times and bound summed; bound on occupied tiles)",
-            err, "rtol 1e-5 + atol 1e-5", ok, n_bytes, flops, ms=ms, plain_ms=plain, library_ms=lib,
-            device_ms=dev_ms, library_device_ms=lib_dev, summary=S_b == BUCKETS[-1],
-            per_shape=per_shape)
+            f"{path}: M={Mb}: {' + '.join(shapes)} at 32x32 tiles (times and bound summed; bound on "
+            "occupied tiles)", err, "rtol 1e-5 + atol 1e-5", ok, n_bytes, flops, ms=ms, plain_ms=plain,
+            library_ms=lib, device_ms=dev_ms, library_device_ms=lib_dev, summary=summary_of(path, S_b),
+            label=f"{path}@S={S_b}", per_shape=per_shape)
 
     check_determinism(dep, masks, mlp, dev)
     return rows
@@ -553,7 +601,7 @@ def check_determinism(dep, masks, mlp, dev) -> None:
             w = dep.layer[name]
             xk = torch.randn(Mx, w.codes.shape[0], generator=g, device=dev)
             same(f"af_matmul M={Mx} {name}", lambda: af_matmul(xk, w.codes, w.e_min))
-    for Mx in (1024, 512, 256):
+    for Mx in (1024, 512, 256, 128, 64):
         for name in ("w_up", "w_down"):
             w = mlp[name]
             xk = torch.randn(Mx, w.shape[0], generator=g, device=dev)
@@ -575,8 +623,9 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     same("softmax_entropy off-ramp head AF8", lambda: ops.offramp_head_op(hh, dep.offramp))
     e_min = group_exp_bias(x[:1024], 128)
     same("af_quantize", lambda: quantize(x[:1024].contiguous(), e_min, 128))
-    for S_b in BUCKETS:
-        same(f"af_quantize groups of {S_b} rows", lambda: quantize_groups(x[:8 * S_b].contiguous(), S_b))
+    for lanes, S_b in [(8, S_b) for S_b in BUCKETS] + [(4, 16), (4, 32)]:
+        same(f"af_quantize {lanes} groups of {S_b} rows",
+             lambda: quantize_groups(x[:lanes * S_b].contiguous(), S_b))
     same("af_quantize one group of 2048 rows (read twice)", lambda: quantize_groups(x, 2048))
     q, k, v = (torch.randn(192, 128, 64, generator=g, device=dev) for _ in range(3))
     spans = torch.as_tensor(np.full(192, 64, np.int32), device=dev)
@@ -856,7 +905,7 @@ def check_serving_reference(cfg_full, sparams_full, dev) -> None:
                       serving_requests(scfg, 12, 32, seed=1), (16, 32), 4, 1e-4, True))
     # full width: a short drain at full depth (threshold 0)
     cases.append(("full_span_off_pruned", cfg_full, sparams_full,
-                  serving_requests(cfg_full, 8, 128, seed=2), BUCKETS, 8, 5e-2, False))
+                  serving_requests(cfg_full, 8, 128, seed=2), BUCKETS, 8, FULL_WIDTH_ATOL, False))
     for name, cfg, params, reqs, buckets, lanes, tol, pick in cases:
         thr = 0.0
         if pick:
@@ -1164,6 +1213,231 @@ def run_serving_path(cfg, params, dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the multi-task trace replay
+# ---------------------------------------------------------------------------
+
+
+def replay_target(stack, dev, *, threshold=None, act_quant=True):
+    """A fresh replay target of the stack (``launch/replay.py``'s
+    ``build_stack``) on ``dev``, recording each request (its set-up: params
+    moved, block indices and packed tiles built per task server);
+    ``threshold`` overrides the exit threshold, ``act_quant=False`` turns
+    activation quantization off."""
+    import dataclasses
+
+    from repro_torch.launch import replay as rp
+
+    cfg = stack.cfg
+    if threshold is not None:
+        cfg = cfg.with_edgebert(early_exit=dataclasses.replace(cfg.edgebert.early_exit,
+                                                               entropy_threshold=threshold))
+    if not act_quant:
+        cfg = cfg.with_edgebert(quant=dataclasses.replace(cfg.edgebert.quant, quantize_activations=False))
+    return rp.build_target(cfg, stack.embed, stack.by_task, stack.ctrl_factory, device=dev,
+                           target_cls=rp.RecordingRouterTarget)
+
+
+def run_replay(stack, dev, n: int, *, target=None, **target_kw):
+    """One replay of the stack's first ``n`` events on ``target`` (a fresh
+    one from ``replay_target(stack, dev, **target_kw)`` by default), set-up
+    outside the clock; returns (summary, target, wall ms)."""
+    import torch
+
+    from repro_torch.serving.workload import TraceReplayer, generate_trace
+
+    target = replay_target(stack, dev, **target_kw) if target is None else target
+    events = generate_trace(stack.wl, n, service_s=stack.svc)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = TraceReplayer(target, vocab_size=stack.cfg.vocab_size, token_seed=0).replay(events)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return summary, target, (time.perf_counter() - t0) * 1e3
+
+
+def compare_replays(name, stack, card, cpu, seconds: float, *, atol=None, **detail) -> dict:
+    """The card's replay against the CPU's: every request served by the same
+    task with the same exit layer, and summaries_identical; with ``atol``
+    also every request's logits and first off-ramp entropy within ``atol``.
+    On a mismatch the first differing request is printed with its first
+    off-ramp entropy and LUT bin on both sides."""
+    import numpy as np
+
+    from repro_torch.serving.workload import summaries_identical
+
+    (s_card, t_card, _), (s_cpu, t_cpu, _) = card, cpu
+    same_summary = summaries_identical(s_card, s_cpu)
+    diff = sorted(u for u in set(t_card.record) | set(t_cpu.record)
+                  if t_card.record.get(u) != t_cpu.record.get(u))
+    both = sorted(set(t_card.logits) & set(t_cpu.logits))
+    lg_err = [float(np.abs(t_card.logits[u] - t_cpu.logits[u]).max()) for u in both]
+    ent_err = [abs(t_card.first_entropy[u] - t_cpu.first_entropy[u]) for u in both]
+    close = atol is None or max(lg_err + ent_err, default=0.0) <= atol
+    r = {"phase": "replay_reference", "config": name, "requests": s_card["requests"],
+         "completed": s_card["completed"], "records_equal": not diff,
+         "summaries_identical": same_summary,
+         "accepted_slo_misses": [s_card["accepted_slo_misses"], s_cpu["accepted_slo_misses"]],
+         "exit_layers": sorted({e for _, e in t_card.record.values()}),
+         "logits_max_abs_err": max(lg_err, default=0.0),
+         "first_entropy_max_abs_err": max(ent_err, default=0.0),
+         "requests_beyond_1e-4": sum(max(a, b) > 1e-4 for a, b in zip(lg_err, ent_err)),
+         "tolerance": atol, "seconds": seconds, **detail}
+    if diff:
+        u = diff[0]
+        edges = stack.ctrl_factory().predictor.bin_edges
+        ents = [t.first_entropy.get(u) for t in (t_card, t_cpu)]
+        r["first_difference"] = {
+            "uid": u, "card": t_card.record.get(u), "cpu": t_cpu.record.get(u),
+            "first_entropy": ents,
+            "lut_bin": [None if e is None else int(np.searchsorted(edges, e, side="right")) for e in ents]}
+    if not same_summary:
+        r["summary_differences"] = {k: [s_card[k], s_cpu.get(k)] for k in s_card
+                                    if s_card[k] != s_cpu.get(k)}
+    emit(r)
+    if diff or not same_summary or not close:
+        raise AssertionError(f"the card's replay and the CPU's disagree on {name}")
+    return r
+
+
+def replay_host_split(stack, dev, n: int) -> dict:
+    """Host ms of one replay split by hook: the router's task choice
+    (candidate snapshots and the affinity policy), admission quotes, the
+    router target's displacement guard, each task server's fused step
+    (``lanes_step``: arbiter, launches, the step's one copy back) and lane
+    loads (embed, residency, admit); ``other`` is the rest (the lane
+    scheduler, the replayer's loop, submits and polls)."""
+    spent: dict = {}
+
+    def wrap(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] = spent.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+
+        setattr(obj, attr, timed)
+
+    target = replay_target(stack, dev)
+    router = target.router
+    wrap(router, "_task_views", "router_choice")
+    wrap(router.task_policy, "choose_task", "router_choice")
+    wrap(target, "_admitting_displaces", "displacement_guard")
+    for ac in target.admission.values():
+        wrap(ac, "quote", "admission_quote")
+    for srv in router.tasks.values():
+        wrap(srv, "lanes_step", "lanes_step")
+        wrap(srv, "lane_load", "lane_load")
+    _, _, wall = run_replay(stack, dev, n, target=target)
+    return {"wall": wall, **spent, "other": wall - sum(spent.values())}
+
+
+def run_replay_path(scfg, dev) -> dict:
+    """Full-width replay (the serving phase's configuration, four tasks with
+    their own params from seeds 10-13, task 0's embedding shared) on the
+    kernel route, and its checks against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import replay as rp
+    from repro_torch.serving.workload import summaries_identical
+
+    seconds, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        seconds[name] = time.perf_counter() - t
+        t = time.perf_counter()
+
+    tasks = [name for name, _ in rp.MMPP_MULTITASK["tasks"]]
+    stack = rp.build_stack(scfg, tasks, prune=True)
+    lap("setup")
+    # the replay path, counted: one replay (target set-up outside the clock)
+    ops.reset_launch_counts()
+    first = run_replay(stack, dev, REPLAY_EVENTS)
+    launches = ops.launch_counts()
+    summary, target, first_ms = first
+    missing = [k for k in ops.REPLAY_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the replay path: {missing}")
+    steps = rp.fused_steps(target)
+    # determinism on the card: three more same-seed replays on fresh stacks
+    # (timed: the warm replays)
+    lap("counted")
+    warm = [run_replay(stack, dev, REPLAY_EVENTS) for _ in range(3)]
+    lap("warm")
+    identical = all(summaries_identical(summary, w[0]) and w[1].record == target.record for w in warm)
+    walls = [w[2] for w in warm]
+    wall = float(np.median(walls))
+    conserved = summary["completed"] + summary["rejected"] + summary["shed"] == summary["submitted"]
+    contract = {"conserved": conserved,
+                "max_traces_per_bucket_replica": summary["max_traces_per_bucket_replica"],
+                "accepted_slo_misses": summary["accepted_slo_misses"]}
+    prof_target = replay_target(stack, dev)
+    by_kernel = profile_device(lambda: run_replay(stack, dev, REPLAY_EVENTS, target=prof_target))
+    lap("profile")
+    busy = sum(g["ms"] for g in by_kernel.values())
+    split = replay_host_split(stack, dev, REPLAY_EVENTS)
+    lap("host_split")
+    result = {
+        "phase": "replay", "config": scfg.name, "span": False, "mlp_block_pruned": True,
+        "n_layers": scfg.n_layers, "d_model": scfg.d_model, "tasks": tasks,
+        "events": REPLAY_EVENTS, "lanes": rp.LANES, "buckets": rp.MMPP_MULTITASK["buckets"],
+        "threshold": stack.cfg.edgebert.early_exit.entropy_threshold,
+        "summary": summary, "contract": contract, "deterministic": identical,
+        "exit_layer_counts": {int(e): int(c) for e, c in zip(*np.unique(
+            [e for _, e in target.record.values()], return_counts=True))},
+        "launches": launches, "fused_steps": steps,
+        "task_swaps": summary["task_swaps"], "task_switches": target.router.task_switches,
+        "first_replay_ms": first_ms, "warm_replay_ms": walls, "warm_replay_ms_median": wall,
+        "requests_per_s": summary["completed"] / (wall / 1e3),
+        "device_busy_ms": busy, "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
+        "device_ms_by_kernel": by_kernel, "host_split_ms": split, "seconds": seconds,
+    }
+    emit(result)
+    if not identical:
+        raise AssertionError("same-seed replays on the card diverged")
+    if not (conserved and contract["max_traces_per_bucket_replica"] <= 1):
+        raise AssertionError(f"the replay contract does not hold: {contract}")
+
+    # the card against the CPU: the first events at full width and full
+    # depth (no exit decision can flip; first-layer entropies still pick
+    # the LUT bin), with activation quantization as served and without it,
+    # and the whole smoke-size replay of launch/replay.py.  As served, an
+    # element whose float32 sums straddle an AF rounding boundary flips one
+    # grid step and twelve layers carry it to the logits: they are held to
+    # the full-width serving check's FULL_WIDTH_ATOL, resting on
+    # quant_flips at the replay's lanes and buckets (task 0's weights),
+    # which holds the layer step before quantization to PRE_QUANT_ATOL and
+    # every flip to one step at a boundary.  Without quantization nothing
+    # can flip: logits and first entropies within REPLAY_ATOL.
+    cpu = torch.device("cpu")
+    lanes, buckets = rp.LANES, tuple(int(b) for b in rp.MMPP_MULTITASK["buckets"])
+    flips = [quant_flips(stack.cfg, stack.by_task[tasks[0]],
+                         [x[:S_b] for x in serving_requests(stack.cfg, lanes, S_b, seed=3)], dev, S_b)
+             for S_b in buckets]
+    prefix = [run_replay(stack, d, REPLAY_PREFIX, threshold=0.0) for d in (dev, cpu)]
+    full = compare_replays("full_depth_prefix", stack, *prefix, seconds=time.perf_counter() - t,
+                           atol=FULL_WIDTH_ATOL, quant_flips=flips)
+    t = time.perf_counter()
+    compare_replays("full_depth_prefix_no_act_quant", stack,
+                    *[run_replay(stack, d, REPLAY_PREFIX, threshold=0.0, act_quant=False) for d in (dev, cpu)],
+                    seconds=time.perf_counter() - t, atol=REPLAY_ATOL)
+    t = time.perf_counter()
+    smoke = rp.build_stack(rp.replay_config(smoke=True), tasks)
+    compare_replays("smoke", smoke, *[run_replay(smoke, d, SMOKE_REPLAY_EVENTS) for d in (dev, cpu)],
+                    seconds=time.perf_counter() - t)
+    if full["accepted_slo_misses"][0] != full["accepted_slo_misses"][1]:
+        raise AssertionError("accepted-SLO misses differ between the card and the CPU")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1203,20 +1477,35 @@ def main() -> int:
     scfg = serving_config(cfg, span=False)
     sparams = serving_params(scfg, 0, prune=True)
 
-    rows = check_kernels(dep, cfg, sparams, dev)
-    check_reference(dep, params, cfg, dev)
-    check_serving_reference(scfg, sparams, dev)
-    main_path = run_main_path(dep, cfg, dev)
-    serving = run_serving_path(scfg, sparams, dev)
+    seconds: dict = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    rows = timed("kernel", check_kernels, dep, cfg, sparams, dev)
+    timed("reference", check_reference, dep, params, cfg, dev)
+    timed("serving_reference", check_serving_reference, scfg, sparams, dev)
+    main_path = timed("main", run_main_path, dep, cfg, dev)
+    serving = timed("serving", run_serving_path, scfg, sparams, dev)
+    replay = timed("replay", run_replay_path, scfg, dev)
+    emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
-        by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]]}
-        # a kernel's launches on this slice's path (serving), or on the
-        # deployed path for the kernel only that path runs
-        r["launches"] = by_path["serving"] if by_path["serving"] > 0 else by_path["deploy"]
+        by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
+                   "replay": replay["launches"][r["name"]]}
+        # the launches of the path whose shapes the row was timed at: the
+        # replay's (this slice's path), or the deployed path's for af_matmul,
+        # which only that path runs
+        r["launches"] = by_path[r["path"]]
         r["launches_by_path"] = by_path
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was not launched on the {r['path']} path")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "launches_by_path")
+            "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "path", "shape",
+            "launches_by_path")
     kernels = {"kernels": [{k: r[k] for k in keys} for r in rows]}
     RECORD.append(kernels)
     OUT.parent.mkdir(parents=True, exist_ok=True)

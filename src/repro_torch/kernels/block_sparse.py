@@ -15,8 +15,9 @@ weights as three exact bf16 planes (``split_bf16``) of the occupied tiles
 (``BlockIndex.build(..., w=w)``, as ``dispatch.mlp_block_masks`` does), never
 per call.  An index built from a mask alone serves the plain version; the
 kernel refuses it.  The kernel takes an index's packed tiles only with the
-weight they were packed from, unmodified since, and raises on any other.
-The source gives the kernel's bound on the H100.
+weight they were packed from, unmodified since, and raises on any other;
+it refuses an inference-mode weight, whose in-place changes no version
+counter records.  The source gives the kernel's bound on the H100.
 """
 from __future__ import annotations
 
@@ -124,11 +125,14 @@ class BlockIndex:
     def build(cls, mask: np.ndarray, bk: int, bn: int, device,
               w: Optional[torch.Tensor] = None) -> "BlockIndex":
         """The index of ``mask``; with ``w`` [K, N] also its packed tiles, on
-        ``device``."""
+        ``device``.  The card route refuses an inference-mode ``w``
+        (``require_versioned``)."""
         indices, counts, max_nnz = build_block_index(mask)
         tiles = offsets = None
         if w is not None:
             w = torch.as_tensor(w)
+            if torch.device(device).type == "cuda":
+                require_versioned(w)
             tiles = pack_tiles(w.to(device), indices, counts, bk, bn)
             offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32))
             offsets = offsets.to(device)
@@ -143,10 +147,12 @@ class BlockIndex:
     def check_weight(self, w: torch.Tensor) -> None:
         """Raise unless ``w`` is the weight the tiles were packed from (the
         same memory, shape and dtype; the index holds it, so its memory is
-        never reused) and unmodified since (its version counter)."""
+        never reused) and unmodified since (its version counter, which an
+        inference-mode tensor lacks: ``require_versioned``)."""
         src = self.source
         if src is None:
             return
+        require_versioned(w)
         if (w.device != src.device or w.data_ptr() != src.data_ptr() or w.shape != src.shape
                 or w.stride() != src.stride() or w.dtype != src.dtype):
             raise ValueError("block_sparse_matmul: w is not the weight this index's tiles were "
@@ -154,6 +160,16 @@ class BlockIndex:
         if _version(w) != self.source_version:
             raise ValueError("block_sparse_matmul: w was modified after its tiles were packed; "
                              "build the index again")
+
+
+def require_versioned(w: torch.Tensor) -> None:
+    """Raise for an inference-mode tensor: it keeps no version counter, so
+    an in-place change under ``torch.inference_mode`` would leave the packed
+    tiles stale on the card while the CPU reads the new values."""
+    if w.is_inference():
+        raise ValueError("block_sparse_matmul: w is an inference-mode tensor, which records no "
+                         "in-place changes, so its packed tiles could go stale; create the "
+                         "weight outside torch.inference_mode (torch.no_grad keeps the check)")
 
 
 def _version(w: torch.Tensor) -> int:

@@ -46,6 +46,9 @@ KERNEL_WRAPPERS = {
 DEPLOY_KERNELS = ("layernorm", "softmax_entropy", "af_matmul", "span_attention")
 SERVING_KERNELS = ("layernorm", "softmax_entropy", "af_quantize", "block_sparse_matmul",
                    "span_attention")
+# the trace replay (launch/replay.py) serves every task through the same
+# fused step, so it launches the serving path's kernels
+REPLAY_KERNELS = SERVING_KERNELS
 
 
 def reset_launch_counts() -> None:

@@ -11,7 +11,7 @@ Mapping to the paper:
     point — the LDO/ADPLL switch only after the first off-ramp is evaluated.
   * **Alg. 1 line 2** (predict the exit layer from the first off-ramp's
     entropy): ``core.early_exit.ExitPredictor``, a binned LUT calibrated
-    offline (``fit_exit_predictor``) — the ASIC's small SRAM table.
+    offline (``calibrate_predictor``) — the ASIC's small SRAM table.
   * **Alg. 1 lines 3-4** (pick the minimum (V, f) that finishes the predicted
     remaining layers within the latency target): ``select_op`` scans the
     ``DVFS table`` (fast-switching LDO + ADPLL operating points, Fig. 9's
@@ -30,7 +30,8 @@ The controller is deliberately analytic + host-side: the deployed model
 the controller replays Alg. 1 over that trace to produce the per-sentence
 (V, f) schedule and energy/latency report.  This is the JAX package's
 ``serving/dvfs.py`` (per-sentence controller and the batched shared-clock
-arbiter), copied as it is: numpy and Python only.
+arbiter), copied as it is: numpy and Python only, apart from
+``calibrate_predictor``, which runs the model's dense forward offline.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import numpy as np
 from repro_torch.core.early_exit import (
     ExitPredictor,
     OnlineExitCalibrator,
+    fit_exit_predictor,
     predict_exit_layer,
 )
 from repro_torch.hwmodel.edgebert_accel import (
@@ -215,7 +217,7 @@ class LatencyAwareDVFSController:
     def observe_exit(self, first_entropy: float, exit_layer: int) -> None:
         """Online calibration: fold a retired sentence's (first entropy, exit
         layer) into the running per-bin quantiles — the LUT adapts DURING a
-        drain instead of needing the offline ``fit_exit_predictor`` pass."""
+        drain instead of needing the offline ``calibrate_predictor`` pass."""
         if self.online is not None:
             self.online.observe(first_entropy, exit_layer)
 
@@ -731,6 +733,32 @@ class BatchedDVFSArbiter:
                 if depth == exits[i]:
                     reports[i] = self.retire(i, depth)
         return [reports[i] for i in range(len(exits))]
+
+
+def calibrate_predictor(
+    model, params, batches, n_bins: int = 16, quantile: Optional[float] = None
+) -> ExitPredictor:
+    """Fit the Alg. 1 LUT from dense profiling passes (offline calibration).
+
+    ``batches`` is an iterable of ``{"tokens": [B, S]}``-style dicts; the
+    model's dense all-layers forward (``Model.apply_train``, plain PyTorch
+    ops on the params' device) provides (first-off-ramp entropy, exit
+    layer) pairs at the configured entropy threshold.  ``quantile`` picks
+    the conservative per-bin prediction (see ``fit_exit_predictor``).
+    """
+    import torch
+
+    ents: List[np.ndarray] = []
+    exits: List[np.ndarray] = []
+    for b in batches:
+        with torch.no_grad():
+            out = model.apply_train(params, {"tokens": b["tokens"]})
+        assert out.all_entropies is not None and out.exit_layer is not None
+        ents.append(out.all_entropies[0].cpu().numpy())
+        exits.append(out.exit_layer.cpu().numpy())
+    return fit_exit_predictor(
+        np.concatenate(ents), np.concatenate(exits), n_bins=n_bins, quantile=quantile
+    )
 
 
 def default_albert_controller(

@@ -13,9 +13,16 @@
 * DVFS, two modes, as in the JAX package: per-sentence Alg. 1 replay after
   retirement (``dvfs=``), or one shared-clock (V, f) decision per fused step
   from a ``BatchedDVFSArbiter`` (``arbiter=``).
+* Multi-task residency (``task=``, ``residency=``, ``deployment=``): a lane
+  refill of a task whose weights are not SRAM-resident pays the modeled
+  eNVM swap stall on the shared clock, and a compressed ``TaskDeployment``
+  reprices cycles and lane energy (``serving/residency.py``).
+* ``MultiTaskRouter``: one shared (eNVM-resident) embedding table, moved to
+  the device once, and per-task encoder/classifier weights, one
+  ``ClassifierServer`` per task (paper §III-D).
 
-One device, one replica.  The sharded mesh path, the task/residency/
-deployment options and the decoder server are not ported yet.
+One device, one replica.  The sharded mesh path and the decoder server are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -34,8 +41,9 @@ from repro_torch.models.model import Model
 from repro_torch.serving import step_math
 from repro_torch.serving.scheduler import LaneScheduler, SchedulingPolicy, StepReport
 
-if TYPE_CHECKING:  # typing only: dvfs is not a runtime dependency of the engine
+if TYPE_CHECKING:  # typing only: dvfs and residency are not runtime dependencies
     from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController
+    from repro_torch.serving.residency import TaskDeployment, TaskResidencyManager
 
 
 @dataclass
@@ -56,6 +64,7 @@ class Request:
     ckpt_depth: int = 0                 # depth the checkpoint resumes at
     preempted: int = 0                  # times this request was evicted
     shed: bool = False                  # dropped by load shedding (never ran)
+    quoted_deadline_s: Optional[float] = None  # original SLO before a re-quote
     # ---- scheduler lifecycle stamps (queue-delay telemetry) ----
     arrival_step: Optional[int] = None
     first_compute_step: Optional[int] = None
@@ -121,6 +130,11 @@ class ClassifierServer:
     takes).  On the CPU either route runs plain PyTorch.
     ``device`` — where params and lane state live: the card unless the
     caller asks for ``"cpu"``.
+    ``task`` / ``residency`` / ``deployment`` — the task this server serves,
+    the shared SRAM-over-eNVM working set (a refill of a non-resident task
+    stalls the shared clock for its swap) and the task's compression
+    deployment (cycles, quotes and lane energy priced on the compressed
+    network).
 
     ``layer_calls`` telemetry counts *active* lane-layer executions.  The
     ``*_traces`` keys keep the JAX package's names for its one jit trace
@@ -140,6 +154,9 @@ class ClassifierServer:
         preempt: bool = False,
         use_kernels: bool = True,
         device: DeviceLike = "cuda",
+        task: Optional[str] = None,
+        residency: Optional["TaskResidencyManager"] = None,
+        deployment: Optional["TaskDeployment"] = None,
     ):
         if model.cfg.family != "albert":
             raise ValueError("the classifier server drives the albert family")
@@ -151,10 +168,14 @@ class ClassifierServer:
         self.params = tree_to(params, self.device)
         self.replicas = 1
         self.lanes = batch_lanes
+        self.lanes_per_replica = batch_lanes
         self.cfg = model.cfg
         self.threshold = model.cfg.edgebert.early_exit.entropy_threshold
         self.dvfs = dvfs
         self.arbiter = arbiter
+        # one clock domain per replica, as the admission and workload layers
+        # read it: [arbiter] or []
+        self.arbiters = [arbiter] if arbiter is not None else []
         self.use_kernels = use_kernels
         # static block-occupancy masks (and their CSR indices on the device)
         # for the shared encoder MLP, from the concrete post-pruning weights;
@@ -164,6 +185,22 @@ class ClassifierServer:
             self._block_masks = dispatch.mlp_block_masks(self.params["layer"]["mlp"])
         self._sid = next(_SERVER_IDS)
         ctrl = self._ctrl
+        # multi-task residency: a deployment reprices the hw model (cycles
+        # and quotes through a controller over the compressed stats; lane
+        # energy scaled by its power ratio at admit)
+        self.task = task
+        self.residency = residency
+        self.deployment = deployment
+        self._dep_ctrl = None
+        self._energy_scale = 1.0
+        if deployment is not None and ctrl is not None:
+            from repro_torch.serving.residency import (      # lazy: engine <-> residency
+                deployment_controller,
+                deployment_energy_scale,
+            )
+
+            self._dep_ctrl = deployment_controller(ctrl, deployment)
+            self._energy_scale = deployment_energy_scale(ctrl, deployment)
         self.sched = LaneScheduler(
             self.lanes, self, buckets=buckets, policy=policy,
             step_time_fn=self._step_time_s,
@@ -202,8 +239,9 @@ class ClassifierServer:
 
     def _cycles_for(self, bucket: int) -> Optional[float]:
         """Per-bucket layer cycles from the controller's hw stats rescaled to
-        the bucket's sequence length."""
-        ctrl = self._ctrl
+        the bucket's sequence length; with a ``TaskDeployment`` its
+        controller prices the compressed network instead."""
+        ctrl = self._dep_ctrl if self._dep_ctrl is not None else self._ctrl
         return None if ctrl is None else ctrl.cycles_for_seq_len(bucket)
 
     def _step_time_s(self, bucket: int) -> float:
@@ -291,11 +329,20 @@ class ClassifierServer:
                                                torch.from_numpy(toks[None]).to(self.device))
             step_math.lane_insert(st["h"], lane, h_new)
         st["len"][lane] = len(req.tokens)
+        if self.residency is not None:
+            # refilling a lane touches this task's weights: a miss swaps them
+            # in from eNVM, and the stall burns time on the shared clock
+            # before the lane's budget is computed
+            stall = self.residency.acquire(self.task)
+            if stall > 0.0 and self.arbiter is not None:
+                self.arbiter.advance_to(self.arbiter.now_s + stall)
+                self.sched.sync_clock()
         if self.arbiter is not None:
             self.arbiter.admit(
                 self._arb_key(bucket, lane),
                 deadline_s=self._explicit_budget_remaining(req),
                 cycles_per_layer=self._cycles_for(bucket),
+                energy_scale=self._energy_scale,
             )
 
     def lanes_step(self, bucket: int, active: np.ndarray):
@@ -449,4 +496,65 @@ class ClassifierServer:
             out["switch_energy_j"] = self._arb_acc["switch_energy_j"]
             out["switch_time_s"] = self._arb_acc["switch_time_s"]
             out["arb_energy_j"] = self._arb_acc["total_energy_j"]
+        return out
+
+
+class MultiTaskRouter:
+    """One shared embedding table (the eNVM-resident, frozen, pruned
+    weights) and per-task encoder/head weights; dispatches requests by task.
+
+    Models the paper's measurement (Fig. 11): task switches swap SRAM-class
+    weights only; the embedding is loaded once at power-on.  The table is
+    moved to ``device`` once, before the task servers are built, so every
+    task server's ``params["embed"]`` holds the same tensors.  A single
+    ``arbiter`` may be shared by all task servers: the hardware has one
+    LDO/ADPLL, and the shared modeled clock keeps advancing across task
+    switches.
+    """
+
+    def __init__(
+        self,
+        model: Model,
+        shared_embed: Any,
+        task_params: Dict[str, Any],
+        dvfs: Optional["LatencyAwareDVFSController"] = None,
+        arbiter: Optional["BatchedDVFSArbiter"] = None,
+        buckets=None,
+        policy_factory: Optional[Any] = None,
+        preempt: bool = False,
+        residency: Optional["TaskResidencyManager"] = None,
+        deployments: Optional[Dict[str, "TaskDeployment"]] = None,
+        batch_lanes: int = 8,
+        device: DeviceLike = "cuda",
+    ):
+        self.model = model
+        self.device = resolve_device(device)
+        self.shared_embed = tree_to(shared_embed, self.device)
+        self.tasks: Dict[str, ClassifierServer] = {}
+        self.switches = 0
+        self.embed_reloads = 1          # power-on load only
+        for name, tp in task_params.items():
+            params = dict(tp, embed=self.shared_embed)
+            # a factory, not a shared instance: policies carry per-scheduler
+            # state (WRR credits) that must not leak between task servers
+            self.tasks[name] = ClassifierServer(
+                model, params, batch_lanes=batch_lanes,
+                dvfs=dvfs, arbiter=arbiter, buckets=buckets,
+                policy=policy_factory() if policy_factory is not None else None,
+                preempt=preempt, device=self.device,
+                task=name, residency=residency,
+                deployment=(deployments or {}).get(name),
+            )
+
+    def submit(self, task: str, req: Request):
+        self.tasks[task].submit(req)
+
+    def run_all(self) -> Dict[str, Dict[str, float]]:
+        out = {}
+        for name, server in self.tasks.items():
+            # queued or mid-flight (a caller may have hand-stepped a server
+            # and left lanes in flight): both need draining
+            if not server.sched.idle:
+                self.switches += 1
+                out[name] = server.run()
         return out

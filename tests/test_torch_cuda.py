@@ -419,3 +419,50 @@ def test_classifier_server_matches_cpu(cuda):
     for i in range(6):
         assert gpu.done[i].exit_layer == cpu.done[i].exit_layer == cfg.n_layers
         np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)
+
+
+def test_block_index_refuses_inference_mode_weight_on_card(cuda):
+    """An inference-mode weight keeps no version counter, so its packed
+    tiles could go stale unnoticed: the card route refuses it at build and
+    at the launch's weight check."""
+    w = _t((64, 64), 50)
+    mask = np.ones((2, 2), bool)
+    mask[1, 0] = False
+    wc = w.to(cuda)
+    index = block_sparse.BlockIndex.build(mask, 32, 32, cuda, w=wc)
+    x = _t((8, 64), 51).to(cuda)
+    block_sparse.block_sparse_matmul(x, wc, index)
+    with torch.inference_mode():
+        w_inf = w.to(cuda) + 0.0
+    with pytest.raises(ValueError, match="inference-mode"):
+        block_sparse.BlockIndex.build(mask, 32, 32, cuda, w=w_inf)
+    with pytest.raises(ValueError, match="inference-mode"):
+        block_sparse.block_sparse_matmul(x, w_inf, index)
+
+
+def test_smoke_replay_matches_cpu(cuda):
+    """A 64-event smoke-size mmpp_multitask replay (span off, MLP
+    block-pruned, four tasks with their own weights) on the card against
+    the same replay on the CPU: summaries_identical, every request served
+    by the same task with the same exit layer, and every kernel of the
+    replay path launched on the card (none on the CPU)."""
+    from repro_torch.launch import replay
+    from repro_torch.serving.workload import TraceReplayer, generate_trace, summaries_identical
+
+    tasks = [t for t, _ in replay.MMPP_MULTITASK["tasks"]]
+    cfg = replay.replay_config(smoke=True)
+    cfg = cfg.with_edgebert(span=dataclasses.replace(cfg.edgebert.span, enabled=False))
+    st = replay.build_stack(cfg, tasks, prune=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        target = replay.build_target(st.cfg, st.embed, st.by_task, st.ctrl_factory, device=dev,
+                                     target_cls=replay.RecordingRouterTarget)
+        ops.reset_launch_counts()
+        summary = TraceReplayer(target, vocab_size=st.cfg.vocab_size, token_seed=0).replay(
+            generate_trace(st.wl, 64, service_s=st.svc))
+        out[str(dev)] = (summary, target.record, ops.launch_counts())
+    (s_cpu, rec_cpu, n_cpu), (s_gpu, rec_gpu, n_gpu) = out["cpu"], out[str(cuda)]
+    assert summaries_identical(s_gpu, s_cpu)
+    assert rec_gpu == rec_cpu and len(rec_gpu) == s_gpu["completed"] > 0
+    assert all(n_gpu[k] > 0 for k in ops.REPLAY_KERNELS), n_gpu
+    assert all(n == 0 for n in n_cpu.values())

@@ -75,3 +75,28 @@ def test_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch):
         deploy_albert(params, cfg)
     dep = deploy_albert(params, cfg, device="cpu")
     assert dep.device.type == "cpu"
+
+    from repro_torch.launch import replay
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import MultiTaskRouter
+    from repro_torch.serving.residency import ResidencyRouter, TaskDeployment, TaskResidencyManager
+
+    model, tasks = build_model(cfg), {"mnli": params, "qqp": params}
+    res = TaskResidencyManager([TaskDeployment(t, n_params=11e6) for t in tasks], sram_bytes=1e9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiTaskRouter(model, params["embed"], tasks)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResidencyRouter(model, params["embed"], tasks, residency=res)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replay.main([])
+    router = ResidencyRouter(model, params["embed"], tasks, residency=res, device="cpu")
+    assert {srv.device.type for srv in router.tasks.values()} == {"cpu"}
+    assert MultiTaskRouter(model, params["embed"], tasks, device="cpu").device.type == "cpu"
+
+
+def test_scan_covers_the_replay_slice():
+    """The module scan above walks the package, so it covers this slice's
+    modules too."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.serving.admission", "repro_torch.serving.residency",
+            "repro_torch.serving.workload", "repro_torch.launch.replay"} <= names

@@ -27,7 +27,9 @@ Phases, each printing one JSON line:
                 give the same bits.  softmax_entropy is timed as the
                 off-ramp head and af_quantize as the grouped launch
                 (quantize_groups), each beside the chain of launches it
-                replaces (`replaced_device_ms`, `replaced_enqueue_us`);
+                replaces (`replaced_device_ms`, `replaced_enqueue_us`), and
+                softmax_entropy's wide-row entry at the decoder's [4 and 1,
+                102400] logits beside the warp-per-row entry;
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -53,10 +55,30 @@ Phases, each printing one JSON line:
                 depth (tasks, exits, summaries; logits and first entropies
                 within 5e-2 as served, within 1e-4 with activation
                 quantization off) and the whole smoke-size replay.
+  8. decode   — the dense decoder at full width and depth (deepseek-7b:
+                30 layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab
+                102400, float32 weights drawn on the card from seed 0):
+                probe_exit_threshold, then a DecoderServer drain of 8
+                SyntheticLM requests (16-token prompts, 8 new tokens, 4
+                lanes) with per-token exit and a shared-clock arbiter at
+                spec window 1, and the same traffic at spec window 4;
+                softmax_entropy's wide-row entry launched n_layers x W
+                times per fused step, W = 4's tokens, exits and logits equal
+                to W = 1's bit for bit, one decode and one prefill build per
+                bucket; drain times, tokens/s, ms per fused step, device
+                time by kernel and idle share, mean exit depth, accepted
+                tokens per step, modeled energy per token, and the fused
+                step and the prefill timed and profiled alone (device
+                time by kernel, idle share) beside the fused step's HBM
+                bound; then the card against the CPU on the first 2
+                layers, teacher-forced (every off-ramp's logits and
+                entropy within 1e-4).
 Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
 kernel, at the replay's largest step shape with the replay's launches, or
 for af_matmul, which only the deployed path runs, at the deployed layer
-with that path's launches), the nvidia-smi line, and last
+with that path's launches; softmax_entropy has a second row, its wide-row
+entry at the decode shape [4, 102400] with the decode phase's launches),
+the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero at once.  A copy of every
@@ -94,6 +116,23 @@ BUCKETS = (32, 64, 128)
 REPLAY_EVENTS = 1000
 REPLAY_PREFIX = 96
 SMOKE_REPLAY_EVENTS = 200
+# the decode phase: deepseek-7b at full width and depth, 8 SyntheticLM
+# requests of 16-token prompts and 8 new tokens each in 4 lanes of one
+# bucket (prompt + budget + 1 = 25 <= 32), per-token exit at the probe's
+# median, spec window 4; the card against the CPU on the first 2 layers,
+# teacher-forced, per-layer LM-head logits and entropies within 1e-4 (sums
+# of 4096 and 102400 terms in another order)
+DECODE_LANES = 4
+DECODE_REQUESTS = 8
+DECODE_PROMPT = 16
+DECODE_NEW = 8
+DECODE_BUCKET = 32
+DECODE_SPEC_WINDOW = 4
+DECODE_REF_LAYERS = 2
+DECODE_ATOL = 1e-4
+# fused steps timed and profiled on their own (the drain's are too few and
+# its profile too large)
+DECODE_STEPS = 3
 # card against CPU at full width: logits (and entropies) where activation
 # quantization flips carry through twelve layers (see quant_flips), and the
 # replay's per-request logits and first entropies without it
@@ -210,6 +249,7 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs.base import get_config
     from repro_torch.core.adaptivfloat import af_decode
     from repro_torch.core.early_exit import OfframpParams, offramp_logits
     from repro_torch.kernels import block_sparse, dispatch, ops, ref
@@ -368,6 +408,29 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             "atol 1e-6", err <= 1e-6, (2 * rows_ * C + rows_) * 4, 10 * rows_ * C,
             **kernel_times(lambda: softmax_entropy(lg), lambda: ref.softmax_entropy(lg)),
             label=f"logits[{rows_}]")
+
+    # ... and the wide-row entry, the decode path's LM-head entropy
+    # (dispatch.entropy) at the decoder's [lanes, vocab] fp32 logits:
+    # deepseek-7b's 4 lanes (the summary row, with the decode phase's
+    # launches) and one lane; entropy within 1e-5 of the plain version.
+    # Beside it the warp-per-row entry on the same logits
+    # (`replaced_device_ms`: probs and entropy, what this entry replaced on
+    # the decode path) and an empty launch.  Bound: one read of the logits.
+    from repro_torch.kernels.softmax_entropy import entropy as entropy_rows
+
+    vocab = get_config("deepseek_7b").vocab_size
+    for rows_ in (DECODE_LANES, 1):
+        lg = torch.randn(rows_, vocab, generator=g, device=dev) * 1.28
+        err = (entropy_rows(lg) - ref.softmax_entropy(lg)[1]).abs().max().item()
+        row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
+            "src/repro/kernels/softmax_entropy.py:17",
+            f"decode LM-head entropy (wide-row entry): logits [{rows_}, {vocab}] fp32", err,
+            "atol 1e-5 (entropy)", err <= 1e-5, (rows_ * vocab + rows_) * 4, 8.0 * rows_ * vocab,
+            **kernel_times(lambda: entropy_rows(lg), lambda: ref.softmax_entropy(lg), enqueue=True),
+            replaced_ms=time_ms(lambda: softmax_entropy(lg)),
+            replaced_device_ms=time_ms(lambda: softmax_entropy(lg), queued=True),
+            launch_floor_device_ms=launch_floor,
+            summary="decode" if rows_ == DECODE_LANES else None, label=f"decode[{rows_}]")
 
     # af_matmul on the deployed codes: one encoder layer's six matmuls at
     # M = 2048 (the summary row), at M = 512 and 128 (later layers, fewer
@@ -611,6 +674,13 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     same("layernorm", lambda: layernorm(x, gam, bet))
     lg = torch.randn(16, 3, generator=g, device=dev)
     same("softmax_entropy", lambda: softmax_entropy(lg))
+    # the wide-row entry: triples merged in a fixed tree across a cluster
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.softmax_entropy import entropy as entropy_rows
+
+    for rows_ in (DECODE_LANES, 1):
+        lgv = torch.randn(rows_, get_config("deepseek_7b").vocab_size, generator=g, device=dev)
+        same(f"softmax_entropy wide rows [{rows_}, {lgv.shape[1]}]", lambda: entropy_rows(lgv))
     # the off-ramp head: its partials are summed in block order by whichever
     # block ends last, on fp32 weights (serving, with an active mask) and on
     # the deployed AF8 codes
@@ -762,12 +832,13 @@ def make_server(cfg, params, dev, *, buckets, lanes=8, threshold=None, **kw):
                             device=dev, **kw)
 
 
-def serve(srv, requests):
-    """Submit ``requests`` and drain them; returns the server."""
+def serve(srv, requests, **request_kw):
+    """Submit ``requests`` (with ``request_kw`` on each, e.g. the decoder's
+    ``max_new_tokens``) and drain them; returns the server."""
     from repro_torch.serving.engine import Request
 
     for i, t in enumerate(requests):
-        srv.submit(Request(uid=i, tokens=t))
+        srv.submit(Request(uid=i, tokens=t, **request_kw))
     srv.run()
     return srv
 
@@ -938,6 +1009,7 @@ KERNEL_SYMBOLS = {
     "span_attention_kernel": "span_attention",
     "layernorm_kernel": "layernorm",
     "softmax_entropy_kernel": "softmax_entropy",
+    "entropy_rows_kernel": "softmax_entropy",
     "af_quantize_kernel": "af_quantize",
     "block_sparse_kernel": "block_sparse_matmul",
     "Memcpy": "memcpy",
@@ -1076,11 +1148,13 @@ def run_main_path(dep, cfg, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def host_split(srv, requests) -> dict:
+def host_split(srv, requests, sync: bool = False, **request_kw) -> dict:
     """Wall ms of one drain split by engine hook (host clock): ``lanes_step``
     holds the arbiter, the fused step's launches and the wait for the
     device (its outputs come back to the host every step); ``scheduler``
-    is the rest, the lane scheduler's own Python."""
+    is the rest, the lane scheduler's own Python.  With ``sync`` each hook
+    waits for the device before its time is taken (the decoder's prefill
+    in ``lane_load`` returns before its work is done)."""
     import torch
 
     spent: dict = {}
@@ -1088,13 +1162,15 @@ def host_split(srv, requests) -> dict:
         def timed(*a, _fn=getattr(srv, name), _name=name):
             t = time.perf_counter()
             out = _fn(*a)
+            if sync:
+                torch.cuda.synchronize()
             spent[_name] = spent.get(_name, 0.0) + (time.perf_counter() - t) * 1e3
             return out
 
         setattr(srv, name, timed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve(srv, requests)
+    serve(srv, requests, **request_kw)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     return {"wall": wall, **spent, "scheduler": wall - sum(spent.values())}
@@ -1438,6 +1514,262 @@ def run_replay_path(scfg, dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the dense decoder (deepseek-7b at full width and depth)
+# ---------------------------------------------------------------------------
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested dict."""
+    return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+
+def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
+    """The card against the CPU on deepseek-7b's first DECODE_REF_LAYERS
+    layers (views of the card's weights; their copy on the CPU runs the
+    plain versions): one lane, teacher-forced through a prompt and a fixed
+    continuation (no argmax near-tie can fork the sequences), each token one
+    ``decode_step_ee`` at the decode phase's threshold.  Every LM-head
+    off-ramp the steps evaluate (``_head_entropy``, recorded per layer)
+    must agree within DECODE_ATOL in logits and entropy, the returned
+    logits and first entropies too; exit layers must be equal where no
+    entropy lies within DECODE_ATOL of the threshold (those tokens are
+    counted as excused; after a token whose exits differ the caches part,
+    and the comparison stops there)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    cfg_r = dataclasses.replace(cfg, n_layers=DECODE_REF_LAYERS)
+    cut = dict(params, layers={g: {k: v[:DECODE_REF_LAYERS] for k, v in sub.items()}
+                               for g, sub in params["layers"].items()})
+    seq = [int(t) for t in prompts[0]] + [int(t) for t in prompts[1][:DECODE_NEW]]
+    cpu = torch.device("cpu")
+
+    def run(p, d):
+        model = build_model(cfg_r)
+        heads = model._head_entropy
+        rec: list = []
+
+        def recording(p_, h, use_kernels=False):
+            lg, ent = heads(p_, h, use_kernels)
+            rec.append((lg[0, 0].cpu(), float(ent[0, 0])))
+            return lg, ent
+
+        model._head_entropy = recording
+        cache = model.init_cache(1, DECODE_BUCKET, device=d)
+        steps = []
+        with torch.no_grad():
+            for t, tok in enumerate(seq):
+                lg, cache, xl, fe = model.decode_step_ee(p, cache, torch.tensor([[tok]], device=d), t, thr,
+                                                         use_kernels=True)
+                steps.append((lg[0, 0].cpu(), int(xl[0]), float(fe[0])))
+        return rec, steps
+
+    t0 = time.perf_counter()
+    rec_card, card = run(cut, dev)
+    p_cpu = tree_to(cut, cpu)
+    rec_cpu, host = run(p_cpu, cpu)
+    L_ = DECODE_REF_LAYERS
+    logit_err = ent_err = out_err = fe_err = 0.0
+    excused, compared, diverged_at = 0, 0, None
+    for t in range(len(seq)):
+        for i in range(L_):
+            (lg_a, e_a), (lg_b, e_b) = rec_card[t * L_ + i], rec_cpu[t * L_ + i]
+            logit_err = max(logit_err, (lg_a - lg_b).abs().max().item())
+            ent_err = max(ent_err, abs(e_a - e_b))
+        (o_a, x_a, f_a), (o_b, x_b, f_b) = card[t], host[t]
+        near = any(abs(e - thr) < DECODE_ATOL for _, e in rec_card[t * L_:(t + 1) * L_])
+        excused += int(near)
+        compared += 1
+        if x_a != x_b:
+            if not near:
+                raise AssertionError(f"decode reference: token {t} exits at {x_a} on the card, {x_b} on the CPU, "
+                                     f"no entropy within {DECODE_ATOL} of the threshold")
+            diverged_at = t
+            break
+        out_err = max(out_err, (o_a - o_b).abs().max().item())
+        fe_err = max(fe_err, abs(f_a - f_b))
+    result = {"phase": "reference", "config": f"{cfg.name} first {L_} layers (cut from {cfg.n_layers})",
+              "teacher_forced_tokens": len(seq), "compared_tokens": compared, "threshold": thr,
+              "tolerance": f"atol {DECODE_ATOL} (logits and entropies of every off-ramp)",
+              "offramp_logits_max_abs_err": logit_err, "offramp_entropy_max_abs_err": ent_err,
+              "step_logits_max_abs_err": out_err, "first_entropy_max_abs_err": fe_err,
+              "exit_layers_card": [x for _, x, _ in card], "exit_layers_cpu": [x for _, x, _ in host],
+              "boundary_tokens_excused": excused, "diverged_at": diverged_at,
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    if max(logit_err, ent_err, out_err, fe_err) > DECODE_ATOL:
+        raise AssertionError(f"decode reference: card and CPU differ beyond {DECODE_ATOL}")
+    return result
+
+
+def run_decode_path(dev) -> dict:
+    """deepseek-7b at full width and depth (30 layers, d_model 4096, 32 x
+    128 heads, d_ff 11008, vocab 102400; float32 weights drawn on the card
+    from seed 0) through the DecoderServer, the recipe of the JAX package's
+    examples/serve_multitask.py decoder lane: probe_exit_threshold (median
+    of first-off-ramp entropies at full depth), then a drain with per-token
+    exit and a shared-clock arbiter at spec_window 1, then the same traffic
+    at spec_window 4 with an ExitThresholdSchedule.  Checks the kernel's
+    launches (n_layers x W per fused step), W = 4's accepted tokens, exit
+    depths and final logits equal to W = 1's bit for bit, one decode and one
+    prefill build per bucket; then times, device time by kernel and the
+    card against the CPU on the first two layers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.early_exit import ExitThresholdSchedule
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
+    from repro_torch.serving import step_math
+    from repro_torch.serving.engine import DecoderServer, probe_exit_threshold
+
+    cfg = dataclasses.replace(get_config("deepseek_7b"), dtype="float32", remat_policy="none")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
+    n, W4 = DECODE_REQUESTS, DECODE_SPEC_WINDOW
+
+    t0 = time.perf_counter()
+    thr = probe_exit_threshold(model, params, prompts, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET,
+                               buckets=(DECODE_BUCKET,), max_new_tokens=DECODE_NEW, device=dev)
+    probe_s = time.perf_counter() - t0
+    stats = albert_layer_stats(seq_len=DECODE_BUCKET)
+    stats.n_layers = cfg.n_layers
+    target = no_early_exit_baseline(stats)["latency_s"] * 2.0
+
+    def fresh(W):
+        arb = BatchedDVFSArbiter(LatencyAwareDVFSController(stats, target))
+        return DecoderServer(model, params, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET, eos_id=-1,
+                             buckets=(DECODE_BUCKET,), arbiter=arb, exit_threshold=thr, spec_window=W,
+                             threshold_schedule=ExitThresholdSchedule(thr) if W > 1 else None, device=dev)
+
+    drains, servers = {}, {}
+    for W in (1, W4):
+        srv = fresh(W)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        serve(srv, prompts, max_new_tokens=DECODE_NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        tel = srv.telemetry()
+        steps = tel["decode_steps"]
+        want = cfg.n_layers * W * steps
+        if launches["softmax_entropy"] != want or any(launches[k] <= 0 for k in ops.DECODE_KERNELS):
+            raise AssertionError(f"W={W}: softmax_entropy launched {launches['softmax_entropy']} times, "
+                                 f"want n_layers x W x fused steps = {want}")
+        if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
+            raise AssertionError(f"W={W}: builds per bucket: {tel}")
+        results = np.stack([srv.done[i].result for i in range(n)])
+        gen = [srv.done[i].generated for i in range(n)]
+        exits = [srv.done[i].token_exit_layers for i in range(n)]
+        if not (np.isfinite(results).all() and results.shape == (n, cfg.vocab_size)):
+            raise AssertionError(f"W={W}: decode logits are not finite or of the wrong shape")
+        if any(len(g) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g) for g in gen):
+            raise AssertionError(f"W={W}: generated tokens off: {gen}")
+        if not all(1 <= x <= cfg.n_layers for e in exits for x in e):
+            raise AssertionError(f"W={W}: exit layers out of range: {exits}")
+        servers[W] = srv
+        drains[W] = {
+            "spec_window": W, "drain_ms": wall, "tokens": tel["tokens"],
+            "tokens_per_s": tel["tokens"] / (wall / 1e3), "fused_steps": steps,
+            "ms_per_fused_step": None, "launches": launches,
+            "softmax_entropy_launches_per_fused_step": launches["softmax_entropy"] / steps,
+            "avg_token_exit_layer": tel["avg_token_exit_layer"],
+            "tokens_per_fused_step": tel["tokens_per_fused_step"],
+            "avg_accepted_block": tel["avg_accepted_block"],
+            "modeled_energy_j": tel["energy_j"], "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
+            "deadline_misses": tel["deadline_misses"], "op_switches": tel["op_switches"],
+            "generated": gen, "token_exit_layers": exits,
+        }
+    a, b = servers[1], servers[W4]
+    for i in range(n):
+        if (a.done[i].generated != b.done[i].generated
+                or a.done[i].token_exit_layers != b.done[i].token_exit_layers
+                or not np.array_equal(a.done[i].result, b.done[i].result)):
+            raise AssertionError(f"request {i}: spec_window {W4} differs from spec_window 1")
+
+    # where one drain's time goes: the prefill (lane loads) and the fused
+    # steps, each waited for on the device
+    for W in (1, W4):
+        split = host_split(fresh(W), prompts, sync=True, max_new_tokens=DECODE_NEW)
+        drains[W]["host_split_ms"] = split
+        drains[W]["ms_per_fused_step"] = split["lanes_step"] / drains[W]["fused_steps"]
+    # the device's share of the two parts, each timed alone (host clock,
+    # synchronised) and profiled (device time by kernel: cuBLAS GEMVs, RMS
+    # norms and the reference cache attention under "other"): DECODE_STEPS
+    # fused W = 1 steps of the 4 lanes at mid-bucket positions, and one
+    # request's prefill (15 one-token full-depth steps); a profile of a
+    # whole drain holds ~400k events and takes minutes to read
+    cache = model.init_cache(DECODE_LANES, DECODE_BUCKET, device=dev)
+    cur = torch.as_tensor(np.asarray(prompts[:DECODE_LANES, -1:], np.int64), device=dev)
+    pos = torch.full((DECODE_LANES,), DECODE_PROMPT - 1, dtype=torch.int64, device=dev)
+
+    def fused_steps():
+        with torch.no_grad():
+            for _ in range(DECODE_STEPS):
+                step_math.decoder_decode_ee(model, params, cache, cur, pos, thr, use_kernels=True)
+
+    def prefill():
+        with torch.no_grad():
+            step_math.decoder_prefill(model, params, cache, prompts[0], 0, DECODE_PROMPT, use_kernels=True)
+
+    parts = {}
+    for name, fn, count in (("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / count
+        by_kernel = profile_device(fn)
+        busy = sum(g["ms"] for g in by_kernel.values()) / count
+        parts[name] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                       "device_ms_by_kernel": by_kernel, "per": count}
+    # the fused step's least time: its bytes at the HBM rate (every layer's
+    # weights, the LM head once per layer, the cache read per layer)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params["layers"]))
+    head_bytes = params["lm_head"].numel() * params["lm_head"].element_size()
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    step_bound_ms = (w_bytes + cfg.n_layers * head_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    ref = check_decode_reference(cfg, params, prompts, thr, dev)
+    result = {
+        "phase": "decode", "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype, "params": n_params, "init_s": init_s,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
+        "bucket": DECODE_BUCKET, "threshold": thr, "probe_s": probe_s,
+        "target_latency_s": target, "drains": {f"W={W}": d for W, d in drains.items()},
+        "spec_equals_per_token": True, "parts": parts,
+        "fused_step_hbm_bound_ms": step_bound_ms, "launches": drains[1]["launches"],
+        "reference": {k: ref[k] for k in ("offramp_logits_max_abs_err", "offramp_entropy_max_abs_err",
+                                           "boundary_tokens_excused", "compared_tokens")},
+    }
+    emit(result)
+    del params, servers, a, b, cache
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1491,13 +1823,14 @@ def main() -> int:
     main_path = timed("main", run_main_path, dep, cfg, dev)
     serving = timed("serving", run_serving_path, scfg, sparams, dev)
     replay = timed("replay", run_replay_path, scfg, dev)
+    decode = timed("decode", run_decode_path, dev)
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
-                   "replay": replay["launches"][r["name"]]}
+                   "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
-        # replay's (this slice's path), or the deployed path's for af_matmul,
-        # which only that path runs
+        # replay's, the deployed path's for af_matmul, which only that path
+        # runs, or the decode path's for the wide-row entropy
         r["launches"] = by_path[r["path"]]
         r["launches_by_path"] = by_path
         if r["launches"] <= 0:

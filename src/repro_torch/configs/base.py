@@ -1,9 +1,10 @@
 """Config dataclasses, copied from the JAX package's ``configs/base.py``.
 
-The port carries its own copy so that it imports nothing of ``repro``.  Only
-the ALBERT configurations (``albert_base``, ``albert_edgebert``) exist here so
-far; each exposes ``CONFIG`` (the published size) and ``smoke_config()`` (a
-reduced same-family config for CPU tests).
+The port carries its own copy so that it imports nothing of ``repro``.  The
+ALBERT configurations (``albert_base``, ``albert_edgebert``) and the dense
+decoder ``deepseek_7b`` exist here so far; each exposes ``CONFIG`` (the
+published size) and ``smoke_config()`` (a reduced same-family config for CPU
+tests).
 """
 from __future__ import annotations
 
@@ -239,7 +240,7 @@ class ModelConfig:
 # Lookup
 # ---------------------------------------------------------------------------
 
-PORTED_ARCHS = ("albert_base", "albert_edgebert")
+PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b")
 
 
 def _config_module(arch: str):

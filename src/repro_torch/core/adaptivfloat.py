@@ -21,8 +21,10 @@ Zero is the all-zero exponent+mantissa code; ``af_quantize`` equals
   range XLA's CPU ``exp2`` (``exp(x * ln 2)``) is mostly inexact and the
   port keeps the exact AF grid.
 
-The encode and decode are meant to run on the CPU (deploy time); the
-per-tile decode on the card lives in ``csrc/af_matmul.cu``.
+The encode and decode of weights are meant to run on the CPU (deploy time);
+the per-tile decode on the card lives in ``csrc/af_matmul.cu``.  The static
+codec (``af_encode_static`` / ``af_decode_static``) of the AF8 KV cache runs
+where the cache lives.
 """
 from __future__ import annotations
 
@@ -181,3 +183,17 @@ def af_decode(
     val = torch.where((e_field == 0) & (m_field == 0), torch.zeros_like(val), val)
     val = torch.where(sign_bit == 1, -val, val)
     return val.to(dtype)
+
+
+def af_encode_static(x: torch.Tensor, e_min: int, fmt: AFFormat = AFFormat()) -> torch.Tensor:
+    """Encode with a STATIC exponent bias (no per-tensor scale stored): the
+    AF8 KV cache, whose dynamic range the config fixes (``kv_af8_e_min``)
+    instead of a bias per written column."""
+    amax = torch.tensor(2.0 ** (e_min + fmt.n_levels_exp - 1), dtype=torch.float32)
+    codes, _ = af_encode(x, fmt, amax=amax * 1.5)   # amax inside the top binade
+    return codes
+
+
+def af_decode_static(codes: torch.Tensor, e_min: int, fmt: AFFormat = AFFormat(),
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return af_decode(codes, e_min, fmt, dtype)

@@ -9,8 +9,11 @@ Two parts, as in the JAX package's ``core/early_exit.py``:
   (the dense all-layers sweep), ``exit_decisions``, ``select_exit_logits``;
 * the host-side exit-layer predictor behind the DVFS controller (paper
   Alg. 1): ``ExitPredictor``, ``fit_exit_predictor``, ``predict_exit_layer``,
-  ``OnlineExitCalibrator`` and the scheduler's ``predicted_remaining_layers``,
-  numpy only.
+  ``OnlineExitCalibrator`` and the scheduler's ``predicted_remaining_layers``;
+  and its decoder form, keyed by decode position: the
+  ``PositionBinnedExitCalibrator``, the ``ExitThresholdSchedule`` of the
+  self-speculative decode and ``predicted_token_layers``; numpy only,
+  copied from the JAX package.
 """
 from __future__ import annotations
 
@@ -169,6 +172,206 @@ class OnlineExitCalibrator:
         return ExitPredictor(
             bin_edges=self.bin_edges.copy(), bin_exit=self.bin_exit.copy()
         )
+
+
+class PositionBinnedExitCalibrator(OnlineExitCalibrator):
+    """Token-level variant of the online LUT: keyed by DECODE POSITION bin.
+
+    The classifier's Alg. 1 predictor maps a sentence's first-off-ramp
+    entropy to its exit layer.  Autoregressive decode has no single "first
+    off-ramp" per request — every generated token takes its own off-ramp
+    walk — but token exit depth correlates strongly with the token's
+    POSITION in the generation (early tokens copy prompt structure and exit
+    shallow; later tokens carry more uncertainty), so the decode-side LUT
+    bins on position instead: ``observe(position, exit_layer)`` folds a
+    generated token into its position bin's running quantile and
+    ``predict(position)`` reads it back.  Machinery (bounded windows,
+    per-bin quantiles, conservative full-depth cold start) is inherited
+    unchanged from ``OnlineExitCalibrator`` — position is just a different
+    scalar key into the same SRAM-table image.
+    """
+
+    def __init__(
+        self,
+        n_layers: int,
+        *,
+        max_pos: int = 256,
+        n_bins: int = 8,
+        quantile: float = 1.0,
+        window: int = 256,
+    ):
+        assert max_pos >= 1
+        super().__init__(
+            n_layers, lo=0.0, hi=float(max_pos), n_bins=n_bins,
+            quantile=quantile, window=window,
+        )
+
+    def predict_range(self, pos_start: int, pos_end: int) -> float:
+        """Vectorized ``predicted_token_layers`` over [pos_start, pos_end):
+        one digitize over the position range instead of a per-token Python
+        loop — the serving engine refreshes every active lane's remainder
+        each fused step, so this is hot-path."""
+        if pos_end <= pos_start:
+            return 0.0
+        idx = np.digitize(np.arange(pos_start, pos_end, dtype=np.float64),
+                          self.bin_edges)
+        return float(np.clip(self.bin_exit[idx], 1.0, self.n_layers).sum())
+
+    def bin_fill_counts(self) -> np.ndarray:
+        """Observations currently held per position bin — the speculative
+        decode regression signal: a server that folds one depth per accepted
+        BLOCK (instead of one per accepted TOKEN) starves the bins covering
+        positions inside accepted prefixes, visible here as empty windows."""
+        return np.array([len(w) for w in self._windows], dtype=np.int64)
+
+
+class ExitThresholdSchedule:
+    """Per-position / per-entropy-band generalization of the scalar exit
+    threshold (the knob ``decode_step_ee`` compares off-ramp entropy to).
+
+    The scalar threshold treats every decode position identically, but token
+    confidence is strongly position-dependent (the same structure the
+    ``PositionBinnedExitCalibrator`` exploits for depth prediction): early
+    continuation tokens copy prompt structure and can afford a LOOSER
+    threshold (exit more, draft more under speculation), while
+    high-uncertainty stretches warrant a tighter one.  The schedule is a
+    piecewise-constant multiplier surface over (position bin, entropy band)
+    applied to a ``base`` threshold:
+
+      * ``position_edges`` / ``position_scales`` — multiplier by decode
+        position (``len(scales) == len(edges) + 1``, digitize semantics);
+      * ``band_edges`` / ``band_scales`` — multiplier by the lane's LAST
+        observed first-off-ramp entropy (a cheap per-lane confidence proxy:
+        a lane that just read a confident ramp speculates harder);
+      * a ``PositionBinnedExitCalibrator`` may back the schedule: ``observe``
+        forwards every accepted token's realized depth into the calibrator
+        (the one prediction chain stays shared), and ``from_calibrator``
+        derives position scales from the warmed bins.
+
+    With no edges the schedule is CONSTANT and ``threshold_at(p) == base``
+    exactly, so the degenerate schedule is bit-identical to the scalar
+    threshold — the parity anchor the speculative-decode tests pin.
+    """
+
+    def __init__(
+        self,
+        base: float,
+        *,
+        position_edges=(),
+        position_scales=(1.0,),
+        band_edges=(),
+        band_scales=(1.0,),
+        calibrator: Optional["PositionBinnedExitCalibrator"] = None,
+        min_threshold: float = 0.0,
+        max_threshold: Optional[float] = None,
+    ):
+        self.base = float(base)
+        self.position_edges = np.asarray(position_edges, np.float64)
+        self.position_scales = np.asarray(position_scales, np.float64)
+        self.band_edges = np.asarray(band_edges, np.float64)
+        self.band_scales = np.asarray(band_scales, np.float64)
+        assert self.position_scales.size == self.position_edges.size + 1, (
+            "need len(position_scales) == len(position_edges) + 1"
+        )
+        assert self.band_scales.size == self.band_edges.size + 1, (
+            "need len(band_scales) == len(band_edges) + 1"
+        )
+        self.calibrator = calibrator
+        self.min_threshold = float(min_threshold)
+        self.max_threshold = max_threshold
+
+    @classmethod
+    def from_calibrator(
+        cls,
+        base: float,
+        calibrator: "PositionBinnedExitCalibrator",
+        *,
+        loosen: float = 1.25,
+        tighten: float = 0.85,
+        **kwargs,
+    ) -> "ExitThresholdSchedule":
+        """Derive position scales from a (partially) warmed calibrator: bins
+        whose running quantile predicts a SHALLOW exit (< half depth) are
+        confident regions and loosen the threshold; bins predicting deep
+        exits tighten it; cold bins (still at the conservative full depth)
+        keep the base — a cold calibrator yields the constant schedule."""
+        n_layers = float(calibrator.n_layers)
+        scales = []
+        for pred in calibrator.bin_exit:
+            if pred >= n_layers - 1e-9:          # cold or genuinely full-depth
+                scales.append(1.0)
+            elif pred <= n_layers / 2.0:
+                scales.append(float(loosen))
+            else:
+                scales.append(float(tighten))
+        return cls(
+            base,
+            position_edges=calibrator.bin_edges.copy(),
+            position_scales=np.asarray(scales),
+            calibrator=calibrator,
+            **kwargs,
+        )
+
+    def _clip(self, t: np.ndarray) -> np.ndarray:
+        hi = np.inf if self.max_threshold is None else self.max_threshold
+        return np.clip(t, self.min_threshold, hi)
+
+    def thresholds(
+        self, pos_start: int, count: int, last_entropy: Optional[float] = None
+    ) -> np.ndarray:
+        """Vectorized thresholds for positions [pos_start, pos_start+count)
+        — the per-slot threshold row a speculative fused step consumes
+        (slot j speculates the token at position ``pos_start + j``)."""
+        positions = np.arange(pos_start, pos_start + count, dtype=np.float64)
+        if self.position_edges.size:
+            scale = self.position_scales[
+                np.digitize(positions, self.position_edges)
+            ]
+        else:
+            scale = np.full(count, self.position_scales[0])
+        if self.band_edges.size and last_entropy is not None:
+            b = int(np.digitize([float(last_entropy)], self.band_edges)[0])
+            scale = scale * self.band_scales[b]
+        return self._clip(self.base * scale).astype(np.float32)
+
+    def threshold_at(
+        self, position: int, last_entropy: Optional[float] = None
+    ) -> float:
+        return float(self.thresholds(position, 1, last_entropy)[0])
+
+    def observe(
+        self, position: int, first_entropy: float, exit_layer: int
+    ) -> None:
+        """Fold one ACCEPTED token's realized depth into the backing
+        calibrator (every accepted token, not one per block — the bin-fill
+        regression the speculative tests pin)."""
+        if self.calibrator is not None:
+            self.calibrator.observe(position, exit_layer)
+
+
+def predicted_token_layers(
+    predict_fn: Callable[[int], float],
+    pos_start: int,
+    pos_end: int,
+    n_layers: int,
+) -> float:
+    """Predicted TOTAL layers for the tokens at positions [pos_start, pos_end).
+
+    ``predict_fn`` is a per-position exit-depth predictor (e.g.
+    ``PositionBinnedExitCalibrator.predict``); each position's prediction is
+    clamped to ``[1, n_layers]`` so a cold calibrator quotes the conservative
+    full depth for every remaining token.  This is the decode-side analogue
+    of ``predicted_remaining_layers``: the scheduler's EDF slack, the DVFS
+    arbiter's required frequency, and the admission feasibility quote all
+    consume it, so the three layers budget decode work off ONE prediction
+    chain.
+    """
+    if pos_end <= pos_start:
+        return 0.0
+    total = 0.0
+    for t in range(int(pos_start), int(pos_end)):
+        total += float(np.clip(predict_fn(t), 1.0, n_layers))
+    return total
 
 
 def predicted_remaining_layers(

@@ -7,9 +7,15 @@
 // and NOT renormalised); entropy = log(s) - sum(z * e) / s of the unmasked
 // distribution, clamped at 0.  A null mask means all ones.
 //
-// Two entry points:
+// Three entry points:
 //   repro_softmax_entropy  given logits (+ mask): probs and entropy, one
 //                          warp per row;
+//   repro_entropy_rows     the entropy alone of rows of vocabulary width:
+//                          the decode path's LM-head off-ramp
+//                          (repro/models/model.py:939-947 through
+//                          repro/kernels/dispatch.py:77-89, which throws the
+//                          probs away), after every layer of every decode
+//                          step;
 //   repro_offramp_head     the whole off-ramp the paths run after a layer
 //                          (repro/serving/step_math.py:85-92,
 //                          repro/serving/deploy.py:97-103):
@@ -49,7 +55,34 @@
 //     block ends last.  It resets the counter for the next launch.  The
 //     counter and scratch must not be shared by two launches that may run
 //     at once: the wrapper keeps a pair per (device, stream).
+//
+// Bound of repro_entropy_rows on the H100 at the decode shape ([lanes, V]
+// fp32, lanes 1-8, V = 102400): bytes.  One read of the logits, 4 x 102400
+// x 4 B = 1.64 MB at 4 lanes: 0.49 us at 3.35 TB/s (0.12 us at 1 lane),
+// below the card's empty launch; ~8 float ops per logit (3.3 MFLOP, 0.05
+// us at 67 TFLOP/s).  The warp-per-row entry reads each 400 KB row three
+// times from 4 warps on one SM and writes the probs nobody reads.
+//
+// Design of the wide-row entropy:
+//   * one thread-block cluster per row (grid (cluster, rows)); the cluster
+//     size is the largest power of two up to 8 that leaves each block at
+//     least 4096 logits and keeps the grid within twice the card's SMs: 8
+//     blocks of 256 threads per row at the decode shape, 32 blocks for 4
+//     lanes;
+//   * each block reads its contiguous share of the row once, 16-byte loads
+//     where the row allows, four loads in flight per thread, and keeps a
+//     one-pass triple (m, s, sz) = (running max, sum of e^z, sum of z e^z)
+//     with z = x - m, rescaled when the max moves:
+//         s' = e^(m - m') s,   sz' = e^(m - m') (sz + (m - m') s);
+//   * triples merge by the same rule in a fixed shuffle tree within a
+//     warp, across the block's warps, and across the cluster through
+//     distributed shared memory (rank 0 reads every block's triple after a
+//     cluster barrier): a fixed order, so every launch gives the same bits;
+//   * rank 0 writes entropy = max(log(s) - sz / s, 0).  No probs are
+//     written.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -94,6 +127,177 @@ softmax_entropy_kernel(float* __restrict__ probs, float* __restrict__ ent,
     pr[j] = p;
   }
   if (lane == 0) ent[row] = row_entropy(s, sz);
+}
+
+// ---------------------------------------------------------------------------
+// The entropy of wide rows (the decode path's LM-head off-ramp)
+// ---------------------------------------------------------------------------
+
+constexpr int kEntThreads = 256;
+constexpr int kEntWarps = kEntThreads / 32;
+constexpr int kEntMaxCluster = 8;
+constexpr long kEntMinBlockElems = 4096;   // a cluster block's least share of a row
+constexpr int kEntUnroll = 4;              // loads in flight per thread
+
+// (max, sum of e^z, sum of z e^z) over a set of logits, z = x - max; the
+// empty set is (-inf, 0, 0).
+struct Triple {
+  float m, s, sz;
+};
+
+// The triple of the union of two sets: both rescaled to the larger max.
+// Symmetric in its operands (IEEE addition commutes), so the two lanes of
+// a shuffle pair get the same bits.
+__device__ __forceinline__ Triple merge(const Triple a, const Triple b) {
+  const float m = fmaxf(a.m, b.m);
+  Triple t = {m, 0.f, 0.f};
+  if (a.s > 0.f) {
+    const float d = a.m - m, c = expf(d);
+    t.s = c * a.s;
+    t.sz = c * (a.sz + d * a.s);
+  }
+  if (b.s > 0.f) {
+    const float d = b.m - m, c = expf(d);
+    t.s += c * b.s;
+    t.sz += c * (b.sz + d * b.s);
+  }
+  return t;
+}
+
+__device__ __forceinline__ Triple shfl_merge(Triple t, int off) {
+  Triple o;
+  o.m = __shfl_xor_sync(0xffffffffu, t.m, off);
+  o.s = __shfl_xor_sync(0xffffffffu, t.s, off);
+  o.sz = __shfl_xor_sync(0xffffffffu, t.sz, off);
+  return merge(t, o);
+}
+
+__device__ __forceinline__ Triple warp_merge(Triple t) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) t = shfl_merge(t, off);
+  return t;
+}
+
+// Fold VEC logits into a thread's triple: rescale once to the chunk's max,
+// then one exp per logit.
+template <int VEC>
+__device__ __forceinline__ void fold(Triple& t, const float* v) {
+  float cm = v[0];
+#pragma unroll
+  for (int i = 1; i < VEC; ++i) cm = fmaxf(cm, v[i]);
+  if (cm > t.m) {
+    if (t.s > 0.f) {
+      const float d = t.m - cm, c = expf(d);
+      t.sz = c * (t.sz + d * t.s);
+      t.s = c * t.s;
+    }
+    t.m = cm;
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float z = v[i] - t.m, e = expf(z);
+    t.s += e;
+    t.sz = fmaf(z, e, t.sz);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_chunk(const float* p, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// grid (cluster, rows), clusters of (cluster, 1, 1) blocks: rank r of row
+// `row` owns units [r * per, (r + 1) * per) of the row's n / VEC units.
+template <int VEC>
+__global__ void __launch_bounds__(kEntThreads)
+entropy_rows_kernel(float* __restrict__ ent, const float* __restrict__ x, long n) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long row = blockIdx.y;
+  const float* xr = x + row * n;
+  const long units = n / VEC;
+  const long per = (units + cs - 1) / cs;
+  const long u0 = rank * per;
+  const long u1 = u0 + per < units ? u0 + per : units;
+
+  Triple t = {-INFINITY, 0.f, 0.f};
+  long u = u0 + tid;
+  for (; u + (kEntUnroll - 1) * kEntThreads < u1; u += kEntUnroll * kEntThreads) {
+    float v[kEntUnroll][VEC];
+#pragma unroll
+    for (int j = 0; j < kEntUnroll; ++j) load_chunk<VEC>(xr + (u + j * kEntThreads) * VEC, v[j]);
+#pragma unroll
+    for (int j = 0; j < kEntUnroll; ++j) fold<VEC>(t, v[j]);
+  }
+  for (; u < u1; u += kEntThreads) {
+    float v[VEC];
+    load_chunk<VEC>(xr + u * VEC, v);
+    fold<VEC>(t, v);
+  }
+
+  // the warp, then the block's warps, then the cluster's blocks
+  __shared__ Triple warp_t[kEntWarps];
+  __shared__ Triple block_t;
+  t = warp_merge(t);
+  if (lane == 0) warp_t[warp] = t;
+  __syncthreads();
+  if (warp == 0) {
+    const Triple empty = {-INFINITY, 0.f, 0.f};
+    t = warp_merge(lane < kEntWarps ? warp_t[lane] : empty);
+    if (lane == 0) block_t = t;
+  }
+  cluster.sync();
+  if (rank == 0 && warp == 0) {
+    const Triple empty = {-INFINITY, 0.f, 0.f};
+    t = warp_merge(lane < cs ? *cluster.map_shared_rank(&block_t, lane) : empty);
+    if (lane == 0) ent[row] = fmaxf(logf(t.s) - t.sz / t.s, 0.f);
+  }
+  // no block leaves while rank 0 may still read its triple
+  cluster.sync();
+}
+
+int g_ent_sms[64];
+
+cudaError_t launch_entropy_rows(float* ent, const float* x, int rows, int n, cudaStream_t stream,
+                                int device) {
+  if (g_ent_sms[device] == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&g_ent_sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  int cs = 1;
+  while (cs < kEntMaxCluster && static_cast<long>(n) / (cs * 2) >= kEntMinBlockElems &&
+         static_cast<long>(rows) * cs * 2 <= 2L * g_ent_sms[device])
+    cs *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, rows, 1);
+  cfg.blockDim = dim3(kEntThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaError_t err =
+      vec ? cudaLaunchKernelEx(&cfg, entropy_rows_kernel<4>, ent, x, static_cast<long>(n))
+          : cudaLaunchKernelEx(&cfg, entropy_rows_kernel<1>, ent, x, static_cast<long>(n));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -386,6 +590,19 @@ REPRO_EXPORT int repro_softmax_entropy(float* probs, float* ent, const float* x,
   softmax_entropy_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       probs, ent, x, mask, rows, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ent [rows] fp32 <- the entropy of softmax over each row of x [rows, n]
+// fp32, clamped at 0.
+REPRO_EXPORT int repro_entropy_rows(float* ent, const float* x, int rows, int n, void* stream,
+                                    int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= 64 || rows < 0 || rows > 65535 || n <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  return static_cast<int>(
+      launch_entropy_rows(ent, x, rows, n, static_cast<cudaStream_t>(stream), device));
 }
 
 // Blocks of one head launch (the rows of its partial scratch).

@@ -1,12 +1,17 @@
-"""Deterministic synthetic classification data, the ``SyntheticCLS`` of the
-JAX package's ``data/synthetic.py`` (numpy only, so the copy is exact).
+"""Deterministic synthetic data, the ``SyntheticLM`` and ``SyntheticCLS`` of
+the JAX package's ``data/synthetic.py`` (numpy only, so the copies are
+exact).
 
-Sentence classification with planted structure: class c plants tokens from
-a class-specific vocabulary band at random positions, with the CLS token at
-position 0.  ``signal_ratio`` (the fraction of planted positions) sets the
-difficulty, so easy sentences exit early and hard ones late.  Batches are
-deterministic in (seed, step) and host-shardable: ``shard=(host_index,
-host_count)`` slices the global batch.
+* SyntheticLM — Zipf-distributed tokens plus induction patterns
+  (``A B ... A B``): the decoder's prompts.
+* SyntheticCLS — sentence classification with planted structure: class c
+  plants tokens from a class-specific vocabulary band at random positions,
+  with the CLS token at position 0.  ``signal_ratio`` (the fraction of
+  planted positions) sets the difficulty, so easy sentences exit early and
+  hard ones late.
+
+Batches are deterministic in (seed, step) and host-shardable:
+``shard=(host_index, host_count)`` slices the global batch.
 """
 from __future__ import annotations
 
@@ -14,6 +19,35 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
+
+
+@dataclass
+class SyntheticLM:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    shard: Tuple[int, int] = (0, 1)
+    zipf_a: float = 1.2
+    induction_period: int = 64
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        host, n_hosts = self.shard
+        assert self.global_batch % n_hosts == 0
+        local = self.global_batch // n_hosts
+        rng = np.random.default_rng((self.seed, step, host))
+        # zipf body (clipped to vocab)
+        toks = rng.zipf(self.zipf_a, size=(local, self.seq_len)).astype(np.int64)
+        toks = np.minimum(toks, self.vocab_size - 1)
+        # plant induction: repeat the first half-period later in the sequence
+        p = self.induction_period
+        if self.seq_len >= 2 * p:
+            n_rep = self.seq_len // (2 * p)
+            for i in range(n_rep):
+                src = slice(2 * p * i, 2 * p * i + p)
+                dst = slice(2 * p * i + p, 2 * p * (i + 1))
+                toks[:, dst] = toks[:, src]
+        return {"tokens": toks.astype(np.int32)}
 
 
 @dataclass

@@ -16,7 +16,10 @@ The eligibility rules are the JAX package's:
     derives one from the concrete (pruned) weights when the server is
     built, with the CSR index and the kernel's packed bf16 tile planes
     beside it.  Fully occupied weights map to None and their matmuls stay
-    dense.
+    dense;
+  * KV-cache decode attention stays on the reference ops (the JAX package
+    fuses the cache update and the AF8 codec with it), and RMS norm has no
+    kernel: the decoder's kernel route is the LM-head off-ramp's entropy.
 
 Each wrapper below routes by device as the kernels do: CPU tensors take the
 plain versions, CUDA tensors launch the kernels.
@@ -64,6 +67,16 @@ def offramp_head(
     return _sm_k.offramp_head(h.float(), offramp.pooler_w.float(), offramp.pooler_b.float(),
                               offramp.cls_w.float(), offramp.cls_b.float(), active=active,
                               threshold=threshold)
+
+
+def entropy(logits: torch.Tensor) -> torch.Tensor:
+    """Entropy of softmax(logits) over the last axis -> logits.shape[:-1]
+    (the JAX package's ``dispatch.entropy``, which throws the kernel's probs
+    away): the decoder's LM-head off-ramp, [lanes, 1, V] logits, through
+    the wide-row entry ``softmax_entropy.entropy``.  fp32 logits only on
+    the card."""
+    shape = logits.shape
+    return _sm_k.entropy(logits.reshape(-1, shape[-1])).reshape(shape[:-1])
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,7 @@ from repro_torch.kernels import (
 
 # every kernel, by name, with the wrapper that holds its launch count (a
 # source's other entries count on the same: quantize_groups on quantize,
-# offramp_head on softmax_entropy)
+# offramp_head and entropy on softmax_entropy)
 KERNEL_WRAPPERS = {
     "layernorm": layernorm.layernorm,
     "softmax_entropy": softmax_entropy.softmax_entropy,
@@ -49,6 +49,10 @@ SERVING_KERNELS = ("layernorm", "softmax_entropy", "af_quantize", "block_sparse_
 # the trace replay (launch/replay.py) serves every task through the same
 # fused step, so it launches the serving path's kernels
 REPLAY_KERNELS = SERVING_KERNELS
+# the decoder (DecoderServer with an exit threshold): the LM-head off-ramp's
+# entropy after every layer (softmax_entropy's wide-row entry); its RMS
+# norms, cache attention and dense matmuls have no kernel in either package
+DECODE_KERNELS = ("softmax_entropy",)
 
 
 def reset_launch_counts() -> None:

@@ -5,16 +5,20 @@ Replaces the Pallas kernel ``repro/kernels/softmax_entropy.py:17``
 ``_sm_ent_kernel`` (``pallas_call`` at :48) with the CUDA kernels in
 ``csrc/softmax_entropy.cu``.  The mask multiplies the probs and is not
 renormalised; the entropy is that of the unmasked distribution, clamped at
-0.  Two entry points of the one source:
+0.  Three entry points of the one source:
 
-* ``offramp_head`` — what the paths run after a layer, in one launch:
-  pooler (tanh), classifier, softmax and entropy, and the retire mask,
-  into one packed [B, C + 2] row per sentence, reading the CLS rows of
-  ``h`` by stride; fp32 weights (serving) or AF8 codes (deployed);
-* ``softmax_entropy`` — given logits (+ mask), one warp per row.
+* ``offramp_head`` — what the classifier paths run after a layer, in one
+  launch: pooler (tanh), classifier, softmax and entropy, and the retire
+  mask, into one packed [B, C + 2] row per sentence, reading the CLS rows
+  of ``h`` by stride; fp32 weights (serving) or AF8 codes (deployed);
+* ``entropy`` — the entropy alone of rows of vocabulary width, what the
+  decoder's LM-head off-ramp runs after every layer (``dispatch.entropy``):
+  a thread-block cluster per row, no probs written;
+* ``softmax_entropy`` — given logits (+ mask), probs and entropy, one warp
+  per row.
 
-Both count their launches on ``softmax_entropy.launches``.  The source
-gives the bound.
+All count their launches on ``softmax_entropy.launches``.  The source
+gives the bounds.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ _SIGNATURES = {
     "repro_offramp_head": [build.PTR] * 4 + [build.INT64] + [build.INT] * 3 + [build.PTR] * 5
     + [build.FLOAT] + [build.INT] * 5 + [build.PTR, build.INT],
     "repro_offramp_head_blocks": [build.INT],
+    "repro_entropy_rows": [build.PTR, build.PTR, build.INT, build.INT, build.PTR, build.INT],
 }
 
 
@@ -60,6 +65,27 @@ def softmax_entropy(
 
 
 softmax_entropy.launches = 0
+
+
+def entropy(logits: torch.Tensor) -> torch.Tensor:
+    """logits [rows, n] fp32 -> the entropy of softmax over each row,
+    [rows] fp32, clamped at 0 (no probs).  A CPU tensor takes the plain
+    version (``ref.softmax_entropy``); a CUDA tensor launches the kernel,
+    one thread-block cluster per row, or raises: it must be a contiguous
+    fp32 matrix of at most 65535 rows."""
+    if logits.device.type == "cpu":
+        return ref.softmax_entropy(logits)[1]
+    build.require_cuda("entropy", logits)
+    if logits.ndim != 2 or logits.shape[0] > 65535 or logits.shape[1] == 0:
+        raise ValueError(f"entropy: logits must be [rows <= 65535, n > 0], got {tuple(logits.shape)}")
+    rows, n = logits.shape
+    ent = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    lib = build.library("softmax_entropy", _SIGNATURES)
+    err = lib.repro_entropy_rows(ent.data_ptr(), logits.data_ptr(), rows, n,
+                                 build.stream_of(logits), logits.device.index)
+    build.check(lib, err, "entropy")
+    softmax_entropy.launches += 1
+    return ent
 
 # per (device, stream): the head's launch counter (zero between launches)
 # and its partial-sum scratch, grown to the largest launch seen.  The

@@ -71,8 +71,10 @@ gate is exactly that asymmetry: ``accepted_slo_misses == 0`` with
 ``rejected > 0`` under an oversubscribed storm.
 
 This is a copy of the JAX package's ``serving/admission.py`` (numpy and
-Python only), so the port's engines sit behind the same gate.  The
-decoder and the sharded replicas it prices are not ported yet: in the port
+Python only), so the port's engines, the ``ClassifierServer`` and the
+``DecoderServer``, sit behind the same gate, with the decoder's pricing
+(token-level predicted depth, cross-engine backlog on a shared arbiter)
+unchanged.  The sharded replicas it prices are not ported yet: in the port
 every server has one replica and the placement policies see one quote.
 """
 from __future__ import annotations

@@ -31,7 +31,9 @@ the controller replays Alg. 1 over that trace to produce the per-sentence
 (V, f) schedule and energy/latency report.  This is the JAX package's
 ``serving/dvfs.py`` (per-sentence controller and the batched shared-clock
 arbiter), copied as it is: numpy and Python only, apart from
-``calibrate_predictor``, which runs the model's dense forward offline.
+``calibrate_predictor``, which runs the model's dense forward offline.  The
+arbiter's decoder pricing (``set_remaining_layers``, accepted-token counts
+per step) is what the port's ``DecoderServer`` calls.
 """
 from __future__ import annotations
 

@@ -1,21 +1,27 @@
-"""The math of one fused classifier serving step, apart from scheduling
-(the single-device part of ``repro/serving/step_math.py``).
+"""The math of one fused serving step, apart from scheduling (the
+single-device part of ``repro/serving/step_math.py``): the classifier's
+step and the decoder's decode, early-exit decode, speculative decode and
+prefill.
 
 Every function here is tensor math only: no scheduler, no telemetry, no
 host state.  ``use_kernels`` routes the eligible inner ops (attention,
-layernorm, off-ramp entropy, activation quantization, pruned MLP tiles) to
-the hand-written kernels through ``kernels.dispatch``; ``False`` keeps the
-reference ops.
+layernorm, off-ramp entropy, activation quantization, pruned MLP tiles; the
+decoder's LM-head entropy) to the hand-written kernels through
+``kernels.dispatch``; ``False`` keeps the reference ops.
 
 Lanes: the JAX package ``vmap``s a one-lane body over the lane axis; the
-port runs the ``[lanes, S_bucket, D]`` slab at once, with per-lane lengths
-masking each lane's bucket padding out of attention and one activation-
-quant bias per lane, so each lane computes what the one-lane body does.
+port runs all lanes at once.  The classifier's ``[lanes, S_bucket, D]``
+slab carries per-lane lengths masking each lane's bucket padding out of
+attention and one activation-quant bias per lane; the decoder's steps take
+a ``[lanes]`` tensor of cache positions, and each lane reads and writes its
+own cache row at its own position, so each lane computes what the one-lane
+body does.  The decoder's cache is updated in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.early_exit import offramp_logits
@@ -97,3 +103,83 @@ def lane_insert(h: torch.Tensor, lane: int, h_new: torch.Tensor) -> None:
     (load and restore share it, so a preempted lane round-trips through the
     same copy)."""
     h[lane] = h_new[0]
+
+
+# ---------------------------------------------------------------------------
+# Decoder (LM) fused steps
+# ---------------------------------------------------------------------------
+
+
+def decoder_decode(
+    model: Model,
+    params: Any,
+    cache: Any,
+    tokens: torch.Tensor,     # [lanes, 1]
+    pos: torch.Tensor,        # [lanes] per-lane cache positions
+    *,
+    use_kernels: bool = False,
+):
+    """One decode step with PER-LANE positions -> (logits [lanes, 1, V],
+    cache)."""
+    return model.decode_step(params, cache, tokens, pos, use_kernels=use_kernels)
+
+
+def decoder_decode_ee(
+    model: Model,
+    params: Any,
+    cache: Any,
+    tokens: torch.Tensor,     # [lanes, 1]
+    pos: torch.Tensor,        # [lanes]
+    threshold: float,
+    *,
+    use_kernels: bool = False,
+):
+    """Fused layer -> LM-head off-ramp -> entropy -> per-token exit, every
+    lane at its own position -> (logits [lanes, 1, V], cache, exit_layer
+    [lanes] (1-based), first-off-ramp entropy [lanes])."""
+    return model.decode_step_ee(params, cache, tokens, pos, threshold, use_kernels=use_kernels)
+
+
+def decoder_decode_spec(
+    model: Model,
+    params: Any,
+    cache: Any,
+    tokens: torch.Tensor,      # [lanes, 1]
+    pos: torch.Tensor,         # [lanes]
+    thresholds: torch.Tensor,  # [lanes, spec_window] per-slot entropy thresholds
+    spec_window: int,
+    *,
+    eos_id: int = -1,
+    use_kernels: bool = False,
+):
+    """Self-speculative fused step (draft via the off-ramp, verify via the
+    remaining layers, batched accept and rollback), one threshold row per
+    lane so a position / entropy-band schedule prices each speculated
+    position.  Returns ``(tokens [lanes, W], logits [lanes, W, V], cache,
+    exit_layers [lanes, W], first_ent [lanes, W], accepted [lanes, W])``."""
+    return model.decode_step_spec(params, cache, tokens, pos, thresholds, spec_window,
+                                  eos_id=eos_id, use_kernels=use_kernels)
+
+
+def decoder_prefill(
+    model: Model,
+    params: Any,
+    cache: Any,
+    tokens: np.ndarray,       # [bucket] zero-padded prompt
+    lane: int,
+    length: int,              # prompt length
+    *,
+    use_kernels: bool = False,
+):
+    """Write one lane's prompt[:length - 1] into its cache row: full-depth
+    ``decode_step``s, one token at a time, as the JAX package runs them.
+    The JAX package steps every lane on a scratch copy of the cache and
+    merges the lane back under a one-hot; here the steps run on a view of
+    the lane's row alone and write it in place, the same values without
+    the copy.  Returns the cache."""
+    row = {k: v[:, lane:lane + 1] for k, v in cache.items()}
+    dev = cache["k"].device
+    toks = torch.as_tensor(np.asarray(tokens[: max(length - 1, 0)], np.int64), device=dev)
+    for t in range(length - 1):
+        model.decode_step(params, row, toks[t].reshape(1, 1), t, use_kernels=use_kernels)
+    return cache

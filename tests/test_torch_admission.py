@@ -11,8 +11,8 @@ telemetry.  Integers, flags and strings are equal; floats agree within
 rel 1e-9 (the same Python arithmetic on the same modeled quantities).
 
 The decoder cases (``test_decoder_checkpoint_restore_parity`` and the
-cross-engine regressions, which need a ``DecoderServer``) wait for the
-decoder's port.
+cross-engine regressions, which need a ``DecoderServer``) are in
+test_torch_decoder_server.py.
 """
 import dataclasses
 import math

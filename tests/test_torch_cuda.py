@@ -26,11 +26,11 @@ from repro_torch.kernels.adaptivfloat_k import (
     quantize_groups,
 )
 from repro_torch.kernels.layernorm import layernorm
-from repro_torch.kernels.softmax_entropy import offramp_head, softmax_entropy
+from repro_torch.kernels.softmax_entropy import entropy, offramp_head, softmax_entropy
 from repro_torch.kernels.span_attention import span_attention, span_attention_heads
 from repro_torch.models.model import build_model, init_params
 from repro_torch.serving.deploy import deploy_albert
-from repro_torch.serving.engine import ClassifierServer, Request
+from repro_torch.serving.engine import ClassifierServer, DecoderServer, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +130,67 @@ def test_span_attention_strided_heads(cuda, dh, causal):
     again = span_attention_heads(*(x.to(cuda).permute(0, 2, 1, 3) for x in (q, k, v)), spans.to(cuda), 100,
                                  causal=causal, kv_lens=lens.to(cuda))
     assert torch.equal(again, out.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("rows,n", [(4, 102400), (1, 102400), (8, 102400), (3, 1001), (37, 512), (1000, 3),
+                                    (2, 32003), (5, 32000), (300, 4096), (1, 1)])
+def test_entropy_wide_rows(cuda, rows, n):
+    """The decode path's wide-row entry against the plain version, atol
+    1e-5: sums of up to 102400 terms in another order (a cluster of up to
+    8 blocks per row; float4 loads where n % 4 == 0, scalar otherwise), and
+    one launch counted per call."""
+    x = (_t((rows, n), 30 + rows, 1.3) + _t((rows, 1), 31, 3.0)).to(cuda)
+    before = softmax_entropy.launches
+    got = entropy(x)
+    assert softmax_entropy.launches == before + 1
+    torch.testing.assert_close(got, ref.softmax_entropy(x)[1], atol=1e-5, rtol=0)
+
+
+def test_entropy_wide_rows_deterministic_and_routed(cuda):
+    """Two launches on the same logits give the same bits (the triples merge
+    in a fixed order); dispatch.entropy takes [lanes, 1, V] through it; it
+    refuses what it does not take instead of falling back."""
+    x = _t((4, 102400), 32, 1.3).to(cuda)
+    assert torch.equal(entropy(x), entropy(x))
+    lg = x[:, None, :]
+    before = softmax_entropy.launches
+    got = dispatch.entropy(lg)
+    assert softmax_entropy.launches == before + 1 and got.shape == (4, 1)
+    torch.testing.assert_close(got[:, 0], ref.softmax_entropy(x)[1], atol=1e-5, rtol=0)
+    with pytest.raises(TypeError):
+        entropy(x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        entropy(x.t())
+    with pytest.raises(ValueError):
+        entropy(x[None])
+
+
+def test_decoder_server_matches_cpu(cuda):
+    """A smoke-size decoder drain on the card against the same on the CPU,
+    at full depth (threshold below every entropy) and with every token
+    exiting at layer 1 (threshold above every entropy; then also at spec
+    window 4): tokens and exits equal, final logits atol 1e-4, and the
+    decode kernels launched n_layers x W times per fused step."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek_7b"), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [np.random.default_rng(i).integers(4, cfg.vocab_size, 6 + i) for i in range(5)]
+    for thr, W in ((-1.0, 1), (1e9, 1), (1e9, 4)):
+        out = {}
+        for dev in ("cpu", cuda):
+            srv = DecoderServer(model, params, batch_lanes=2, max_seq=32, eos_id=-1, buckets=(16,),
+                                exit_threshold=thr, spec_window=W, device=dev)
+            for i, p in enumerate(prompts):
+                srv.submit(Request(uid=i, tokens=p, max_new_tokens=4))
+            ops.reset_launch_counts()
+            st = srv.run()
+            out[str(dev)] = (srv, ops.launch_counts(), st)
+        (cpu, _, _), (gpu, launches, st) = out["cpu"], out[str(cuda)]
+        assert launches["softmax_entropy"] == cfg.n_layers * W * st["decode_steps"]
+        for i in range(5):
+            assert gpu.done[i].generated == cpu.done[i].generated
+            assert gpu.done[i].token_exit_layers == cpu.done[i].token_exit_layers
+            np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):

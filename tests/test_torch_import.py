@@ -100,3 +100,38 @@ def test_scan_covers_the_replay_slice():
     names = {name for _, name in _modules()}
     assert {"repro_torch.serving.admission", "repro_torch.serving.residency",
             "repro_torch.serving.workload", "repro_torch.launch.replay"} <= names
+
+
+def test_decoder_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serving.engine import DecoderServer, probe_exit_threshold
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(get_smoke_config("deepseek_7b"), dtype="float32")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderServer(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_exit_threshold(model, params, [np.arange(4, 9)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "deepseek_7b", "--smoke"])
+    assert DecoderServer(model, params, device="cpu").device.type == "cpu"
+
+
+def test_scan_covers_the_decoder_slice():
+    """The module scan walks the package, so it covers the decoder slice's
+    new module too."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.configs.deepseek_7b", "repro_torch.serving.engine",
+            "repro_torch.serving.step_math", "repro_torch.data.synthetic"} <= names

@@ -73,6 +73,23 @@ Phases, each printing one JSON line:
                 bound; then the card against the CPU on the first 2
                 layers, teacher-forced (every off-ramp's logits and
                 entropy within 1e-4).
+  9. train    — the Fig. 6 pipeline at albert_edgebert's published width
+                (float32 weights from seed 0, SyntheticCLS seq 128, batch
+                16): a teacher (make_train_step, pruning off), phase 1
+                (magnitude pruning to 0.5 in 32x32 tiles, span learning,
+                distillation from the teacher), phase 2 (the off-ramp
+                alone), with no kernel launched by any training step; the
+                first phase-1 steps on the card against the CPU from the
+                same weights (losses, params, masks under the tie rule);
+                the phase-2 loss falling; a checkpoint round trip, bit for
+                bit; one phase-1 step timed and profiled alone; then the
+                trained weights AF8-quantized, the embedding read back from
+                the MLC2 eNVM, deployed (classify_with_dvfs) and served (a
+                ClassifierServer drain with an arbiter), every kernel of
+                ops.FINETUNE_KERNELS launched, span attention at the
+                learned spans against its plain version; held-out accuracy,
+                learned spans, sparsity, exit histograms and the DVFS
+                operating points chosen.
 Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
 kernel, at the replay's largest step shape with the replay's launches, or
 for af_matmul, which only the deployed path runs, at the deployed layer
@@ -1770,6 +1787,409 @@ def run_decode_path(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training (the Fig. 6 pipeline) and the trained weights deployed
+# ---------------------------------------------------------------------------
+
+# albert_edgebert at its published width, float32, SyntheticCLS (seq 128,
+# batch 16, seed 0): a teacher trained without pruning, phase 1 (magnitude
+# pruning to 0.5 in 32x32 tiles, span learning, distillation from the
+# teacher), phase 2 (the off-ramp alone); then the card against the CPU on
+# the first phase-1 steps from the same weights.  The sentences draw their
+# token ids below TRAIN_DATA_VOCAB (the smoke config's vocabulary): over all
+# 30000 ids each class band holds 2,499 ids, each seen about 4 times in the
+# phase's 100 steps, and random embeddings share nothing within a band, so
+# the task is not learned in that budget (on an H100, at the learning rate
+# at which ids below 512 are learned within 40 steps, a teacher on all
+# 30000 ids stayed at chance over 120 steps).  The model keeps its
+# 30000-row table.
+TRAIN_DATA_VOCAB = 512
+TEACHER_STEPS = 80
+PHASE1_STEPS = 40
+PHASE2_STEPS = 30
+TRAIN_COMPARE_STEPS = 3
+# card against CPU over the compared steps, activation quantization off:
+# losses within 1e-4 relative, every param within 1e-4 (float32 sums in
+# another order) but at Adam's ties (the two gradients of opposite signs,
+# or one within 100 eps of 0: see compare_train_steps), masks equal away
+# from ties (no tile norm within 1e-6 of the threshold).  With activation quantization on, one step: its loss,
+# taken before any update, within 1e-4 relative (an AF flip moves one
+# activation by a quantum); its params are reported, not held, since a
+# flip's gradient difference can reverse the sign of an Adam step.
+TRAIN_RTOL = 1e-4
+TRAIN_ATOL = 1e-4
+TIE = 1e-6
+
+
+def train_config():
+    """launch/finetune.py's config at the published width, its pruning in
+    32x32 tiles (the block-sparse kernel's) and its schedule over
+    PHASE1_STEPS; the config's own distillation weight (0.5)."""
+    from repro_torch.launch.finetune import finetune_config
+
+    return finetune_config(True, PHASE1_STEPS, block_size=32)
+
+
+def mask_mismatches(card_masks, cpu_masks, cpu_params, sparsity: float, block: int) -> dict:
+    """Elements where the card's and the CPU's masks differ, away from ties:
+    a tile may differ only where its L2 norm (of the CPU's params) lies
+    within ``TIE`` of the threshold.  Returns {path: count} of the rest and
+    the tiles within ``TIE`` of the threshold (the threshold's own
+    included)."""
+    import numpy as np
+
+    from repro_torch.common.util import tree_leaves_with_path
+
+    params = dict(tree_leaves_with_path(cpu_params))
+    cpu = dict(tree_leaves_with_path(cpu_masks))
+    bad, at_threshold = {}, 0
+    for path, m in tree_leaves_with_path(card_masks):
+        w = params[path].abs().numpy()
+        r, c = w.shape
+        wp = np.pad(w, ((0, (-r) % block), (0, (-c) % block)))
+        bs = np.sqrt((wp.reshape(wp.shape[0] // block, block, wp.shape[1] // block, block) ** 2).sum(axis=(1, 3)))
+        flat = np.sort(bs.reshape(-1))
+        k = int(np.floor(np.float32(flat.size) * np.float32(sparsity)))
+        near = np.zeros_like(bs, bool) if k <= 0 else np.abs(bs - flat[k - 1]) <= TIE
+        at_threshold += int(near.sum())
+        near = np.repeat(np.repeat(near, block, 0), block, 1)[:r, :c]
+        n = int(((m.cpu().numpy() != cpu[path].numpy()) & ~near).sum())
+        if n:
+            bad[path] = n
+    return {"mismatches": bad, "tiles_at_threshold": at_threshold}
+
+
+def compare_train_steps(cfg, params, teacher, data, tcfg, dev, steps: int) -> dict:
+    """``steps`` phase-1 steps of the same trainer on the card and on the
+    CPU from the same weights: per-step losses, the gradients, every param
+    after the last step, the masks (under the tie rule).
+
+    A param may differ by more than ``TRAIN_ATOL`` only where Adam's step is
+    ill-conditioned in the gradient at some step (its ties): where the
+    card's and the CPU's gradients took opposite signs (the first update is
+    sign(g) * lr, so a gradient zero up to rounding moves its element by
+    about lr either way), or where the two differ and one is within 100 eps
+    of 0 (g / (|g| + eps) then turns the gradient's last digits into a
+    visible fraction of lr).  Those elements are counted, with their largest
+    difference."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.common.util import tree_leaves_with_path
+    from repro_torch.core.pruning import sparsity_schedule
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import EdgeBertTrainer
+
+    runs, last, grads = {}, {}, {"cuda": [], "cpu": []}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        tr = EdgeBertTrainer(build_model(cfg), dataclasses.replace(tcfg, phase1_steps=steps),
+                             teacher_params=tree_to(teacher, d))
+        step_fn = tr.phase1_step
+
+        def recording(*a, _fn=step_fn, _w=where):
+            out = _fn(*a)
+            grads[_w].append({k: v.cpu() for k, v in tree_leaves_with_path(out[2])})
+            return out
+
+        tr.phase1_step = recording
+        t0 = time.perf_counter()
+        runs[where] = tr.phase1(tree_to(params, d), data, log_every=10 ** 9,
+                                callbacks=[lambda step, p, m, _w=where: last.__setitem__(_w, p)])
+        runs[where + "_s"] = time.perf_counter() - t0
+    (gp, gs, gh), (cp, cs, ch) = runs["cuda"], runs["cpu"]
+    loss_rel = [abs(g["loss"] - c["loss"]) / abs(c["loss"]) for g, c in zip(gh, ch)]
+    cpu_leaves = dict(tree_leaves_with_path(cp))
+    param_err, grad_rel, ties, over = {}, {}, 0, {}
+    for path, leaf in tree_leaves_with_path(gp):
+        diff = (leaf.cpu() - cpu_leaves[path]).abs()
+        param_err[path] = float(diff.max())
+        tie = torch.zeros_like(diff, dtype=torch.bool)
+        for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+            tie |= (torch.sign(g_card[path]) != torch.sign(g_cpu[path]))
+            tie |= (torch.minimum(g_card[path].abs(), g_cpu[path].abs()) < 100 * tcfg.opt.eps) & (
+                g_card[path] != g_cpu[path])
+            scale = float(g_cpu[path].abs().max())
+            grad_rel[path] = max(grad_rel.get(path, 0.0),
+                                 float((g_card[path] - g_cpu[path]).abs().max()) / scale if scale else 0.0)
+        ties += int(tie.sum())
+        bad = (diff > TRAIN_ATOL) & ~tie
+        if bad.any() or (tie & (diff > TRAIN_ATOL)).any():
+            over[path] = {"over_atol": int((diff > TRAIN_ATOL).sum()), "unexcused": int(bad.sum()),
+                          "max_excused": float(diff[tie].max()) if tie.any() else 0.0,
+                          "max_unexcused": float(diff[bad].max()) if bad.any() else 0.0}
+    s = float(sparsity_schedule(steps - 1, cfg.edgebert.prune.encoder_sparsity, cfg.edgebert.prune.begin_step,
+                                cfg.edgebert.prune.end_step))
+    masks = mask_mismatches(gs.masks, cs.masks, tree_to(last["cpu"], torch.device("cpu")), s,
+                            cfg.edgebert.prune.block_size)
+    return {"steps": steps, "losses_card": [h["loss"] for h in gh], "losses_cpu": [h["loss"] for h in ch],
+            "loss_rel_err": loss_rel, "param_max_abs_err": max(param_err.values()),
+            "grad_max_rel_err": max(grad_rel.values()), "adam_tie_elements": ties,
+            "params_over_atol": over,
+            "unexcused": sum(v["unexcused"] for v in over.values()),
+            "mask_sparsity": s, **masks, "card_s": runs["cuda_s"], "cpu_s": runs["cpu_s"],
+            "span_z_card": [float(x) for x in gp["span_z"].cpu().reshape(-1)[:4]],
+            "span_z_cpu": [float(x) for x in cp["span_z"].reshape(-1)[:4]],
+            "grad_norm_rel_err": [abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"] for g, c in zip(gh, ch)],
+            "finite": bool(np.isfinite([h["loss"] for h in gh]).all())}
+
+
+def compare_train_forward(model, params, batch, dev) -> dict:
+    """The training forward (activation quantization on) of one batch on
+    the card and on the CPU: every off-ramp's logits and the final loss."""
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.training.losses import offramp_loss
+
+    outs = {}
+    with torch.no_grad():
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            out = model.apply_train(tree_to(params, d), tree_to(batch, d))
+            outs[where] = (out.all_cls_logits.cpu(), float(offramp_loss(out.all_cls_logits, batch["labels"].to(d))),
+                           time.perf_counter() - t0)
+    (gl, gloss, _), (cl, closs, cpu_s) = outs["card"], outs["cpu"]
+    return {"logits_max_abs_err": float((gl - cl).abs().max()), "offramp_loss_card": gloss,
+            "offramp_loss_cpu": closs, "cpu_s": cpu_s, "tolerance": f"atol {FULL_WIDTH_ATOL}"}
+
+
+def held_out_accuracy(model, params, batch) -> dict:
+    import torch
+
+    with torch.no_grad():
+        out = model.apply_train(params, batch)
+    labels = batch["labels"].long()
+    return {"final_offramp": float((out.all_cls_logits[-1].argmax(-1) == labels).float().mean()),
+            "at_exit": float((out.cls_logits.argmax(-1) == labels).float().mean()),
+            "mean_exit": float(out.exit_layer.float().mean())}
+
+
+def run_train_path(dev) -> dict:
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.device import tree_to
+    from repro_torch.common.util import tree_leaves_with_path, tree_num_params
+    from repro_torch.core.adaptive_span import hard_spans
+    from repro_torch.core.early_exit import fit_exit_predictor
+    from repro_torch.core.pruning import measured_sparsity
+    from repro_torch.data.synthetic import SyntheticCLS
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.launch.finetune import LR, quantize_for_deploy, serve_trained, trainer_for
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serving.deploy import deploy_albert
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter, default_albert_controller, no_early_exit_baseline
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.train_loop import make_train_step, to_batch
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    model = build_model(cfg)
+    B, S = 16, 128
+    data = SyntheticCLS(TRAIN_DATA_VOCAB, S, B, num_classes=cfg.num_classes, seed=0)
+    held_out = to_batch(data.batch(20_000), dev)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    trainer = trainer_for(model, PHASE1_STEPS, PHASE2_STEPS, lr=LR["full"])
+    acc_init = held_out_accuracy(model, params, held_out)
+
+    # every training step on the card, counted: no kernel may launch
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    laps = {}
+
+    # 1. the teacher: the generic step, pruning off
+    t0 = time.perf_counter()
+    tcfg_teacher = cfg.with_edgebert(prune=dataclasses.replace(cfg.edgebert.prune, enabled=False))
+    step_fn = make_train_step(build_model(tcfg_teacher), trainer.tcfg.opt)
+    teacher, opt_state, teacher_losses = params, adamw_init(params), []
+    for step in range(TEACHER_STEPS):
+        teacher, opt_state, m = step_fn(teacher, opt_state, to_batch(data.batch(step), dev))
+        teacher_losses.append(float(m["loss"]))
+    laps["teacher_s"] = time.perf_counter() - t0
+    acc_teacher = held_out_accuracy(model, teacher, held_out)
+
+    # 2. card against CPU on the first phase-1 steps from the teacher's
+    # weights, with the teacher: activation quantization off, then on
+    t0 = time.perf_counter()
+    cfg_nq = cfg.with_edgebert(quant=dataclasses.replace(cfg.edgebert.quant, enabled=False))
+    cmp_nq = compare_train_steps(cfg_nq, teacher, teacher, data, trainer.tcfg, dev, TRAIN_COMPARE_STEPS)
+    cmp_q = compare_train_forward(model, teacher, to_batch(data.batch(0), "cpu"), dev)
+    laps["card_vs_cpu_s"] = time.perf_counter() - t0
+
+    # 3. phase 1 from the teacher's weights, distilling from it; 4. phase 2
+    trainer.teacher_params = teacher
+    t0 = time.perf_counter()
+    stamps = []
+    p1, prune_state, h1 = trainer.phase1(teacher, data, log_every=10 ** 9,
+                                         callbacks=[lambda *a: stamps.append(time.perf_counter())])
+    laps["phase1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained, h2 = trainer.phase2(p1, data, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    laps["phase2_s"] = time.perf_counter() - t0
+    train_launches = ops.launch_counts()
+    if any(train_launches.values()):
+        raise AssertionError(f"kernels launched during training: {train_launches}")
+
+    # one phase-1 step alone: wall (host clock around a synchronised step)
+    # and device busy time (profiled)
+    masks = prune_state.masks
+    step_batch = to_batch(data.batch(0), dev)
+    step_state = adamw_init(p1)
+
+    def one_step():
+        trainer.phase1_step(p1, step_state, step_batch, masks)
+
+    one_step()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    by_kernel = profile_device(one_step)
+    busy = sum(g["ms"] for g in by_kernel.values())
+    step_ms = float(np.median(walls))
+    # the step's operations: 2 FLOPs per multiply-add of the student's
+    # forward, twice that for its backward, and the teacher's forward
+    d, ff, V, E = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.embed_dim
+    fwd_per_token = cfg.n_layers * (2 * 4 * d * d + 2 * 2 * d * ff + 2 * 2 * S * d) + 2 * E * d
+    step_flops = 4.0 * fwd_per_token * B * S
+
+    # checkpoint round trip of the trained tree (sha256 checked on restore)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
+        mgr = CheckpointManager(ckdir, save_every=1, keep=2)
+        t0 = time.perf_counter()
+        mgr.maybe_save(PHASE1_STEPS + PHASE2_STEPS, {"params": trained}, force=True)
+        restored, manifest = mgr.restore_latest({"params": trained})
+        ckpt_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(tree_leaves_with_path(restored), tree_leaves_with_path({"params": trained})))
+        if not same or manifest["step"] != PHASE1_STEPS + PHASE2_STEPS:
+            raise AssertionError("the checkpoint did not restore the trained tree bit for bit")
+
+    sparsity = measured_sparsity(p1, prune_state)
+    spans = hard_spans(trained["span_z"].cpu().numpy()[0])
+    acc_after = held_out_accuracy(model, trained, held_out)
+    p2_losses = [h["loss"] for h in h2]
+    result = {
+        "phase": "train", "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": tree_num_params(params), "batch": B, "seq_len": S, "lr": trainer.tcfg.opt.lr,
+        "steps": {"teacher": TEACHER_STEPS, "phase1": PHASE1_STEPS, "phase2": PHASE2_STEPS},
+        "teacher_losses": teacher_losses, "phase1_losses": [h["loss"] for h in h1], "phase2_losses": p2_losses,
+        "phase2_first10_mean": float(np.mean(p2_losses[:10])), "phase2_last10_mean": float(np.mean(p2_losses[-10:])),
+        "held_out_accuracy": {"init": acc_init, "teacher": acc_teacher, "trained": acc_after},
+        "span_z": [float(z) for z in trained["span_z"].cpu().reshape(-1)],
+        "learned_spans": [int(s_) for s_ in spans], "dead_heads": int((spans == 0).sum()),
+        "measured_sparsity": sparsity,
+        "card_vs_cpu": cmp_nq, "card_vs_cpu_quantized": cmp_q,
+        "train_launches": train_launches,
+        "step_wall_ms": walls, "step_wall_ms_median": step_ms, "step_device_busy_ms": busy,
+        "step_device_idle_share": (1.0 - busy / step_ms) if busy > 0 else None,
+        "step_device_ms_by_kernel": by_kernel, "step_tflop": step_flops / 1e12,
+        "step_fp32_bound_ms": step_flops / FP32_FLOP_PER_S * 1e3,
+        "phase1_step_ms": (np.diff(stamps) * 1e3).tolist(),
+        "checkpoint": {"seconds": ckpt_s, "sha256": manifest["sha256"], "arrays": len(manifest["keys"]),
+                       "bit_identical": same},
+        "seconds": dict(laps),
+    }
+    # the training record goes out before its checks, so a failed check
+    # still leaves its numbers in the output
+    emit({**result, "phase": "train_training"})
+    if not np.mean(p2_losses[-10:]) < np.mean(p2_losses[:10]):
+        raise AssertionError(f"phase-2 loss did not fall: {p2_losses}")
+    if not np.isfinite([h["loss"] for h in h1]).all():
+        raise AssertionError("non-finite phase-1 loss")
+    if max(cmp_nq["loss_rel_err"]) > TRAIN_RTOL or cmp_nq["unexcused"]:
+        raise AssertionError(f"card and CPU training differ: {cmp_nq}")
+    if cmp_nq["mismatches"]:
+        raise AssertionError(f"card and CPU masks differ away from ties: {cmp_nq['mismatches']}")
+    if cmp_q["logits_max_abs_err"] > FULL_WIDTH_ATOL:
+        raise AssertionError(f"card and CPU quantized training forward differ: {cmp_q}")
+
+    # deploy and serve the trained weights on the card (launch/finetune.py's
+    # tail): AF8 post-quantization, the embedding through the MLC2 eNVM,
+    # deploy_albert -> classify_with_dvfs, then a ClassifierServer drain
+    # with a shared-clock arbiter; every kernel of ops.FINETUNE_KERNELS
+    t0 = time.perf_counter()
+    params_q, qstats = quantize_for_deploy(trained, seed=0)
+    dep = deploy_albert(params_q, cfg, envm_cell="MLC2", seed=0, device=dev)
+    tokens = data.batch(30_000)["tokens"]
+    thr = cfg.edgebert.early_exit.entropy_threshold
+    dep.threshold = 0.0
+    dep.classify(tokens)
+    profile = np.asarray(dep.last_entropy_traces)
+    below = np.concatenate([profile[:, :-1] < thr, np.ones((B, 1), bool)], axis=1)
+    profile_exits = np.argmax(below, axis=1) + 1
+    dep.threshold = thr
+    target = no_early_exit_baseline(albert_layer_stats(seq_len=S))["latency_s"]
+
+    def controller():
+        return default_albert_controller(target, seq_len=S, n_layers=cfg.n_layers,
+                                         predictor=fit_exit_predictor(profile[:, 0], profile_exits, n_bins=8))
+
+    ctl = controller()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits, exits, lane_reports = dep.classify_with_dvfs(tokens, ctl, arbiter=BatchedDVFSArbiter(ctl))
+    deploy_launches = ops.launch_counts()
+    _, _, reports = dep.classify_with_dvfs(tokens, ctl)
+    ops.reset_launch_counts()
+    served = serve_trained(model, params_q, tokens, dev, lanes=8, arbiter=BatchedDVFSArbiter(controller()))
+    torch.cuda.synchronize()
+    serve_launches = ops.launch_counts()
+    laps["deploy_and_serve_s"] = time.perf_counter() - t0
+    launches = {k: deploy_launches[k] + serve_launches[k] for k in deploy_launches}
+    missing = [k for k in ops.FINETUNE_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the trained weights: {missing}")
+    if not np.isfinite(logits).all() or not ((exits >= 1) & (exits <= cfg.n_layers)).all():
+        raise AssertionError("deployed logits or exits out of range on the trained weights")
+    if not np.array_equal(exits, profile_exits):
+        raise AssertionError(f"exits {exits} differ from the profile's {profile_exits}")
+    if served["sentences"] != B:
+        raise AssertionError(f"served {served['sentences']} of {B}")
+
+    # span_attention at the learned spans against its plain version (the
+    # deployed shape; not counted)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(B, S, cfg.n_heads, cfg.head_dim, generator=g, device=dev) for _ in range(3))
+    got = ops.span_attention_op(q, k, v, dep.spans, causal=False)
+    want = ops.span_attention_op(q.cpu(), k.cpu(), v.cpu(), dep.spans, causal=False)
+    span_err = float((got.cpu() - want).abs().max())
+    if span_err > 2e-5:
+        raise AssertionError(f"span_attention at the learned spans: max abs err {span_err} > 2e-5")
+
+    def ops_of(points):
+        return sorted({f"{p.vdd:.3f}V/{p.freq_hz / 1e6:.0f}MHz" for p in points})
+
+    serve_ops = sorted({f"{r.op_vdd:.3f}V/{r.op_freq_hz / 1e6:.0f}MHz" for r in served["requests"]
+                        if r.op_vdd is not None})
+    result.update({
+        "deployed_spans": [int(s_) for s_ in dep.spans], "quantize": qstats, "threshold": thr,
+        "deploy_exit_histogram": np.bincount(exits, minlength=cfg.n_layers + 1)[1:].tolist(),
+        "serve_exit_histogram": np.bincount(served["exits"], minlength=cfg.n_layers + 1)[1:].tolist(),
+        "deploy_ops": ops_of(r.op for r in reports),
+        "deploy_arbiter_slowest_ops": ops_of(r.slowest_op for r in lane_reports), "serve_ops": serve_ops,
+        "modeled_energy_j": float(sum(r.energy_j for r in reports)),
+        "serve_avg_exit_layer": served["avg_exit_layer"], "span_attention_learned_err": span_err,
+        "launches": launches, "deploy_launches": deploy_launches, "serve_launches": serve_launches,
+        "seconds": laps, "phase_s": time.perf_counter() - t_phase,
+    })
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1824,10 +2244,12 @@ def main() -> int:
     serving = timed("serving", run_serving_path, scfg, sparams, dev)
     replay = timed("replay", run_replay_path, scfg, dev)
     decode = timed("decode", run_decode_path, dev)
+    train = timed("train", run_train_path, dev)
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
-                   "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]]}
+                   "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]],
+                   "train": train["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
         # replay's, the deployed path's for af_matmul, which only that path
         # runs, or the decode path's for the wide-row entropy

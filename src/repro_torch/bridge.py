@@ -1,10 +1,13 @@
-"""Weight bridge: the JAX package's parameter trees into the port.
+"""Weight bridge between the JAX package's parameter trees and the port.
 
 * ``params_from_numpy`` turns a nested dict of numpy arrays (a JAX param
-  tree passed through ``np.asarray``) into the same tree of torch tensors.
-* ``load_npz_checkpoint`` reads a ``step_N/arrays.npz`` written by the JAX
+  tree passed through ``np.asarray``) into the same tree of torch tensors;
+  ``params_to_numpy`` goes back (port-trained weights into the JAX package).
+* ``load_npz_checkpoint`` reads a ``step_N/arrays.npz`` written by either
   package's checkpoint manager, whose keys are ``jax.tree_util.keystr``
-  paths such as ``['layer']['attn']['wq']``, without importing JAX.
+  paths such as ``['layer']['attn']['wq']`` or, for the AdamW state of the
+  generic training route, ``['opt'].m['layer']['attn']['wq']``, without
+  importing JAX.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
 
-_KEY = re.compile(r"\['([^'\\]*)'\]")
+# one path segment: a dict key ['name'] or a NamedTuple field .name
+_SEGMENT = re.compile(r"\['([^'\\]*)'\]|\.([A-Za-z_][A-Za-z0-9_]*)")
 
 
 def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
@@ -41,11 +45,33 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = "cuda") -> Dict
     return conv(tree)
 
 
+def params_to_numpy(tree: Any) -> Any:
+    """A tree of tensors -> the same tree of numpy arrays on the host.  A
+    bfloat16 leaf comes back as float32 (numpy has no bfloat16; the
+    widening is exact)."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(conv(v) for v in node))
+        t = torch.as_tensor(node).detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return conv(tree)
+
+
 def parse_keystr(key: str) -> list:
     """``"['layer']['attn']['wq']"`` -> ``['layer', 'attn', 'wq']``: the keystr
-    path of a leaf in a tree of dicts, which is what a param tree is."""
-    parts = _KEY.findall(key)
-    if not parts or "".join(f"['{p}']" for p in parts) != key:
+    path of a leaf.  NamedTuple fields (``"['opt'].m['embed']['tok']"``, the
+    AdamW state's ``count`` / ``m`` / ``v``) read as keys too, so the
+    checkpoint loads as nested dicts."""
+    parts, pos = [], 0
+    for m in _SEGMENT.finditer(key):
+        if m.start() != pos:
+            break
+        parts.append(m.group(1) if m.group(1) is not None else m.group(2))
+        pos = m.end()
+    if not parts or pos != len(key):
         raise ValueError(f"unparseable checkpoint key {key!r}")
     return parts
 

@@ -5,7 +5,9 @@ modulates attention through a soft ramp,
 
     m_z(d) = clamp((ramp + z - d) / ramp, 0, 1),    d = token distance
 
-(``distance_matrix``, ``span_soft_mask``).  At deployment the spans are
+(``distance_matrix``, ``span_soft_mask``), and the mean normalized span is
+added to the fine-tuning loss (``span_loss``; ``clamp_spans`` projects z
+back into [0, max_span] after each optimizer step).  At deployment the spans are
 frozen to integers: a head with span 0 is skipped entirely (its context
 vector is zero) and the surviving heads attend over a window of ``span``
 tokens, which the span-attention kernel uses to bound its kv-tile loop
@@ -40,10 +42,29 @@ def span_soft_mask(
 ) -> torch.Tensor:
     """[n_heads, q_len, k_len] soft mask in [0, 1]."""
     d = distance_matrix(q_len, k_len, causal, q_offset, device=z.device).float()
-    m = ((ramp + z.float()[:, None, None] - d[None]) / float(ramp)).clamp(0.0, 1.0)
+    m = clip01((ramp + z.float()[:, None, None] - d[None]) / float(ramp))
     if causal:
         m = torch.where(d[None] < 0, torch.zeros_like(m), m)
     return m
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] with ``jnp.clip``'s gradient: at exactly 0 or 1
+    the gradient is split in half between the bound and x (``torch.clamp``
+    passes all of it).  The soft ramp sits exactly on a bound whenever an
+    integer span meets an integer distance, so the spans' gradients depend
+    on it."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def span_loss(z: torch.Tensor, max_span: int, coef: float) -> torch.Tensor:
+    """The regularizer that pushes spans down (added to the phase-1 loss)."""
+    return coef * z.mean() / float(max_span)
+
+
+def clamp_spans(z: torch.Tensor, max_span: int) -> torch.Tensor:
+    """The projection after each optimizer step: z stays in [0, max_span]."""
+    return z.clamp(0.0, float(max_span))
 
 
 def hard_spans(z, threshold: float = 0.5) -> np.ndarray:

@@ -30,9 +30,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.common.util import tree_map_with_path
 
 _INV_LN2 = float(torch.tensor(1.0 / math.log(2.0), dtype=torch.float32))
 
@@ -119,8 +121,9 @@ def fake_quant(
     against ``x`` gives one bias per slice (the serving step's lanes)."""
     if not enabled:
         return x
-    q = af_quantize(x, fmt, amax)
-    return x + (q - x).detach()
+    with torch.no_grad():          # q carries no gradient: no graph for the codec
+        q = af_quantize(x, fmt, amax)
+    return x + (q - x.detach())
 
 
 def af_encode(
@@ -197,3 +200,26 @@ def af_encode_static(x: torch.Tensor, e_min: int, fmt: AFFormat = AFFormat()) ->
 def af_decode_static(codes: torch.Tensor, e_min: int, fmt: AFFormat = AFFormat(),
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return af_decode(codes, e_min, fmt, dtype)
+
+
+def quantize_pytree(params: Any, fmt: AFFormat = AFFormat(),
+                    predicate: Optional[Callable[[str, Any], bool]] = None) -> Any:
+    """Quantize-dequantize every float leaf of a tree (a bias per leaf).
+
+    ``predicate(path, leaf) -> bool`` can exclude leaves (e.g. layernorm
+    params); ``path`` is the leaf's keystr path, ``"['layer']['norm1']['scale']"``.
+    The result is plain tensors (no autograd history)."""
+    def q(path, leaf):
+        if torch.is_tensor(leaf) and leaf.is_floating_point() and (predicate is None or predicate(path, leaf)):
+            return af_quantize(leaf.detach(), fmt)
+        return leaf
+
+    return tree_map_with_path(q, params)
+
+
+def encode_pytree(params: Any, fmt: AFFormat = AFFormat()) -> Any:
+    """Every float leaf to ``(codes, e_min)``: the on-eNVM storage form."""
+    return tree_map_with_path(
+        lambda _, leaf: af_encode(leaf.detach(), fmt)
+        if torch.is_tensor(leaf) and leaf.is_floating_point() else leaf,
+        params)

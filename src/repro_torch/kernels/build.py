@@ -187,10 +187,22 @@ def cluster_split(blocks: int, k_steps: int, slots: int) -> int:
     return split
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record through one of ``tensors``: grad mode
+    is on and one of them requires grad.  No kernel has a backward (none of
+    the Pallas kernels has one either), so a launch on such an input would
+    return a result with no ``grad_fn`` and silently cut the graph."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def require_cuda(what: str, *tensors: torch.Tensor, dtype=torch.float32, contiguous: bool = True) -> int:
     """Validate what the kernel takes (CUDA, one device, contiguous where
-    ``contiguous``, ``dtype`` unless None) with attribute reads only;
-    returns the device index."""
+    ``contiguous``, ``dtype`` unless None, nothing autograd would record
+    through: ``needs_grad``) with attribute reads only; returns the device
+    index.  Training takes the reference ops (``use_kernels=False``)."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{what}: an input requires grad with grad enabled, and the kernel has no "
+                           "backward; run the reference ops (use_kernels=False) or under torch.no_grad()")
     dev = tensors[0].get_device()
     for t in tensors:
         if not t.is_cuda or t.get_device() != dev:

@@ -49,6 +49,11 @@ SERVING_KERNELS = ("layernorm", "softmax_entropy", "af_quantize", "block_sparse_
 # the trace replay (launch/replay.py) serves every task through the same
 # fused step, so it launches the serving path's kernels
 REPLAY_KERNELS = SERVING_KERNELS
+# the trained weights of the Fig. 6 pipeline (launch/finetune.py, chip_smoke's
+# train phase) deployed and served: the deployed path's kernels and the
+# serving kernels (serving keeps attention on the reference ops while the
+# learned soft spans, span_z, are set: span_attention comes from the deploy)
+FINETUNE_KERNELS = DEPLOY_KERNELS + tuple(k for k in SERVING_KERNELS if k not in DEPLOY_KERNELS)
 # the decoder (DecoderServer with an exit threshold): the LM-head off-ramp's
 # entropy after every layer (softmax_entropy's wide-row entry); its RMS
 # norms, cache attention and dense matmuls have no kernel in either package

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.adaptive_span import clip01
 from repro_torch.core.adaptivfloat import af_decode_static, af_encode_static
 from repro_torch.kernels import dispatch
 
@@ -80,11 +81,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def _soft_span_block_mask(z: torch.Tensor, ramp: int, q_pos: torch.Tensor,
                           k_pos: torch.Tensor, causal: bool) -> torch.Tensor:
-    """[H, qb, kb] soft span mask for one (q block, kv block) pair."""
+    """[H, qb, kb] soft span mask for one (q block, kv block) pair (clipped
+    with ``jnp.clip``'s gradient at the bounds: ``clip01``)."""
     d = q_pos[:, None] - k_pos[None, :]
     if not causal:
         d = d.abs()
-    return ((ramp + z.float()[:, None, None] - d[None].float()) / float(ramp)).clamp(0.0, 1.0)
+    return clip01((ramp + z.float()[:, None, None] - d[None].float()) / float(ramp))
 
 
 def _key_mask(k_pos: torch.Tensor, kv_len: Optional[torch.Tensor], Sk: int) -> torch.Tensor:

@@ -167,6 +167,7 @@ def init_params(
 class ModelOutput(NamedTuple):
     logits: Optional[torch.Tensor] = None          # LM logits [B, S, V]
     cls_logits: Optional[torch.Tensor] = None      # [B, C]
+    aux_loss: Any = 0.0                            # router / span regularizers (a float32 scalar)
     all_cls_logits: Optional[torch.Tensor] = None  # [L, B, C] off-ramp sweep
     all_entropies: Optional[torch.Tensor] = None   # [L, B]
     exit_layer: Optional[torch.Tensor] = None      # [B]
@@ -280,12 +281,15 @@ class Model:
     # ------------------------------------------------------------- forward
     def apply_train(self, p: Params, batch: Dict[str, Any]) -> ModelOutput:
         """Dense all-layers forward of the albert family (every off-ramp's
-        logits and entropy when early exit is on)."""
+        logits and entropy when early exit is on).  It runs on the reference
+        ops only (no kernel has a backward), so autograd differentiates it
+        end to end, as XLA differentiates the JAX package's."""
         cfg = self.cfg
         if cfg.family != "albert":
             raise NotImplementedError("the dense family's training forward is not ported")
         tokens = torch.as_tensor(batch["tokens"], device=p["embed"]["tok"].device)
         h = self.embed(p, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         span_z = self._span_for_layer(p, 0)
 
         def layer_fn(i, h):
@@ -295,14 +299,14 @@ class Model:
             all_logits, all_ent = ee.exit_all_layers(layer_fn, cfg.n_layers, h, self._offramp(p))
             exit_layer, _ = ee.exit_decisions(all_ent, cfg.edgebert.early_exit.entropy_threshold)
             return ModelOutput(
-                cls_logits=ee.select_exit_logits(all_logits, exit_layer),
+                cls_logits=ee.select_exit_logits(all_logits, exit_layer), aux_loss=aux,
                 all_cls_logits=all_logits, all_entropies=all_ent, exit_layer=exit_layer,
             )
         for i in range(cfg.n_layers):
             h = layer_fn(i, h)
         cls = self.cls_logits(p, h) if "classifier" in p else None
         logits = self.lm_logits(p, h) if cfg.vocab_size else None
-        return ModelOutput(logits=logits, cls_logits=cls)
+        return ModelOutput(logits=logits, cls_logits=cls, aux_loss=aux)
 
     # ---- token-level early exit (the decoder's training-time form) ----
     def _head_entropy(self, p: Params, h: torch.Tensor, use_kernels: bool = False):

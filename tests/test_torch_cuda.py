@@ -527,3 +527,131 @@ def test_smoke_replay_matches_cpu(cuda):
     assert rec_gpu == rec_cpu and len(rec_gpu) == s_gpu["completed"] > 0
     assert all(n_gpu[k] > 0 for k in ops.REPLAY_KERNELS), n_gpu
     assert all(n == 0 for n in n_cpu.values())
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(quant=False):
+    from repro_torch.configs.base import PruneConfig, SpanConfig
+
+    cfg = dataclasses.replace(get_smoke_config("albert_edgebert"), dtype="float32", remat_policy="none")
+    cfg = cfg.with_edgebert(
+        prune=PruneConfig(enabled=True, method="magnitude", encoder_sparsity=0.5, end_step=2, update_every=1,
+                          block_size=16),
+        span=SpanConfig(enabled=True, max_span=128, ramp=16, loss_coef=0.05, init_span=16.0),
+        quant=dataclasses.replace(cfg.edgebert.quant, enabled=quant), distill_alpha=0.5)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def _flat(tree):
+    from repro_torch.common.util import tree_leaves_with_path
+
+    return dict(tree_leaves_with_path(tree))
+
+
+def test_training_step_matches_cpu(cuda):
+    """Three smoke-size phase-1 steps (magnitude pruning in 16x16 tiles,
+    spans at an integer init, distillation) on the card and on the CPU from
+    the same weights (activation quantization off, whose AF boundaries would
+    turn an ulp into a quantum): losses within 1e-5 relative; the first
+    step's gradients within 1e-5 of their leaf's largest and its params
+    within 1e-5 (float32 sums in another order); after three steps every
+    param within 1e-4, both but where Adam's step is ill-conditioned in the
+    gradient (its ties): where the two gradients took opposite signs (the
+    first step is sign(g) * lr), or where they differ and one is within 100
+    eps of 0 (the step g / (|g| + eps) then turns the gradient's last
+    digits into a visible fraction of lr); masks equal (no tile norm within 1e-6 of the
+    threshold here); and no kernel launched: training takes the reference
+    ops."""
+    from repro_torch.common.device import tree_to
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.train_loop import EdgeBertTrainer, TrainerConfig
+
+    cfg, params = _train_setup()
+    teacher = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    data = SyntheticCLS(cfg.vocab_size, 32, 8, num_classes=3, seed=0)
+    runs, grads, first = {}, {}, {}
+    for dev in ("cpu", cuda):
+        tr = EdgeBertTrainer(build_model(cfg), TrainerConfig(
+            phase1_steps=3, phase2_steps=0, opt=AdamWConfig(lr=2e-3, warmup_steps=2, total_steps=10,
+                                                            span_lr_mult=300.0)),
+            teacher_params=tree_to(teacher, torch.device(dev)))
+        seen = grads[str(dev)] = []
+
+        def recording(*a, _fn=tr.phase1_step, _seen=seen):
+            out = _fn(*a)
+            _seen.append({k: v.cpu() for k, v in _flat(out[2]).items()})
+            return out
+
+        tr.phase1_step = recording
+        ops.reset_launch_counts()
+        runs[str(dev)] = tr.phase1(tree_to(params, torch.device(dev)), data, log_every=1000, callbacks=[
+            lambda step, p, m, _d=str(dev): first.setdefault(_d, {k: v.cpu() for k, v in _flat(p).items()})])
+        assert sum(ops.launch_counts().values()) == 0
+    (cp, cs, ch), (gp, gs, gh) = runs["cpu"], runs[str(cuda)]
+    for c, g in zip(ch, gh):
+        assert abs(c["loss"] - g["loss"]) <= 1e-5 * abs(c["loss"])
+    for path, want in grads["cpu"][0].items():      # the first step's, from the same params
+        got = grads[str(cuda)][0][path]
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0, msg=path)
+    for after, cpu_p, card_p, atol in ((1, first["cpu"], first[str(cuda)], 1e-5), (3, _flat(cp), _flat(gp), 1e-4)):
+        for path, leaf in cpu_p.items():
+            tie = torch.zeros_like(leaf, dtype=torch.bool)      # Adam's ties
+            for g_cpu, g_card in list(zip(grads["cpu"], grads[str(cuda)]))[:after]:
+                tie |= torch.sign(g_cpu[path]) != torch.sign(g_card[path])
+                tie |= (torch.minimum(g_cpu[path].abs(), g_card[path].abs()) < 100 * tr.tcfg.opt.eps) & (
+                    g_cpu[path] != g_card[path])
+            diff = (card_p[path].cpu() - leaf).abs()
+            assert not ((diff > atol) & ~tie).any(), (after, path, float(diff.max()))
+    for path, m in _flat(cs.masks).items():
+        assert torch.equal(_flat(gs.masks)[path].cpu(), m), path
+
+
+def test_wrappers_refuse_grad_inputs_on_card(cuda):
+    """A CUDA input that requires grad, with grad enabled, is refused by every
+    wrapper (no kernel has a backward); under no_grad the same call runs."""
+    from repro_torch.kernels.adaptivfloat_k import quantize_groups as qg
+
+    x = _t((32, 64), 31).to(cuda).requires_grad_()
+    g, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    codes, e_min = af_encode(_t((64, 64), 32))
+    calls = {
+        "layernorm": lambda: layernorm(x, g, b),
+        "softmax_entropy": lambda: softmax_entropy(x),
+        "entropy": lambda: entropy(x),
+        "quantize_groups": lambda: qg(x, 4),
+        "af_matmul": lambda: af_matmul(x, codes.to(cuda), int(e_min)),
+        "span_attention": lambda: span_attention(x.view(2, 16, 64), x.view(2, 16, 64), x.view(2, 16, 64),
+                                                 torch.full((2,), 8, dtype=torch.int32, device=cuda), 8,
+                                                 causal=False),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    w = _t((64, 64), 33).to(cuda)
+    index = block_sparse.BlockIndex.build(np.ones((2, 2), bool), 32, 32, cuda, w=w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        block_sparse.block_sparse_matmul(x, w, index)
+
+
+def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.device import tree_to
+    from repro_torch.training.optim import adamw_init
+
+    _, params = _train_setup()
+    card = tree_to(params, cuda)
+    mgr = CheckpointManager(str(tmp_path), save_every=1)
+    mgr.maybe_save(1, {"params": card, "opt": adamw_init(card)})
+    restored, manifest = mgr.restore_latest({"params": params, "opt": adamw_init(params)})
+    assert manifest["step"] == 1
+    for path, leaf in _flat(restored).items():
+        want = _flat({"params": card, "opt": adamw_init(card)})[path]
+        assert leaf.device.type == "cpu" and torch.equal(leaf, want.cpu()), path
+    on_card, _ = mgr.restore_latest({"params": params}, device=cuda)
+    assert all(t.is_cuda for t in _flat(on_card).values())

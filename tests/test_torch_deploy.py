@@ -188,7 +188,9 @@ def test_npz_checkpoint_round_trip(setup, tmp_path):
     tp = params_from_numpy(tree, device="cpu")
     np.testing.assert_array_equal(tp["layer"]["attn"]["wq"].numpy(), np_params["layer"]["attn"]["wq"])
     assert parse_keystr("['layer']['attn']['wq']") == ["layer", "attn", "wq"]
-    for bad in ("layer/attn", "['a'][3]", "['a'].b", ""):
+    # NamedTuple fields (the AdamW state of the training route) read as keys
+    assert parse_keystr("['opt'].m['layer']['attn']['wq']") == ["opt", "m", "layer", "attn", "wq"]
+    for bad in ("layer/attn", "['a'][3]", "['a'].", "['a']..b", "['a'] .b", ""):
         with pytest.raises(ValueError):
             parse_keystr(bad)
 

@@ -135,3 +135,23 @@ def test_scan_covers_the_decoder_slice():
     names = {name for _, name in _modules()}
     assert {"repro_torch.configs.deepseek_7b", "repro_torch.serving.engine",
             "repro_torch.serving.step_math", "repro_torch.data.synthetic"} <= names
+
+
+def test_scan_covers_the_training_slice():
+    """The module scan walks the package, so it covers the training slice's
+    modules too."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.common.util", "repro_torch.core.distill", "repro_torch.core.pruning",
+            "repro_torch.training.losses", "repro_torch.training.optim", "repro_torch.training.train_loop",
+            "repro_torch.checkpoint.manager", "repro_torch.launch.train", "repro_torch.launch.finetune",
+            "repro_torch.bridge"} <= names
+
+
+def test_training_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch, tmp_path):
+    from repro_torch.launch import finetune, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune.main(["--steps", "12"])

@@ -28,8 +28,9 @@ Phases, each printing one JSON line:
                 off-ramp head and af_quantize as the grouped launch
                 (quantize_groups), each beside the chain of launches it
                 replaces (`replaced_device_ms`, `replaced_enqueue_us`), and
-                softmax_entropy's wide-row entry at the decoder's [4 and 1,
-                102400] logits beside the warp-per-row entry;
+                softmax_entropy's wide-row entry at the decoders' [4 and 1,
+                102400] and [4 and 1, 151936] logits beside the
+                warp-per-row entry;
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -73,6 +74,17 @@ Phases, each printing one JSON line:
                 bound; then the card against the CPU on the first 2
                 layers, teacher-forced (every off-ramp's logits and
                 entropy within 1e-4).
+ 8b. moe_decode — the same recipe on the MoE decoder at full width and
+                depth (qwen2-moe-a2.7b: 24 layers, d_model 2048, 16 x 128
+                heads with qkv biases drawn nonzero, 60 experts of d_ff
+                1408 top-4 and a shared expert of 5632, vocab 151936;
+                57.3 GB of float32 weights drawn on the card after the
+                decode phase's are released, the free memory checked and
+                reported before and after the draw): softmax_entropy's
+                wide-row entry launched 24 x W times per fused step, W = 4
+                equal to W = 1 bit for bit, the step's bytes by part
+                (experts, LM head, shared expert, attention) beside its
+                HBM bound, and the first 2 layers against the CPU.
   9. train    — the Fig. 6 pipeline at albert_edgebert's published width
                 (float32 weights from seed 0, SyntheticCLS seq 128, batch
                 16): a teacher (make_train_step, pruning off), phase 1
@@ -93,8 +105,9 @@ Phases, each printing one JSON line:
 Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
 kernel, at the replay's largest step shape with the replay's launches, or
 for af_matmul, which only the deployed path runs, at the deployed layer
-with that path's launches; softmax_entropy has a second row, its wide-row
-entry at the decode shape [4, 102400] with the decode phase's launches),
+with that path's launches; softmax_entropy has two more rows, its wide-row
+entry at the decode shape [4, 102400] with the decode phase's launches and
+at the moe_decode shape [4, 151936] with that phase's),
 the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
@@ -133,12 +146,14 @@ BUCKETS = (32, 64, 128)
 REPLAY_EVENTS = 1000
 REPLAY_PREFIX = 96
 SMOKE_REPLAY_EVENTS = 200
-# the decode phase: deepseek-7b at full width and depth, 8 SyntheticLM
-# requests of 16-token prompts and 8 new tokens each in 4 lanes of one
-# bucket (prompt + budget + 1 = 25 <= 32), per-token exit at the probe's
-# median, spec window 4; the card against the CPU on the first 2 layers,
-# teacher-forced, per-layer LM-head logits and entropies within 1e-4 (sums
-# of 4096 and 102400 terms in another order)
+# the decode and moe_decode phases: deepseek-7b and qwen2-moe-a2.7b at
+# full width and depth, 8 SyntheticLM requests of 16-token prompts and 8
+# new tokens each in 4 lanes of one bucket (prompt + budget + 1 = 25 <=
+# 32; 4 lanes is qwen2-moe's capacity C at 4 tokens, so its prefill steps
+# a lane's row alone, exactly), per-token exit at the probe's median, spec
+# window 4; the card against the CPU on the first 2 layers, teacher-forced,
+# per-layer LM-head logits and entropies within 1e-4 (sums of up to 4096
+# and 151936 terms in another order)
 DECODE_LANES = 4
 DECODE_REQUESTS = 8
 DECODE_PROMPT = 16
@@ -427,27 +442,31 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             label=f"logits[{rows_}]")
 
     # ... and the wide-row entry, the decode path's LM-head entropy
-    # (dispatch.entropy) at the decoder's [lanes, vocab] fp32 logits:
-    # deepseek-7b's 4 lanes (the summary row, with the decode phase's
-    # launches) and one lane; entropy within 1e-5 of the plain version.
-    # Beside it the warp-per-row entry on the same logits
-    # (`replaced_device_ms`: probs and entropy, what this entry replaced on
-    # the decode path) and an empty launch.  Bound: one read of the logits.
+    # (dispatch.entropy) at the decoders' [lanes, vocab] fp32 logits:
+    # deepseek-7b's vocabulary (102400) and qwen2-moe's (151936), each at 4
+    # lanes (a summary row, with the decode or moe_decode phase's launches)
+    # and one lane; entropy within 1e-5 of the plain version (the
+    # determinism phase launches it twice at these shapes for the same
+    # bits).  Beside it the warp-per-row
+    # entry on the same logits (`replaced_device_ms`: probs and entropy,
+    # what this entry replaced on the decode path) and an empty launch.
+    # Bound: one read of the logits.
     from repro_torch.kernels.softmax_entropy import entropy as entropy_rows
 
-    vocab = get_config("deepseek_7b").vocab_size
-    for rows_ in (DECODE_LANES, 1):
-        lg = torch.randn(rows_, vocab, generator=g, device=dev) * 1.28
-        err = (entropy_rows(lg) - ref.softmax_entropy(lg)[1]).abs().max().item()
-        row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
-            "src/repro/kernels/softmax_entropy.py:17",
-            f"decode LM-head entropy (wide-row entry): logits [{rows_}, {vocab}] fp32", err,
-            "atol 1e-5 (entropy)", err <= 1e-5, (rows_ * vocab + rows_) * 4, 8.0 * rows_ * vocab,
-            **kernel_times(lambda: entropy_rows(lg), lambda: ref.softmax_entropy(lg), enqueue=True),
-            replaced_ms=time_ms(lambda: softmax_entropy(lg)),
-            replaced_device_ms=time_ms(lambda: softmax_entropy(lg), queued=True),
-            launch_floor_device_ms=launch_floor,
-            summary="decode" if rows_ == DECODE_LANES else None, label=f"decode[{rows_}]")
+    for path, arch in (("decode", "deepseek_7b"), ("moe_decode", "qwen2_moe_a2p7b")):
+        vocab = get_config(arch).vocab_size
+        for rows_ in (DECODE_LANES, 1):
+            lg = torch.randn(rows_, vocab, generator=g, device=dev) * 1.28
+            err = (entropy_rows(lg) - ref.softmax_entropy(lg)[1]).abs().max().item()
+            row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
+                "src/repro/kernels/softmax_entropy.py:17",
+                f"{path} LM-head entropy (wide-row entry): logits [{rows_}, {vocab}] fp32", err,
+                "atol 1e-5 (entropy)", err <= 1e-5, (rows_ * vocab + rows_) * 4, 8.0 * rows_ * vocab,
+                **kernel_times(lambda: entropy_rows(lg), lambda: ref.softmax_entropy(lg), enqueue=True),
+                replaced_ms=time_ms(lambda: softmax_entropy(lg)),
+                replaced_device_ms=time_ms(lambda: softmax_entropy(lg), queued=True),
+                launch_floor_device_ms=launch_floor,
+                summary=path if rows_ == DECODE_LANES else None, label=f"{path}[{rows_}]")
 
     # af_matmul on the deployed codes: one encoder layer's six matmuls at
     # M = 2048 (the summary row), at M = 512 and 128 (later layers, fewer
@@ -695,9 +714,10 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.softmax_entropy import entropy as entropy_rows
 
-    for rows_ in (DECODE_LANES, 1):
-        lgv = torch.randn(rows_, get_config("deepseek_7b").vocab_size, generator=g, device=dev)
-        same(f"softmax_entropy wide rows [{rows_}, {lgv.shape[1]}]", lambda: entropy_rows(lgv))
+    for arch in ("deepseek_7b", "qwen2_moe_a2p7b"):
+        for rows_ in (DECODE_LANES, 1):
+            lgv = torch.randn(rows_, get_config(arch).vocab_size, generator=g, device=dev)
+            same(f"softmax_entropy wide rows [{rows_}, {lgv.shape[1]}]", lambda: entropy_rows(lgv))
     # the off-ramp head: its partials are summed in block order by whichever
     # block ends last, on fp32 weights (serving, with an active mask) and on
     # the deployed AF8 codes
@@ -1532,7 +1552,8 @@ def run_replay_path(scfg, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the dense decoder (deepseek-7b at full width and depth)
+# phase 8: the decoders at full width and depth (deepseek-7b, the dense
+# family; qwen2-moe-a2.7b, the MoE family)
 # ---------------------------------------------------------------------------
 
 
@@ -1541,8 +1562,19 @@ def leaves(tree) -> list:
     return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
 
 
+def n_bytes(tree) -> int:
+    """The bytes of a tensor or of the tensors of a nested dict."""
+    return sum(t.numel() * t.element_size() for t in (leaves(tree) if isinstance(tree, dict) else [tree]))
+
+
+def cut_layers(tree, n: int) -> dict:
+    """Views of the first ``n`` of the stacked layers, at every depth of the
+    tree (the MoE layer nests its shared expert)."""
+    return {k: cut_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+
 def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
-    """The card against the CPU on deepseek-7b's first DECODE_REF_LAYERS
+    """The card against the CPU on the decoder's first DECODE_REF_LAYERS
     layers (views of the card's weights; their copy on the CPU runs the
     plain versions): one lane, teacher-forced through a prompt and a fixed
     continuation (no argmax near-tie can fork the sequences), each token one
@@ -1562,8 +1594,7 @@ def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
     from repro_torch.models.model import build_model
 
     cfg_r = dataclasses.replace(cfg, n_layers=DECODE_REF_LAYERS)
-    cut = dict(params, layers={g: {k: v[:DECODE_REF_LAYERS] for k, v in sub.items()}
-                               for g, sub in params["layers"].items()})
+    cut = dict(params, layers=cut_layers(params["layers"], DECODE_REF_LAYERS))
     seq = [int(t) for t in prompts[0]] + [int(t) for t in prompts[1][:DECODE_NEW]]
     cpu = torch.device("cpu")
 
@@ -1625,19 +1656,26 @@ def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
     return result
 
 
-def run_decode_path(dev) -> dict:
-    """deepseek-7b at full width and depth (30 layers, d_model 4096, 32 x
-    128 heads, d_ff 11008, vocab 102400; float32 weights drawn on the card
-    from seed 0) through the DecoderServer, the recipe of the JAX package's
-    examples/serve_multitask.py decoder lane: probe_exit_threshold (median
-    of first-off-ramp entropies at full depth), then a drain with per-token
-    exit and a shared-clock arbiter at spec_window 1, then the same traffic
-    at spec_window 4 with an ExitThresholdSchedule.  Checks the kernel's
-    launches (n_layers x W per fused step), W = 4's accepted tokens, exit
-    depths and final logits equal to W = 1's bit for bit, one decode and one
-    prefill build per bucket; then times, device time by kernel and the
+def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
+    """A decoder at full width and depth, float32 weights drawn on the card
+    from seed 0, through the DecoderServer: deepseek-7b (the ``decode``
+    phase: 30 layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab
+    102400) or qwen2-moe-a2.7b (``moe_decode``: 24 layers, d_model 2048,
+    16 x 128 heads, 60 experts of d_ff 1408 top-4 and a shared expert of
+    5632, qkv biases drawn nonzero from the same generator, vocab 151936;
+    the free device memory is checked before the draw).  The recipe of the
+    JAX package's examples/serve_multitask.py decoder lane:
+    probe_exit_threshold (median of first-off-ramp entropies at full
+    depth), then a drain with per-token exit and a shared-clock arbiter at
+    spec_window 1, then the same traffic at spec_window 4 with an
+    ExitThresholdSchedule.  Checks the kernels' launches (softmax_entropy
+    n_layers x W per fused step, every kernel of the family's list), W =
+    4's accepted tokens, exit depths and final logits equal to W = 1's bit
+    for bit, one decode and one prefill build per bucket; then times,
+    device time by kernel, the fused step's bytes and HBM bound, and the
     card against the CPU on the first two layers."""
     import dataclasses
+    import gc
 
     import numpy as np
     import torch
@@ -1652,14 +1690,33 @@ def run_decode_path(dev) -> dict:
     from repro_torch.serving import step_math
     from repro_torch.serving.engine import DecoderServer, probe_exit_threshold
 
-    cfg = dataclasses.replace(get_config("deepseek_7b"), dtype="float32", remat_policy="none")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", remat_policy="none")
+    phase = "moe_decode" if cfg.family == "moe" else "decode"
+    kernels = ops.MOE_DECODE_KERNELS if cfg.family == "moe" else ops.DECODE_KERNELS
     model = build_model(cfg)
+    # the previous phase's weights go back to the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free_before = torch.cuda.mem_get_info()[0]
+    need = cfg.num_params() * 4
+    if free_before < need:
+        raise AssertionError(f"{phase}: {free_before / 1e9:.2f} GB free on the card, the weights need "
+                             f"{need / 1e9:.2f} GB")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    if cfg.qkv_bias:                    # the init zeroes them, as the JAX package's does
+        for name in ("bq", "bk", "bv"):
+            params["layers"]["attn"][name].normal_(generator=gen).mul_(0.5)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    free_after = torch.cuda.mem_get_info()[0]
     n_params = sum(t.numel() for t in leaves(params))
+    emit({"phase": f"{phase}_weights", "config": cfg.name, "params": n_params, "bytes": n_bytes(params),
+          "mem_free_gb_before_draw": free_before / 1e9, "mem_free_gb_after_draw": free_after / 1e9,
+          "init_s": init_s})
     prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
     n, W4 = DECODE_REQUESTS, DECODE_SPEC_WINDOW
 
@@ -1690,20 +1747,20 @@ def run_decode_path(dev) -> dict:
         tel = srv.telemetry()
         steps = tel["decode_steps"]
         want = cfg.n_layers * W * steps
-        if launches["softmax_entropy"] != want or any(launches[k] <= 0 for k in ops.DECODE_KERNELS):
-            raise AssertionError(f"W={W}: softmax_entropy launched {launches['softmax_entropy']} times, "
+        if launches["softmax_entropy"] != want or any(launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"{phase} W={W}: softmax_entropy launched {launches['softmax_entropy']} times, "
                                  f"want n_layers x W x fused steps = {want}")
         if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
-            raise AssertionError(f"W={W}: builds per bucket: {tel}")
+            raise AssertionError(f"{phase} W={W}: builds per bucket: {tel}")
         results = np.stack([srv.done[i].result for i in range(n)])
-        gen = [srv.done[i].generated for i in range(n)]
+        gen_toks = [srv.done[i].generated for i in range(n)]
         exits = [srv.done[i].token_exit_layers for i in range(n)]
         if not (np.isfinite(results).all() and results.shape == (n, cfg.vocab_size)):
-            raise AssertionError(f"W={W}: decode logits are not finite or of the wrong shape")
-        if any(len(g) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g) for g in gen):
-            raise AssertionError(f"W={W}: generated tokens off: {gen}")
+            raise AssertionError(f"{phase} W={W}: decode logits are not finite or of the wrong shape")
+        if any(len(g_) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g_) for g_ in gen_toks):
+            raise AssertionError(f"{phase} W={W}: generated tokens off: {gen_toks}")
         if not all(1 <= x <= cfg.n_layers for e in exits for x in e):
-            raise AssertionError(f"W={W}: exit layers out of range: {exits}")
+            raise AssertionError(f"{phase} W={W}: exit layers out of range: {exits}")
         servers[W] = srv
         drains[W] = {
             "spec_window": W, "drain_ms": wall, "tokens": tel["tokens"],
@@ -1715,14 +1772,14 @@ def run_decode_path(dev) -> dict:
             "avg_accepted_block": tel["avg_accepted_block"],
             "modeled_energy_j": tel["energy_j"], "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
             "deadline_misses": tel["deadline_misses"], "op_switches": tel["op_switches"],
-            "generated": gen, "token_exit_layers": exits,
+            "generated": gen_toks, "token_exit_layers": exits,
         }
     a, b = servers[1], servers[W4]
     for i in range(n):
         if (a.done[i].generated != b.done[i].generated
                 or a.done[i].token_exit_layers != b.done[i].token_exit_layers
                 or not np.array_equal(a.done[i].result, b.done[i].result)):
-            raise AssertionError(f"request {i}: spec_window {W4} differs from spec_window 1")
+            raise AssertionError(f"{phase} request {i}: spec_window {W4} differs from spec_window 1")
 
     # where one drain's time goes: the prefill (lane loads) and the fused
     # steps, each waited for on the device
@@ -1732,10 +1789,11 @@ def run_decode_path(dev) -> dict:
         drains[W]["ms_per_fused_step"] = split["lanes_step"] / drains[W]["fused_steps"]
     # the device's share of the two parts, each timed alone (host clock,
     # synchronised) and profiled (device time by kernel: cuBLAS GEMVs, RMS
-    # norms and the reference cache attention under "other"): DECODE_STEPS
-    # fused W = 1 steps of the 4 lanes at mid-bucket positions, and one
-    # request's prefill (15 one-token full-depth steps); a profile of a
-    # whole drain holds ~400k events and takes minutes to read
+    # norms, the reference cache attention and, for the MoE family, the
+    # routing and expert products under "other"): DECODE_STEPS fused W = 1
+    # steps of the 4 lanes at mid-bucket positions, and one request's
+    # prefill (15 one-token full-depth steps); a profile of a whole drain
+    # holds ~400k events and takes minutes to read
     cache = model.init_cache(DECODE_LANES, DECODE_BUCKET, device=dev)
     cur = torch.as_tensor(np.asarray(prompts[:DECODE_LANES, -1:], np.int64), device=dev)
     pos = torch.full((DECODE_LANES,), DECODE_PROMPT - 1, dtype=torch.int64, device=dev)
@@ -1758,31 +1816,48 @@ def run_decode_path(dev) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / count
         by_kernel = profile_device(fn)
-        busy = sum(g["ms"] for g in by_kernel.values()) / count
+        busy = sum(g_["ms"] for g_ in by_kernel.values()) / count
         parts[name] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
                        "device_ms_by_kernel": by_kernel, "per": count}
     # the fused step's least time: its bytes at the HBM rate (every layer's
-    # weights, the LM head once per layer, the cache read per layer)
-    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params["layers"]))
-    head_bytes = params["lm_head"].numel() * params["lm_head"].element_size()
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
-    step_bound_ms = (w_bytes + cfg.n_layers * head_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    # weights, all experts' too, since each layer runs every expert's
+    # capacity buffer as the JAX package does; the LM head once per layer;
+    # the cache read per layer)
+    layers = params["layers"]
+    step_bytes = {"attention_and_norms": n_bytes(layers["attn"]) + n_bytes(layers["norm1"])
+                  + n_bytes(layers["norm2"])}
+    if "moe" in layers:
+        moe_p = layers["moe"]
+        step_bytes["experts"] = sum(n_bytes(moe_p[k]) for k in ("w_gate", "w_up", "w_down"))
+        step_bytes["router"] = n_bytes(moe_p["router"])
+        if "shared" in moe_p:
+            step_bytes["shared_expert"] = n_bytes(moe_p["shared"])
+    else:
+        step_bytes["mlp"] = n_bytes(layers["mlp"])
+    step_bytes["lm_head_per_layer"] = cfg.n_layers * n_bytes(params["lm_head"])
+    step_bytes["kv_cache"] = n_bytes(cache)
+    step_bound_ms = sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3
     ref = check_decode_reference(cfg, params, prompts, thr, dev)
     result = {
-        "phase": "decode", "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "n_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
+        "shared_expert_d_ff": cfg.shared_expert_d_ff, "qkv_bias": cfg.qkv_bias,
         "dtype": cfg.dtype, "params": n_params, "init_s": init_s,
+        "mem_free_gb_before_draw": free_before / 1e9, "mem_free_gb_after_draw": free_after / 1e9,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
         "bucket": DECODE_BUCKET, "threshold": thr, "probe_s": probe_s,
         "target_latency_s": target, "drains": {f"W={W}": d for W, d in drains.items()},
         "spec_equals_per_token": True, "parts": parts,
+        "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()},
         "fused_step_hbm_bound_ms": step_bound_ms, "launches": drains[1]["launches"],
         "reference": {k: ref[k] for k in ("offramp_logits_max_abs_err", "offramp_entropy_max_abs_err",
                                            "boundary_tokens_excused", "compared_tokens")},
     }
     emit(result)
-    del params, servers, a, b, cache
+    del params, servers, a, b, srv, cache, layers
+    gc.collect()
     torch.cuda.empty_cache()
     return result
 
@@ -2244,15 +2319,16 @@ def main() -> int:
     serving = timed("serving", run_serving_path, scfg, sparams, dev)
     replay = timed("replay", run_replay_path, scfg, dev)
     decode = timed("decode", run_decode_path, dev)
+    moe_decode = timed("moe_decode", run_decode_path, dev, "qwen2_moe_a2p7b")
     train = timed("train", run_train_path, dev)
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
                    "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]],
-                   "train": train["launches"][r["name"]]}
+                   "moe_decode": moe_decode["launches"][r["name"]], "train": train["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
         # replay's, the deployed path's for af_matmul, which only that path
-        # runs, or the decode path's for the wide-row entropy
+        # runs, or the decode or moe_decode path's for the wide-row entropy
         r["launches"] = by_path[r["path"]]
         r["launches_by_path"] = by_path
         if r["launches"] <= 0:

@@ -1,8 +1,9 @@
 """Config dataclasses, copied from the JAX package's ``configs/base.py``.
 
 The port carries its own copy so that it imports nothing of ``repro``.  The
-ALBERT configurations (``albert_base``, ``albert_edgebert``) and the dense
-decoder ``deepseek_7b`` exist here so far; each exposes ``CONFIG`` (the
+ALBERT configurations (``albert_base``, ``albert_edgebert``), the dense
+decoder ``deepseek_7b`` and the MoE decoders ``qwen2_moe_a2p7b`` and
+``qwen3_moe_235b`` exist here so far; each exposes ``CONFIG`` (the
 published size) and ``smoke_config()`` (a reduced same-family config for CPU
 tests).
 """
@@ -240,7 +241,7 @@ class ModelConfig:
 # Lookup
 # ---------------------------------------------------------------------------
 
-PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b")
+PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "qwen2_moe_a2p7b", "qwen3_moe_235b")
 
 
 def _config_module(arch: str):

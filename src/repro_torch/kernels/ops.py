@@ -58,6 +58,10 @@ FINETUNE_KERNELS = DEPLOY_KERNELS + tuple(k for k in SERVING_KERNELS if k not in
 # entropy after every layer (softmax_entropy's wide-row entry); its RMS
 # norms, cache attention and dense matmuls have no kernel in either package
 DECODE_KERNELS = ("softmax_entropy",)
+# the MoE decoder through the same DecoderServer: the same off-ramp at
+# qwen-moe's vocabulary width; routing, expert products and the shared
+# expert are torch ops in both packages (no Pallas kernel in the JAX layer)
+MOE_DECODE_KERNELS = ("softmax_entropy",)
 
 
 def reset_launch_counts() -> None:

@@ -6,6 +6,7 @@ classification (the paper's workload) through the continuation-batching
     PYTHONPATH=src python -m repro_torch.launch.serve --arch albert_edgebert \
         --smoke --device cpu --requests 32 --threshold 1.05
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2p7b --smoke --device cpu
 
 It runs on the card unless ``--device cpu`` is given; weights are random
 from ``--seed`` (float32).  The decoder serves ``SyntheticLM`` prompts cut
@@ -42,10 +43,11 @@ def main(argv=None) -> dict:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype="float32", remat_policy="none")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _serve_decoder(cfg, args)
     if cfg.family != "albert" or not cfg.edgebert.early_exit.enabled:
-        raise SystemExit(f"{args.arch}: only early-exit albert classification and the dense decoder are ported")
+        raise SystemExit(f"{args.arch}: only early-exit albert classification and the dense and MoE decoders "
+                         "are ported")
     if args.threshold is not None:
         cfg = cfg.with_edgebert(early_exit=dataclasses.replace(
             cfg.edgebert.early_exit, entropy_threshold=args.threshold))

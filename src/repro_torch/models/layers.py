@@ -1,16 +1,17 @@
 """The layers' building blocks, the port of the parts of
-``repro/models/layers.py`` that the albert classifier and the dense decoder
-run: LayerNorm and RMS norm, rotary positions, span-aware attention (chunked
-online softmax) with or without a KV cache (float32 or AF8 codes), and the
-GELU and SwiGLU MLPs.
+``repro/models/layers.py`` that the albert classifier and the dense and MoE
+decoders run: LayerNorm and RMS norm, rotary positions, span-aware
+attention (chunked online softmax, with the qkv biases where the tree has
+them) with or without a KV cache (float32 or AF8 codes), and the GELU and
+SwiGLU MLPs.
 
 ``use_kernels=True`` routes the eligible ops to the hand-written kernels
 through ``kernels.dispatch`` under the JAX package's eligibility rules;
 ``False`` keeps the reference ops, which repeat the JAX package's op for op.
 RMS norm has no kernel in either package, and KV-cache decode attention
 stays on the reference ops (the JAX package fuses the cache update and the
-AF8 codec with it).  qkv biases, the other activations and cross-attention
-come with the slices that need them.
+AF8 codec with it).  The other activations and cross-attention come with
+the slices that need them.
 """
 from __future__ import annotations
 
@@ -223,9 +224,12 @@ def attention_layer(
     moved back to end there.  Cache attention stays on the reference ops."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:                 # qkv_bias (qwen2-moe): added before RoPE
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
     if cfg.pos == "rope":
         if positions is None:
             positions = torch.arange(S, device=x.device)

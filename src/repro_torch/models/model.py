@@ -1,23 +1,32 @@
 """The port's model (``repro/models/model.py``): the albert family and the
-dense decoder family.
+dense and MoE decoder families.
 
 ``init_params`` returns a tree with exactly the keys and shapes of the JAX
 package's ``Model.init_params`` for those families, with the same init
-scales; the dense family's layers are stacked on a leading ``[n_layers]``
-axis as the JAX package's ``_stack_init`` stacks them.  The random numbers
+scales; the decoder families' layers are stacked on a leading
+``[n_layers]`` axis as the JAX package's ``_stack_init`` stacks them (the
+MoE family's expert weights too: ``[n_layers, E, d, ff]``).  The random numbers
 come from a ``torch.Generator`` and so differ from JAX's; parity tests
 bring the JAX tree across with ``repro_torch.bridge`` instead.
 
 ``Model`` carries the layer math the classifier serving step and the dense
 all-layers forward (``apply_train``) run: embedding, the post-LN shared
 encoder layer, activation fake-quant, the early-exit off-ramp; and the
-decoder's: the pre-LN layer (RMS norm, rotary positions, SwiGLU), the
+decoder's: the pre-LN layer (RMS norm, rotary positions, qkv biases where
+the config has them, SwiGLU or the MoE layer of ``models/moe.py``), the
 untied LM head, the KV cache (``init_cache``, ``prefill``, ``decode_step``)
 and per-token early exit (``decode_step_ee``, ``decode_step_spec``,
 ``forward_token_exit``).  Its methods take a tree of tensors on one device
 and compute there; the decode methods take each lane's cache position as a
 ``[B]`` tensor (the JAX package ``vmap``s one-lane calls with a scalar) and
 write the cache in place.
+
+MoE routing couples the tokens of one routing through expert capacity, so
+each method keeps the JAX package's grouping: the decode methods route each
+lane on its own (the serving step's per-lane ``vmap``; ``decode_step`` with
+``moe_per_lane=False`` routes the lanes together, as the serving prefill
+needs), ``prefill`` and ``forward_token_exit`` route the whole batch
+together (the JAX model's batched calls).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from repro_torch.core.adaptivfloat import AFFormat, fake_quant
 from repro_torch.core.entropy import entropy_from_logits
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 Params = Dict[str, Any]
 
@@ -45,10 +55,12 @@ def _normal(gen: torch.Generator, shape: Sequence[int], scale: float) -> torch.T
 
 
 def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device) -> Params:
-    """The dense family's tree: token embedding (with a projection where
+    """The decoder families' tree: token embedding (with a projection where
     ``embed_dim`` differs from ``d_model``, as in the smoke config), the
-    layers stacked on a leading [n_layers] axis, the final RMS norm and the
-    untied LM head."""
+    layers stacked on a leading [n_layers] axis (zero qkv biases with
+    ``qkv_bias``, as the JAX package's ``init_attention`` makes them; the
+    SwiGLU MLP, or for the MoE family ``moe.init_moe``'s tree), the final
+    RMS norm and the untied LM head."""
     dtype = _DTYPES[cfg.dtype]
     d, hd, H, KV, L_ = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
 
@@ -62,31 +74,40 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
     embed = {"tok": _normal(gen, (cfg.vocab_size, cfg.embed_dim), 0.02).to(dev, dtype)}
     if cfg.embed_dim != d:
         embed["proj"] = _normal(gen, (cfg.embed_dim, d), 1.0 / math.sqrt(cfg.embed_dim)).to(dev, dtype)
+    attn = {"wq": stacked((d, H * hd)), "wk": stacked((d, KV * hd)),
+            "wv": stacked((d, KV * hd)), "wo": stacked((H * hd, d))}
+    if cfg.qkv_bias:
+        attn.update(bq=torch.zeros(L_, H * hd, dtype=dtype, device=dev),
+                    bk=torch.zeros(L_, KV * hd, dtype=dtype, device=dev),
+                    bv=torch.zeros(L_, KV * hd, dtype=dtype, device=dev))
+    layers = {"norm1": {"scale": ones(L_, d)}, "attn": attn, "norm2": {"scale": ones(L_, d)}}
+    if cfg.family == "moe":
+        layers["moe"] = moe.init_moe(cfg, gen, dev, dtype, lead=(L_,))
+    else:
+        layers["mlp"] = {"w_gate": stacked((d, cfg.d_ff)), "w_up": stacked((d, cfg.d_ff)),
+                         "w_down": stacked((cfg.d_ff, d))}
     return {
         "embed": embed,
-        "layers": {
-            "norm1": {"scale": ones(L_, d)},
-            "attn": {"wq": stacked((d, H * hd)), "wk": stacked((d, KV * hd)),
-                     "wv": stacked((d, KV * hd)), "wo": stacked((H * hd, d))},
-            "norm2": {"scale": ones(L_, d)},
-            "mlp": {"w_gate": stacked((d, cfg.d_ff)), "w_up": stacked((d, cfg.d_ff)),
-                    "w_down": stacked((cfg.d_ff, d))},
-        },
+        "layers": layers,
         "final_norm": {"scale": ones(d)},
         "lm_head": _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype),
     }
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """The dense decoder as deepseek-7b has it: pre-LN with RMS norm, rotary
-    positions, SwiGLU, no qkv bias, an untied LM head, none of the EdgeBERT
-    encoder features (spans, activation quantization, off-ramps)."""
+    """The decoders as deepseek-7b and the qwen MoE configs have them:
+    pre-LN with RMS norm, rotary positions, SwiGLU (in every expert too),
+    with or without qkv biases, an untied LM head, none of the EdgeBERT
+    encoder features (spans, activation quantization, off-ramps); the MoE
+    family with its experts and top-k."""
     eb = cfg.edgebert
-    if (cfg.act, cfg.norm, cfg.pos, cfg.qkv_bias, cfg.tie_embeddings, cfg.shared_layers) != (
-        "swiglu", "rms", "rope", False, False, False
-    ) or eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes:
-        raise ValueError("only the dense decoder of deepseek-7b's kind (swiglu, rms, rope, untied head, "
-                         "no EdgeBERT encoder features) is ported")
+    if (cfg.family not in ("dense", "moe")
+            or (cfg.family == "moe" and not (cfg.n_experts and cfg.top_k))
+            or (cfg.act, cfg.norm, cfg.pos, cfg.tie_embeddings, cfg.shared_layers) != (
+                "swiglu", "rms", "rope", False, False)
+            or eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes):
+        raise ValueError("only the dense decoder of deepseek-7b's kind and the MoE decoder of qwen-moe's "
+                         "(swiglu, rms, rope, untied head, no EdgeBERT encoder features) are ported")
 
 
 def init_params(
@@ -95,10 +116,10 @@ def init_params(
     device: DeviceLike = "cuda",
 ) -> Params:
     """Random params on ``device``.  The albert family draws from
-    ``generator`` (a seed-0 CPU generator when None); the dense family from
-    ``generator`` on the generator's own device (a seed-0 generator on
+    ``generator`` (a seed-0 CPU generator when None); the decoder families
+    from ``generator`` on the generator's own device (a seed-0 generator on
     ``device`` when None), so a 7B tree made for the card is drawn there."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         _check_dense(cfg)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
@@ -107,7 +128,7 @@ def init_params(
         "albert", "gelu", "layernorm", False, True
     ):
         raise ValueError("only the ALBERT configs (gelu, layernorm, tied embeddings) and the dense "
-                         "decoder are ported")
+                         "and MoE decoders are ported")
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = _DTYPES[cfg.dtype]
@@ -174,16 +195,17 @@ class ModelOutput(NamedTuple):
 
 
 class Model:
-    """The albert and dense families of the JAX package's ``Model``: one
-    shared post-LN encoder layer with entropy off-ramps and AdaptivFloat
-    activations, or a stack of pre-LN decoder layers with a KV cache and
-    per-token early exit on the LM head."""
+    """The albert, dense and MoE families of the JAX package's ``Model``:
+    one shared post-LN encoder layer with entropy off-ramps and AdaptivFloat
+    activations, or a stack of pre-LN decoder layers (SwiGLU or MoE) with a
+    KV cache and per-token early exit on the LM head."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             _check_dense(cfg)
         elif cfg.family != "albert" or not cfg.shared_layers:
-            raise ValueError("only the albert family (one shared layer) and the dense family are ported")
+            raise ValueError("only the albert family (one shared layer) and the dense and MoE families "
+                             "are ported")
         self.cfg = cfg
 
     # ------------------------------------------------------------ embedding
@@ -245,9 +267,13 @@ class Model:
         use_kernels: bool = False,
         block_masks: Optional[Dict[str, Any]] = None,
         per_lane: bool = False,
+        moe_grouped: Optional[bool] = None,
     ) -> torch.Tensor:
         """One layer (the JAX package's ``_dense_layer_step``) -> the new h:
-        post-LN for the albert family, pre-LN for the dense family."""
+        post-LN for the albert family, pre-LN for the decoder families.  An
+        MoE layer routes each batch row on its own with ``moe_grouped``, all
+        rows together without it (None: the config's
+        ``moe_grouped_dispatch``); its aux loss is not kept."""
         cfg = self.cfg
         attn = dict(causal=causal, positions=positions, span_z=span_z, span_ramp=cfg.edgebert.span.ramp,
                     kv_len=kv_len, cache=cache, cache_pos=cache_pos, use_kernels=use_kernels)
@@ -259,11 +285,13 @@ class Model:
             return self._maybe_actquant(h, use_kernels=use_kernels, per_lane=per_lane)
         h = h + L.attention_layer(lp["attn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm), cfg, **attn)
         hn = L.apply_norm(lp["norm2"], h, kind=cfg.norm)
+        if "moe" in lp:
+            return h + moe.apply_moe(lp["moe"], hn, cfg, grouped=moe_grouped)[0]
         return h + L.apply_mlp(lp["mlp"], hn, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
 
     def _layer(self, p: Params, i: int):
         """(layer params, span) of layer ``i``: the shared layer (albert) or
-        views into the stacked layers (dense)."""
+        views into the stacked layers (dense, MoE)."""
         if self.cfg.family == "albert":
             return p["layer"], self._span_for_layer(p, 0)
 
@@ -317,15 +345,16 @@ class Model:
         return lg, (dispatch.entropy(lg) if use_kernels else entropy_from_logits(lg))
 
     def _check_decoder(self) -> None:
-        if self.cfg.family not in ("dense", "albert"):
-            raise ValueError("KV-cache decode: the dense and albert families")
+        if self.cfg.family not in ("dense", "moe", "albert"):
+            raise ValueError("KV-cache decode: the dense, MoE and albert families")
 
     def forward_token_exit(self, p: Params, tokens: torch.Tensor, threshold: float):
         """Per-TOKEN early exit over a whole sequence: after each layer,
         tokens whose LM-head entropy is below ``threshold`` freeze (their
         hidden state stops evolving).  Returns (logits [B, S, V],
-        exit_layer [B, S])."""
-        if self.cfg.family != "dense":
+        exit_layer [B, S]).  MoE layers route all B x S tokens together,
+        as the JAX package's call does."""
+        if self.cfg.family not in ("dense", "moe"):
             raise ValueError("token exit: decoder LMs")
         n = self.cfg.n_layers
         h = self.embed(p, torch.as_tensor(tokens, device=p["embed"]["tok"].device))
@@ -360,10 +389,14 @@ class Model:
         return pos_t, pos_t[:, None] + torch.arange(S, device=device)
 
     def decode_step(self, p: Params, cache: Params, tokens: torch.Tensor, pos: Any,
-                    use_kernels: bool = False):
+                    use_kernels: bool = False, moe_per_lane: bool = True):
         """One decode step: tokens [B, S] at cache position ``pos`` ([B] or
         scalar) through every layer, writing their K/V into ``cache`` in
-        place.  Returns (logits [B, S, V], cache)."""
+        place.  MoE layers route each lane's tokens on their own
+        (``moe_per_lane``, the JAX serving step's per-lane ``vmap``), or
+        with ``moe_per_lane=False`` as the config groups them, all lanes
+        together by default (the JAX model's batched call, which its
+        serving prefill makes).  Returns (logits [B, S, V], cache)."""
         self._check_decoder()
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
         pos_t, positions = self._positions(pos, tokens.shape[1], tokens.device)
@@ -372,7 +405,7 @@ class Model:
             lp, span_z = self._layer(p, i)
             h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
                                        cache=(cache["k"][i], cache["v"][i]), cache_pos=pos_t,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels, moe_grouped=moe_per_lane or None)
         h = L.apply_norm(p["final_norm"], h, kind=self.cfg.norm, use_kernels=use_kernels)
         return self.lm_logits(p, h), cache
 
@@ -389,8 +422,10 @@ class Model:
         the returned exit depth is what the modeled hardware executes.  The
         computation is masked, so the step keeps its shapes.
 
-        Returns ``(logits [B, 1, V], cache, exit_layer [B] (1-based),
-        first_entropy [B])``, the last the entropy after layer 1."""
+        MoE layers route each lane on its own (the JAX serving step's lane
+        ``vmap``).  Returns ``(logits [B, 1, V], cache, exit_layer [B]
+        (1-based), first_entropy [B])``, the last the entropy after layer
+        1."""
         self._check_decoder()
         n = self.cfg.n_layers
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
@@ -407,7 +442,7 @@ class Model:
             lp, span_z = self._layer(p, i)
             h_new = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
                                            cache=(cache["k"][i], cache["v"][i]), cache_pos=pos_t,
-                                           use_kernels=use_kernels)
+                                           use_kernels=use_kernels, moe_grouped=True)
             # frozen tokens keep their exited representation; the layer's KV
             # write above came from that frozen input (state propagation)
             h = torch.where(done[..., None], h, h_new)
@@ -441,8 +476,9 @@ class Model:
         The JAX package runs one lane per call and ``vmap``s lanes; here the
         lanes are the batch: ``tokens`` [B, 1], ``pos`` [B] (or scalar),
         ``thresholds`` scalar, [W] or [B, W] (slot j gates the token at
-        ``pos + j``).  Returns ``(tokens [B, W], logits [B, W, V], cache,
-        exit_layers [B, W], first_ent [B, W], accepted [B, W])``."""
+        ``pos + j``); MoE layers route each lane on its own.  Returns
+        ``(tokens [B, W], logits [B, W, V], cache, exit_layers [B, W],
+        first_ent [B, W], accepted [B, W])``."""
         self._check_decoder()
         W = int(spec_window)
         if W < 1:
@@ -469,8 +505,9 @@ class Model:
     # ---------------------------------------------------------------- prefill
     def prefill(self, p: Params, tokens: torch.Tensor, cache: Params):
         """The whole prompt through the model in one pass, filling the cache
-        at positions 0..S-1 (in place).  Returns (last-token logits
-        [B, 1, V], cache)."""
+        at positions 0..S-1 (in place); MoE layers route all B x S tokens
+        together, as the JAX package's call does.  Returns (last-token
+        logits [B, 1, V], cache)."""
         self._check_decoder()
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
         h = self.embed(p, tokens)

@@ -524,6 +524,10 @@ class DecoderServer:
     cache window, so a refilled lane continues from its actual prompt end.
     Cache shapes bucket by prompt plus generation budget; the caches live in
     a bucket-keyed dict, since the scheduler time-slices across buckets.
+    It drives the dense and MoE families; an MoE layer routes each lane on
+    its own in the fused step and the lanes together in the prefill, as
+    the JAX package's lane ``vmap`` and batched prefill do
+    (``step_math.decoder_prefill``).
 
     ``exit_threshold`` — per-token early exit: the fused step runs
     ``Model.decode_step_ee`` over the lanes (after every layer the LM head
@@ -581,8 +585,8 @@ class DecoderServer:
         threshold_schedule: Optional[Any] = None,
         device: DeviceLike = "cuda",
     ):
-        if model.cfg.family != "dense":
-            raise ValueError("the decoder server drives the dense family")
+        if model.cfg.family not in ("dense", "moe"):
+            raise ValueError("the decoder server drives the dense and MoE families")
         if replicas != 1 or mesh is not None:
             raise ValueError("one device, one replica: the sharded decoder server is not ported")
         if isinstance(arbiter, (list, tuple)):

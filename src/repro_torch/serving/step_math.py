@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.early_exit import offramp_logits
 from repro_torch.core.entropy import entropy_from_logits
 from repro_torch.kernels import dispatch
+from repro_torch.models import moe
 from repro_torch.models.model import Model
 
 
@@ -173,13 +174,31 @@ def decoder_prefill(
 ):
     """Write one lane's prompt[:length - 1] into its cache row: full-depth
     ``decode_step``s, one token at a time, as the JAX package runs them.
-    The JAX package steps every lane on a scratch copy of the cache and
-    merges the lane back under a one-hot; here the steps run on a view of
-    the lane's row alone and write it in place, the same values without
-    the copy.  Returns the cache."""
-    row = {k: v[:, lane:lane + 1] for k, v in cache.items()}
+
+    The JAX package steps every lane in one batched call per token (token 0
+    on the other lanes) on a scratch copy of the cache, and merges the lane
+    back under a one-hot.  Where no other lane can change the lane's result,
+    the port steps a view of the lane's row alone and writes it in place:
+    the same values without the copy.  That holds for the dense family, and
+    for the MoE family while ``lanes <= C``, the capacity of one step's
+    routing over the lanes: the lane's assignment to an expert is dropped
+    only when C lanes of lower index took that expert before it in the
+    stable sort, and it has at most ``lanes - 1`` of them.  With more lanes
+    the dummy lanes can take the lane's expert slots, so the port steps all
+    lanes on a scratch copy as the JAX package does.  Returns the cache."""
     dev = cache["k"].device
     toks = torch.as_tensor(np.asarray(tokens[: max(length - 1, 0)], np.int64), device=dev)
+    lanes = cache["k"].shape[1]
+    if model.cfg.family == "moe" and lanes > moe.capacity(lanes, model.cfg):
+        scratch = {k: v.clone() for k, v in cache.items()}
+        is_lane = torch.arange(lanes, device=dev)[:, None] == lane
+        for t in range(length - 1):
+            tok = torch.where(is_lane, toks[t], 0)
+            model.decode_step(params, scratch, tok, t, use_kernels=use_kernels, moe_per_lane=False)
+        for k in cache:
+            cache[k][:, lane] = scratch[k][:, lane]
+        return cache
+    row = {k: v[:, lane:lane + 1] for k, v in cache.items()}
     for t in range(length - 1):
         model.decode_step(params, row, toks[t].reshape(1, 1), t, use_kernels=use_kernels)
     return cache

@@ -132,8 +132,8 @@ def test_span_attention_strided_heads(cuda, dh, causal):
     assert torch.equal(again, out.permute(0, 2, 1, 3))
 
 
-@pytest.mark.parametrize("rows,n", [(4, 102400), (1, 102400), (8, 102400), (3, 1001), (37, 512), (1000, 3),
-                                    (2, 32003), (5, 32000), (300, 4096), (1, 1)])
+@pytest.mark.parametrize("rows,n", [(4, 102400), (1, 102400), (8, 102400), (4, 151936), (1, 151936), (3, 1001),
+                                    (37, 512), (1000, 3), (2, 32003), (5, 32000), (300, 4096), (1, 1)])
 def test_entropy_wide_rows(cuda, rows, n):
     """The decode path's wide-row entry against the plain version, atol
     1e-5: sums of up to 102400 terms in another order (a cluster of up to
@@ -163,6 +163,77 @@ def test_entropy_wide_rows_deterministic_and_routed(cuda):
         entropy(x.t())
     with pytest.raises(ValueError):
         entropy(x[None])
+
+
+def test_entropy_wide_rows_at_qwen_vocab_repeatable(cuda):
+    """The MoE decoder's LM-head entropy at vocabulary 151936 (a cluster of
+    8 blocks per row, 16-byte loads): two launches give the same bits."""
+    for rows in (4, 1):
+        x = _t((rows, 151936), 33 + rows, 1.3).to(cuda)
+        assert torch.equal(entropy(x), entropy(x))
+
+
+def _moe_smoke(seed=0):
+    """The smoke qwen2-moe config in float32 with random nonzero qkv biases
+    (the init zeroes them), on the CPU."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2_moe_a2p7b"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    for name in ("bq", "bk", "bv"):
+        b = params["layers"]["attn"][name]
+        b.copy_(0.5 * torch.randn(b.shape, generator=g))
+    return cfg, build_model(cfg), params
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_moe_decoder_server_matches_cpu(cuda, lanes):
+    """The smoke MoE decoder drain on the card against the same on the CPU,
+    at 4 lanes and at 8 (where the prefill steps every lane): at full
+    depth, with every token exiting at layer 1, and at spec window 4;
+    tokens and exits equal, final logits atol 1e-4, softmax_entropy
+    launched n_layers x W times per fused step."""
+    cfg, model, params = _moe_smoke()
+    prompts = [np.random.default_rng(i).integers(4, cfg.vocab_size, 4 + i % 6) for i in range(10)]
+    for thr, W in ((-1.0, 1), (1e9, 1), (1e9, 4)):
+        out = {}
+        for dev in ("cpu", cuda):
+            srv = DecoderServer(model, params, batch_lanes=lanes, max_seq=32, eos_id=-1, buckets=(16,),
+                                exit_threshold=thr, spec_window=W, device=dev)
+            for i, p in enumerate(prompts):
+                srv.submit(Request(uid=i, tokens=p, max_new_tokens=4))
+            ops.reset_launch_counts()
+            st = srv.run()
+            out[str(dev)] = (srv, ops.launch_counts(), st)
+        (cpu, _, _), (gpu, launches, st) = out["cpu"], out[str(cuda)]
+        assert launches["softmax_entropy"] == cfg.n_layers * W * st["decode_steps"]
+        assert all(launches[k] > 0 for k in ops.MOE_DECODE_KERNELS)
+        for i in range(len(prompts)):
+            assert gpu.done[i].generated == cpu.done[i].generated
+            assert gpu.done[i].token_exit_layers == cpu.done[i].token_exit_layers
+            np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)
+
+
+def test_moe_spec_window_four_equals_one_bitwise_on_card(cuda):
+    """On the card, 4 lanes, per-token exit at the probe's median: W = 4's
+    tokens, exits and final logits equal W = 1's bit for bit (per-lane
+    routing, the combine without atomics)."""
+    from repro_torch.serving.engine import probe_exit_threshold
+
+    cfg, model, params = _moe_smoke()
+    prompts = [np.random.default_rng(i).integers(4, cfg.vocab_size, 4 + i % 5) for i in range(8)]
+    thr = probe_exit_threshold(model, params, prompts, batch_lanes=4, max_new_tokens=4, device=cuda)
+    done = {}
+    for W in (1, 4):
+        srv = DecoderServer(model, params, batch_lanes=4, max_seq=32, eos_id=-1, buckets=(16,),
+                            exit_threshold=thr, spec_window=W, device=cuda)
+        for i, p in enumerate(prompts):
+            srv.submit(Request(uid=i, tokens=p, max_new_tokens=6))
+        srv.run()
+        done[W] = srv.done
+    for i in range(len(prompts)):
+        assert done[4][i].generated == done[1][i].generated
+        assert done[4][i].token_exit_layers == done[1][i].token_exit_layers
+        np.testing.assert_array_equal(done[4][i].result, done[1][i].result)
 
 
 def test_decoder_server_matches_cpu(cuda):

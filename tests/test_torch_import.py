@@ -128,6 +128,20 @@ def test_decoder_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch):
         serve.main(["--arch", "deepseek_7b", "--smoke"])
     assert DecoderServer(model, params, device="cpu").device.type == "cpu"
 
+    # the MoE family through the same entry points
+    cfg = dataclasses.replace(get_smoke_config("qwen2_moe_a2p7b"), dtype="float32")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderServer(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_exit_threshold(model, params, [np.arange(4, 9)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen2_moe_a2p7b", "--smoke"])
+    assert DecoderServer(model, params, device="cpu").device.type == "cpu"
+
 
 def test_scan_covers_the_decoder_slice():
     """The module scan walks the package, so it covers the decoder slice's
@@ -135,6 +149,14 @@ def test_scan_covers_the_decoder_slice():
     names = {name for _, name in _modules()}
     assert {"repro_torch.configs.deepseek_7b", "repro_torch.serving.engine",
             "repro_torch.serving.step_math", "repro_torch.data.synthetic"} <= names
+
+
+def test_scan_covers_the_moe_slice():
+    """The module scan walks the package, so it covers the MoE slice's
+    modules too."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2p7b",
+            "repro_torch.configs.qwen3_moe_235b"} <= names
 
 
 def test_scan_covers_the_training_slice():

@@ -29,8 +29,9 @@ Phases, each printing one JSON line:
                 (quantize_groups), each beside the chain of launches it
                 replaces (`replaced_device_ms`, `replaced_enqueue_us`), and
                 softmax_entropy's wide-row entry at the decoders' [4 and 1,
-                102400] and [4 and 1, 151936] logits beside the
-                warp-per-row entry;
+                102400], [4 and 1, 151936] and [4 and 1, 256000] logits
+                beside the warp-per-row entry, and layernorm at the
+                decoders' [4 and 1, 4096] rows (its generic path);
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -85,6 +86,32 @@ Phases, each printing one JSON line:
                 equal to W = 1 bit for bit, the step's bytes by part
                 (experts, LM head, shared expert, attention) beside its
                 HBM bound, and the first 2 layers against the CPU.
+ 8c. ln_decode — the same recipe on the LayerNorm decoder at full width
+                and depth (minitron-8b: 32 layers, d_model 4096, 32 x 128
+                query heads over 8 KV heads, squared-ReLU MLP of d_ff
+                16384, vocab 256000; 30.9 GB drawn on the card after the
+                MoE weights are released): layernorm launched 96 x W times
+                per fused step (both pre-norms of every layer and the
+                final norm of every off-ramp) and 65 times per prefill
+                token, softmax_entropy's wide-row entry 32 x W times per
+                fused step, W = 4 equal to W = 1 bit for bit, the step's
+                bytes beside its HBM bound, and the first 2 layers against
+                the CPU.
+ 8d. ssm_decode — the RWKV6 decoder at full width and depth (rwkv6-7b:
+                32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336,
+                vocab 65536; 30.2 GB drawn on the card): a DecoderServer
+                drain of the same traffic, plain decode (no exit in this
+                family) with a shared-clock arbiter; layernorm launched
+                once per fused step and once per prefill token (the final
+                norm only: the per-layer LayerNorms stay on torch ops, as
+                in the JAX package), nothing else; the same requests
+                submitted in reverse order (other lanes, other requests
+                before them in each lane) give each request the same
+                tokens, since a refill zeroes the lane's recurrent state;
+                drain times, the fused step and the prefill profiled
+                alone beside the step's HBM bound; then the card against
+                the CPU on the first 2 layers (logits of every step, and
+                the recurrent state after the prompt, within 1e-4).
   9. train    — the Fig. 6 pipeline at albert_edgebert's published width
                 (float32 weights from seed 0, SyntheticCLS seq 128, batch
                 16): a teacher (make_train_step, pruning off), phase 1
@@ -106,8 +133,10 @@ Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
 kernel, at the replay's largest step shape with the replay's launches, or
 for af_matmul, which only the deployed path runs, at the deployed layer
 with that path's launches; softmax_entropy has two more rows, its wide-row
-entry at the decode shape [4, 102400] with the decode phase's launches and
-at the moe_decode shape [4, 151936] with that phase's),
+entry at the decode shape [4, 102400] with the decode phase's launches,
+at the moe_decode shape [4, 151936] with that phase's and at the ln_decode
+shape [4, 256000] with that phase's; layernorm two more, at [4, 4096] with
+the ln_decode and the ssm_decode phases' launches),
 the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
@@ -154,6 +183,7 @@ SMOKE_REPLAY_EVENTS = 200
 # window 4; the card against the CPU on the first 2 layers, teacher-forced,
 # per-layer LM-head logits and entropies within 1e-4 (sums of up to 4096
 # and 151936 terms in another order)
+# (minitron-8b, ln_decode, and rwkv6-7b, ssm_decode, take the same traffic)
 DECODE_LANES = 4
 DECODE_REQUESTS = 8
 DECODE_PROMPT = 16
@@ -443,17 +473,18 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
 
     # ... and the wide-row entry, the decode path's LM-head entropy
     # (dispatch.entropy) at the decoders' [lanes, vocab] fp32 logits:
-    # deepseek-7b's vocabulary (102400) and qwen2-moe's (151936), each at 4
-    # lanes (a summary row, with the decode or moe_decode phase's launches)
-    # and one lane; entropy within 1e-5 of the plain version (the
-    # determinism phase launches it twice at these shapes for the same
-    # bits).  Beside it the warp-per-row
-    # entry on the same logits (`replaced_device_ms`: probs and entropy,
-    # what this entry replaced on the decode path) and an empty launch.
+    # deepseek-7b's vocabulary (102400), qwen2-moe's (151936) and
+    # minitron-8b's (256000), each at 4 lanes (a summary row, with the
+    # decode, moe_decode or ln_decode phase's launches) and one lane;
+    # entropy within 1e-5 of the plain version (the determinism phase
+    # launches it twice at these shapes for the same bits).  Beside it the
+    # warp-per-row entry on the same logits (`replaced_device_ms`: probs and
+    # entropy, what this entry replaced on the decode path) and an empty
+    # launch.
     # Bound: one read of the logits.
     from repro_torch.kernels.softmax_entropy import entropy as entropy_rows
 
-    for path, arch in (("decode", "deepseek_7b"), ("moe_decode", "qwen2_moe_a2p7b")):
+    for path, arch in (("decode", "deepseek_7b"), ("moe_decode", "qwen2_moe_a2p7b"), ("ln_decode", "minitron_8b")):
         vocab = get_config(arch).vocab_size
         for rows_ in (DECODE_LANES, 1):
             lg = torch.randn(rows_, vocab, generator=g, device=dev) * 1.28
@@ -465,6 +496,28 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
                 **kernel_times(lambda: entropy_rows(lg), lambda: ref.softmax_entropy(lg), enqueue=True),
                 replaced_ms=time_ms(lambda: softmax_entropy(lg)),
                 replaced_device_ms=time_ms(lambda: softmax_entropy(lg), queued=True),
+                launch_floor_device_ms=launch_floor,
+                summary=path if rows_ == DECODE_LANES else None, label=f"{path}[{rows_}]")
+
+    # layernorm at the LayerNorm decoders' rows: d_model 4096 (minitron-8b's
+    # pre-norms and off-ramp final norms, rwkv6-7b's final norm), 4 lanes in
+    # the fused step (a summary row each, with the ln_decode or ssm_decode
+    # phase's launches) and 1 in the prefill.  Above the register path's
+    # 1024, so the kernel's generic path (scalar strides, a second pass over
+    # the row); within 1e-5 of the plain version (the determinism phase
+    # launches it twice at these shapes for the same bits).
+    for path, arch in (("ln_decode", "minitron_8b"), ("ssm_decode", "rwkv6_7b")):
+        dw = get_config(arch).d_model
+        gw = 1.0 + 0.1 * torch.randn(dw, generator=g, device=dev)
+        bw = 0.1 * torch.randn(dw, generator=g, device=dev)
+        for rows_ in (DECODE_LANES, 1):
+            xw = torch.randn(rows_, dw, generator=g, device=dev) * 3.0
+            err = (layernorm(xw, gw, bw) - ref.layernorm(xw, gw, bw)).abs().max().item()
+            row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
+                f"{path}: [{rows_}, {dw}] fp32 (generic path)", err, "atol 1e-5", err <= 1e-5,
+                (2 * rows_ * dw + 2 * dw) * 4, 8 * rows_ * dw,
+                **kernel_times(lambda: layernorm(xw, gw, bw), lambda: ref.layernorm(xw, gw, bw),
+                               lambda: F.layer_norm(xw, (dw,), gw, bw, eps=1e-6), enqueue=True),
                 launch_floor_device_ms=launch_floor,
                 summary=path if rows_ == DECODE_LANES else None, label=f"{path}[{rows_}]")
 
@@ -714,10 +767,15 @@ def check_determinism(dep, masks, mlp, dev) -> None:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.softmax_entropy import entropy as entropy_rows
 
-    for arch in ("deepseek_7b", "qwen2_moe_a2p7b"):
+    for arch in ("deepseek_7b", "qwen2_moe_a2p7b", "minitron_8b"):
         for rows_ in (DECODE_LANES, 1):
             lgv = torch.randn(rows_, get_config(arch).vocab_size, generator=g, device=dev)
             same(f"softmax_entropy wide rows [{rows_}, {lgv.shape[1]}]", lambda: entropy_rows(lgv))
+    # layernorm's generic path at the LayerNorm decoders' d_model
+    gw, bw = torch.randn(4096, generator=g, device=dev), torch.randn(4096, generator=g, device=dev)
+    for rows_ in (DECODE_LANES, 1):
+        xw = torch.randn(rows_, 4096, generator=g, device=dev)
+        same(f"layernorm [{rows_}, 4096] (generic path)", lambda: layernorm(xw, gw, bw))
     # the off-ramp head: its partials are summed in block order by whichever
     # block ends last, on fp32 weights (serving, with an active mask) and on
     # the deployed AF8 codes
@@ -1656,21 +1714,63 @@ def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
     return result
 
 
+# the phase of each decoder that run_decode_path drives
+DECODE_PHASES = {"deepseek_7b": "decode", "qwen2_moe_a2p7b": "moe_decode", "minitron_8b": "ln_decode"}
+
+
+def draw_decoder(cfg, phase, dev):
+    """The decoder's float32 weights drawn on the card from seed 0, after
+    the previous phase's are released and the free memory is checked
+    (qkv biases drawn nonzero from the same generator, where the config has
+    them: the init zeroes them, as the JAX package's does).  Emits the
+    ``{phase}_weights`` line; returns (params, that line)."""
+    import gc
+
+    import torch
+
+    from repro_torch.models.model import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free_before = torch.cuda.mem_get_info()[0]
+    need = cfg.num_params() * 4
+    if free_before < need:
+        raise AssertionError(f"{phase}: {free_before / 1e9:.2f} GB free on the card, the weights need "
+                             f"{need / 1e9:.2f} GB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    if cfg.qkv_bias:
+        for name in ("bq", "bk", "bv"):
+            params["layers"]["attn"][name].normal_(generator=gen).mul_(0.5)
+    torch.cuda.synchronize()
+    line = {"phase": f"{phase}_weights", "config": cfg.name, "params": sum(t.numel() for t in leaves(params)),
+            "bytes": n_bytes(params), "mem_free_gb_before_draw": free_before / 1e9,
+            "mem_free_gb_after_draw": torch.cuda.mem_get_info()[0] / 1e9, "init_s": time.perf_counter() - t0}
+    emit(line)
+    return params, line
+
+
 def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     """A decoder at full width and depth, float32 weights drawn on the card
     from seed 0, through the DecoderServer: deepseek-7b (the ``decode``
     phase: 30 layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab
-    102400) or qwen2-moe-a2.7b (``moe_decode``: 24 layers, d_model 2048,
+    102400), qwen2-moe-a2.7b (``moe_decode``: 24 layers, d_model 2048,
     16 x 128 heads, 60 experts of d_ff 1408 top-4 and a shared expert of
-    5632, qkv biases drawn nonzero from the same generator, vocab 151936;
-    the free device memory is checked before the draw).  The recipe of the
+    5632, qkv biases drawn nonzero from the same generator, vocab 151936)
+    or minitron-8b (``ln_decode``: 32 layers, d_model 4096, 32 x 128 query
+    heads over 8 KV heads, LayerNorm, a squared-ReLU MLP of d_ff 16384,
+    vocab 256000); the free device memory is checked before the draw.  The recipe of the
     JAX package's examples/serve_multitask.py decoder lane:
     probe_exit_threshold (median of first-off-ramp entropies at full
     depth), then a drain with per-token exit and a shared-clock arbiter at
     spec_window 1, then the same traffic at spec_window 4 with an
     ExitThresholdSchedule.  Checks the kernels' launches (softmax_entropy
-    n_layers x W per fused step, every kernel of the family's list), W =
-    4's accepted tokens, exit depths and final logits equal to W = 1's bit
+    n_layers x W per fused step; for the LayerNorm decoder layernorm
+    3 n_layers x W per fused step and 2 n_layers + 1 per prefill token;
+    every kernel of the family's list), W = 4's accepted tokens, exit depths and final logits equal to W = 1's bit
     for bit, one decode and one prefill build per bucket; then times,
     device time by kernel, the fused step's bytes and HBM bound, and the
     card against the CPU on the first two layers."""
@@ -1685,40 +1785,26 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
     from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model, init_params
+    from repro_torch.models.model import build_model
     from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
     from repro_torch.serving import step_math
     from repro_torch.serving.engine import DecoderServer, probe_exit_threshold
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32", remat_policy="none")
-    phase = "moe_decode" if cfg.family == "moe" else "decode"
-    kernels = ops.MOE_DECODE_KERNELS if cfg.family == "moe" else ops.DECODE_KERNELS
+    phase = DECODE_PHASES[arch]
+    kernels = (ops.MOE_DECODE_KERNELS if cfg.family == "moe" else
+               ops.LN_DECODE_KERNELS if cfg.norm == "layernorm" else ops.DECODE_KERNELS)
     model = build_model(cfg)
-    # the previous phase's weights go back to the card first
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    free_before = torch.cuda.mem_get_info()[0]
-    need = cfg.num_params() * 4
-    if free_before < need:
-        raise AssertionError(f"{phase}: {free_before / 1e9:.2f} GB free on the card, the weights need "
-                             f"{need / 1e9:.2f} GB")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(cfg, gen, device=dev)
-    if cfg.qkv_bias:                    # the init zeroes them, as the JAX package's does
-        for name in ("bq", "bk", "bv"):
-            params["layers"]["attn"][name].normal_(generator=gen).mul_(0.5)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    free_after = torch.cuda.mem_get_info()[0]
-    n_params = sum(t.numel() for t in leaves(params))
-    emit({"phase": f"{phase}_weights", "config": cfg.name, "params": n_params, "bytes": n_bytes(params),
-          "mem_free_gb_before_draw": free_before / 1e9, "mem_free_gb_after_draw": free_after / 1e9,
-          "init_s": init_s})
+    params, drawn = draw_decoder(cfg, phase, dev)
+    n_params, init_s = drawn["params"], drawn["init_s"]
+    free_before, free_after = drawn["mem_free_gb_before_draw"], drawn["mem_free_gb_after_draw"]
     prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
     n, W4 = DECODE_REQUESTS, DECODE_SPEC_WINDOW
+    # the serving prefill steps each prompt but its last token, one decode
+    # step per token; a LayerNorm decoder's step launches layernorm for both
+    # pre-norms of every layer and the final norm
+    prefill_tokens = n * (DECODE_PROMPT - 1)
+    ln_per_prefill_token = 2 * cfg.n_layers + 1 if cfg.norm == "layernorm" else 0
 
     t0 = time.perf_counter()
     thr = probe_exit_threshold(model, params, prompts, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET,
@@ -1750,6 +1836,12 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
         if launches["softmax_entropy"] != want or any(launches[k] <= 0 for k in kernels):
             raise AssertionError(f"{phase} W={W}: softmax_entropy launched {launches['softmax_entropy']} times, "
                                  f"want n_layers x W x fused steps = {want}")
+        want_ln = 3 * cfg.n_layers * W * steps + ln_per_prefill_token * prefill_tokens if ln_per_prefill_token else 0
+        if launches["layernorm"] != want_ln:
+            raise AssertionError(f"{phase} W={W}: layernorm launched {launches['layernorm']} times, want "
+                                 f"3 n_layers x W x fused steps + (2 n_layers + 1) x prefill tokens = {want_ln}")
+        if any(launches[k] for k in launches if k not in kernels):
+            raise AssertionError(f"{phase} W={W}: kernels off the path launched: {launches}")
         if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
             raise AssertionError(f"{phase} W={W}: builds per bucket: {tel}")
         results = np.stack([srv.done[i].result for i in range(n)])
@@ -1767,6 +1859,8 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
             "tokens_per_s": tel["tokens"] / (wall / 1e3), "fused_steps": steps,
             "ms_per_fused_step": None, "launches": launches,
             "softmax_entropy_launches_per_fused_step": launches["softmax_entropy"] / steps,
+            "layernorm_launches_per_fused_step": (launches["layernorm"] - ln_per_prefill_token * prefill_tokens)
+            / steps, "layernorm_launches_per_prefill_token": ln_per_prefill_token,
             "avg_token_exit_layer": tel["avg_token_exit_layer"],
             "tokens_per_fused_step": tel["tokens_per_fused_step"],
             "avg_accepted_block": tel["avg_accepted_block"],
@@ -1840,11 +1934,12 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     ref = check_decode_reference(cfg, params, prompts, thr, dev)
     result = {
         "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "n_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "act": cfg.act, "norm": cfg.norm,
         "n_experts": cfg.n_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
         "shared_expert_d_ff": cfg.shared_expert_d_ff, "qkv_bias": cfg.qkv_bias,
         "dtype": cfg.dtype, "params": n_params, "init_s": init_s,
-        "mem_free_gb_before_draw": free_before / 1e9, "mem_free_gb_after_draw": free_after / 1e9,
+        "mem_free_gb_before_draw": free_before, "mem_free_gb_after_draw": free_after,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
         "bucket": DECODE_BUCKET, "threshold": thr, "probe_s": probe_s,
@@ -1857,6 +1952,202 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     }
     emit(result)
     del params, servers, a, b, srv, cache, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: the RWKV6 decoder (rwkv6-7b, the ssm family)
+# ---------------------------------------------------------------------------
+
+
+def check_ssm_reference(cfg, params, prompts, dev) -> dict:
+    """The card against the CPU on the RWKV6 decoder's first
+    DECODE_REF_LAYERS layers (views of the card's weights; their copy on the
+    CPU runs the plain versions): one lane, teacher-forced through a prompt
+    and a fixed continuation, each token one ``decode_step`` on the kernel
+    route (the final LayerNorm on the layernorm kernel).  Every step's
+    logits, and the recurrent state after the prompt (token-shift inputs
+    and WKV state of both layers), within DECODE_ATOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    cfg_r = dataclasses.replace(cfg, n_layers=DECODE_REF_LAYERS)
+    cut = dict(params, layers=cut_layers(params["layers"], DECODE_REF_LAYERS))
+    seq = [int(t) for t in prompts[0]] + [int(t) for t in prompts[1][:DECODE_NEW]]
+
+    def run(p, d):
+        model = build_model(cfg_r)
+        cache = model.init_cache(1, DECODE_BUCKET, device=d)
+        logits, state = [], None
+        with torch.no_grad():
+            for t, tok in enumerate(seq):
+                lg, cache = model.decode_step(p, cache, torch.tensor([[tok]], device=d), t, use_kernels=True)
+                logits.append(lg[0, 0].cpu())
+                if t == DECODE_PROMPT - 1:
+                    state = {k: v.cpu().clone() for k, v in cache.items()}
+        return logits, state
+
+    t0 = time.perf_counter()
+    card, card_state = run(cut, dev)
+    host, host_state = run(tree_to(cut, torch.device("cpu")), torch.device("cpu"))
+    logit_err = max((a - b).abs().max().item() for a, b in zip(card, host))
+    state_err = {k: (card_state[k] - host_state[k]).abs().max().item() for k in host_state}
+    result = {"phase": "reference", "config": f"{cfg.name} first {DECODE_REF_LAYERS} layers (cut from "
+              f"{cfg.n_layers})", "teacher_forced_tokens": len(seq),
+              "tolerance": f"atol {DECODE_ATOL} (every step's logits, the state after the prompt)",
+              "step_logits_max_abs_err": logit_err, "state_after_prompt_max_abs_err": state_err,
+              "state_after_prompt_max_abs": {k: v.abs().max().item() for k, v in host_state.items()},
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    if max(logit_err, *state_err.values()) > DECODE_ATOL:
+        raise AssertionError(f"ssm reference: card and CPU differ beyond {DECODE_ATOL}")
+    return result
+
+
+def run_ssm_decode_path(dev) -> dict:
+    """rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 WKV
+    heads of 64, d_ff 14336, vocab 65536), float32 weights drawn on the
+    card from seed 0, through the DecoderServer: plain decode (the family
+    has no per-token exit) of DECODE_REQUESTS SyntheticLM requests in
+    DECODE_LANES lanes with a shared-clock arbiter.  Checks the launches
+    (layernorm once per fused step and once per prefill token, no other
+    kernel), one decode and one prefill build, and that the same requests
+    submitted in reverse order, so that each lands in another lane after
+    another request, get the same tokens (a refill zeroes the lane's
+    recurrent state); then times, the fused step and one request's prefill
+    profiled alone beside the step's HBM bound, and the card against the
+    CPU on the first two layers."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import step_math
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
+    from repro_torch.serving.engine import DecoderServer, Request
+
+    phase = "ssm_decode"
+    cfg = dataclasses.replace(get_config("rwkv6_7b"), dtype="float32", remat_policy="none")
+    model = build_model(cfg)
+    params, drawn = draw_decoder(cfg, phase, dev)
+    prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
+    n = DECODE_REQUESTS
+    prefill_tokens = n * (DECODE_PROMPT - 1)
+    stats = albert_layer_stats(seq_len=DECODE_BUCKET)
+    stats.n_layers = cfg.n_layers
+    target = no_early_exit_baseline(stats)["latency_s"] * 2.0
+
+    def fresh():
+        arb = BatchedDVFSArbiter(LatencyAwareDVFSController(stats, target))
+        return DecoderServer(model, params, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET, eos_id=-1,
+                             buckets=(DECODE_BUCKET,), arbiter=arb, device=dev)
+
+    drains, servers = {}, {}
+    for order in ("forward", "reverse"):
+        srv = fresh()
+        uids = range(n) if order == "forward" else reversed(range(n))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in uids:
+            srv.submit(Request(uid=i, tokens=prompts[i], max_new_tokens=DECODE_NEW))
+        srv.run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        tel = srv.telemetry()
+        steps = tel["decode_steps"]
+        if launches["layernorm"] != steps + prefill_tokens or any(
+                v for k, v in launches.items() if k not in ops.SSM_DECODE_KERNELS):
+            raise AssertionError(f"{phase} {order}: launches {launches}, want layernorm = fused steps + prefill "
+                                 f"tokens = {steps + prefill_tokens} and nothing else")
+        if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
+            raise AssertionError(f"{phase} {order}: builds per bucket: {tel}")
+        gen_toks = [srv.done[i].generated for i in range(n)]
+        if any(len(g_) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g_) for g_ in gen_toks):
+            raise AssertionError(f"{phase} {order}: generated tokens off: {gen_toks}")
+        if not all(x == cfg.n_layers for i in range(n) for x in srv.done[i].token_exit_layers):
+            raise AssertionError(f"{phase} {order}: a token left before the last layer")
+        servers[order] = srv
+        drains[order] = {
+            "order": order, "drain_ms": wall, "tokens": tel["tokens"], "tokens_per_s": tel["tokens"] / (wall / 1e3),
+            "fused_steps": steps, "launches": launches,
+            "layernorm_launches_per_fused_step": (launches["layernorm"] - prefill_tokens) / steps,
+            "layernorm_launches_per_prefill_token": 1,
+            "modeled_energy_j": tel["energy_j"], "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
+            "deadline_misses": tel["deadline_misses"], "op_switches": tel["op_switches"], "generated": gen_toks,
+        }
+    for i in range(n):
+        if servers["forward"].done[i].generated != servers["reverse"].done[i].generated:
+            raise AssertionError(f"{phase} request {i}: its tokens depend on the lane's earlier requests")
+
+    split = host_split(fresh(), prompts, sync=True, max_new_tokens=DECODE_NEW)
+    drains["forward"]["host_split_ms"] = split
+    drains["forward"]["ms_per_fused_step"] = split["lanes_step"] / drains["forward"]["fused_steps"]
+    # the fused step (DECODE_STEPS plain steps of the 4 lanes) and one
+    # request's prefill (15 one-token full-depth steps), each timed and
+    # profiled alone
+    cache = model.init_cache(DECODE_LANES, DECODE_BUCKET, device=dev)
+    cur = torch.as_tensor(np.asarray(prompts[:DECODE_LANES, -1:], np.int64), device=dev)
+    pos = torch.full((DECODE_LANES,), DECODE_PROMPT - 1, dtype=torch.int64, device=dev)
+
+    def fused_steps():
+        with torch.no_grad():
+            for _ in range(DECODE_STEPS):
+                step_math.decoder_decode(model, params, cache, cur, pos, use_kernels=True)
+
+    def prefill():
+        with torch.no_grad():
+            step_math.decoder_prefill(model, params, cache, prompts[0], 0, DECODE_PROMPT, use_kernels=True)
+
+    parts = {}
+    for name, fn, count in (("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / count
+        by_kernel = profile_device(fn)
+        busy = sum(g_["ms"] for g_ in by_kernel.values()) / count
+        parts[name] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                       "device_ms_by_kernel": by_kernel, "per": count}
+    # the step's least time: every layer's weights and the LM head read
+    # once, the recurrent state read and written
+    layers = params["layers"]
+    step_bytes = {"time_mix": n_bytes(layers["tmix"]), "channel_mix": n_bytes(layers["cmix"]),
+                  "norms": n_bytes(layers["norm1"]) + n_bytes(layers["norm2"]) + n_bytes(params["final_norm"]),
+                  "lm_head": n_bytes(params["lm_head"]), "state_read_and_written": 2 * n_bytes(cache)}
+    step_bound_ms = sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3
+    ref = check_ssm_reference(cfg, params, prompts, dev)
+    result = {
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "wkv_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype, "params": drawn["params"], "init_s": drawn["init_s"],
+        "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
+        "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
+        "bucket": DECODE_BUCKET, "target_latency_s": target, "drains": drains,
+        "reverse_order_same_tokens": True, "parts": parts,
+        "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()},
+        "fused_step_hbm_bound_ms": step_bound_ms, "launches": drains["forward"]["launches"],
+        "reference": {k: ref[k] for k in ("step_logits_max_abs_err", "state_after_prompt_max_abs_err")},
+    }
+    emit(result)
+    del params, servers, srv, cache, layers
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -2320,15 +2611,19 @@ def main() -> int:
     replay = timed("replay", run_replay_path, scfg, dev)
     decode = timed("decode", run_decode_path, dev)
     moe_decode = timed("moe_decode", run_decode_path, dev, "qwen2_moe_a2p7b")
+    ln_decode = timed("ln_decode", run_decode_path, dev, "minitron_8b")
+    ssm_decode = timed("ssm_decode", run_ssm_decode_path, dev)
     train = timed("train", run_train_path, dev)
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
                    "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]],
-                   "moe_decode": moe_decode["launches"][r["name"]], "train": train["launches"][r["name"]]}
+                   "moe_decode": moe_decode["launches"][r["name"]], "ln_decode": ln_decode["launches"][r["name"]],
+                   "ssm_decode": ssm_decode["launches"][r["name"]], "train": train["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
         # replay's, the deployed path's for af_matmul, which only that path
-        # runs, or the decode or moe_decode path's for the wide-row entropy
+        # runs, or a decoder path's for the wide-row entropy and the
+        # layernorm rows at d_model 4096
         r["launches"] = by_path[r["path"]]
         r["launches_by_path"] = by_path
         if r["launches"] <= 0:

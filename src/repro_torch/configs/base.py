@@ -2,8 +2,9 @@
 
 The port carries its own copy so that it imports nothing of ``repro``.  The
 ALBERT configurations (``albert_base``, ``albert_edgebert``), the dense
-decoder ``deepseek_7b`` and the MoE decoders ``qwen2_moe_a2p7b`` and
-``qwen3_moe_235b`` exist here so far; each exposes ``CONFIG`` (the
+decoders ``deepseek_7b``, ``minitron_8b``, ``internlm2_20b`` and
+``qwen1_5_110b``, the MoE decoders ``qwen2_moe_a2p7b`` and
+``qwen3_moe_235b`` and the RWKV6 decoder ``rwkv6_7b`` exist here so far; each exposes ``CONFIG`` (the
 published size) and ``smoke_config()`` (a reduced same-family config for CPU
 tests).
 """
@@ -241,7 +242,8 @@ class ModelConfig:
 # Lookup
 # ---------------------------------------------------------------------------
 
-PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "qwen2_moe_a2p7b", "qwen3_moe_235b")
+PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "minitron_8b", "internlm2_20b", "qwen1_5_110b",
+                "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b")
 
 
 def _config_module(arch: str):

@@ -62,6 +62,14 @@ DECODE_KERNELS = ("softmax_entropy",)
 # qwen-moe's vocabulary width; routing, expert products and the shared
 # expert are torch ops in both packages (no Pallas kernel in the JAX layer)
 MOE_DECODE_KERNELS = ("softmax_entropy",)
+# the LayerNorm decoder (minitron-8b) with an exit threshold: its two
+# pre-norms per layer and the final norm of every off-ramp on the layernorm
+# kernel, the off-ramp's entropy on softmax_entropy's wide-row entry
+LN_DECODE_KERNELS = ("layernorm", "softmax_entropy")
+# the ssm decoder (rwkv6-7b, plain decode): the final LayerNorm of each
+# step; its per-layer LayerNorms, group norm and WKV scan are torch ops in
+# both packages (no Pallas kernel in the JAX layer)
+SSM_DECODE_KERNELS = ("layernorm",)
 
 
 def reset_launch_counts() -> None:

@@ -7,11 +7,14 @@ classification (the paper's workload) through the continuation-batching
         --smoke --device cpu --requests 32 --threshold 1.05
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2p7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron_8b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --smoke --device cpu
 
 It runs on the card unless ``--device cpu`` is given; weights are random
 from ``--seed`` (float32).  The decoder serves ``SyntheticLM`` prompts cut
 to 16 tokens with ``--max-new-tokens`` each, at full depth, or with
-per-token early exit at ``--threshold``.
+per-token early exit at ``--threshold`` (the dense and MoE families; the
+ssm family, RWKV6, has no exit and refuses it).
 """
 from __future__ import annotations
 
@@ -43,11 +46,11 @@ def main(argv=None) -> dict:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype="float32", remat_policy="none")
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "ssm"):
         return _serve_decoder(cfg, args)
     if cfg.family != "albert" or not cfg.edgebert.early_exit.enabled:
-        raise SystemExit(f"{args.arch}: only early-exit albert classification and the dense and MoE decoders "
-                         "are ported")
+        raise SystemExit(f"{args.arch}: only early-exit albert classification and the dense, MoE and ssm "
+                         "decoders are ported")
     if args.threshold is not None:
         cfg = cfg.with_edgebert(early_exit=dataclasses.replace(
             cfg.edgebert.early_exit, entropy_threshold=args.threshold))

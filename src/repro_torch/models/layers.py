@@ -1,17 +1,16 @@
 """The layers' building blocks, the port of the parts of
-``repro/models/layers.py`` that the albert classifier and the dense and MoE
-decoders run: LayerNorm and RMS norm, rotary positions, span-aware
-attention (chunked online softmax, with the qkv biases where the tree has
-them) with or without a KV cache (float32 or AF8 codes), and the GELU and
-SwiGLU MLPs.
+``repro/models/layers.py`` that the albert classifier and the dense, MoE
+and RWKV6 decoders run: LayerNorm and RMS norm, rotary positions,
+span-aware attention (chunked online softmax, with the qkv biases where the
+tree has them) with or without a KV cache (float32 or AF8 codes), and the
+GELU, squared-ReLU and SwiGLU MLPs.
 
 ``use_kernels=True`` routes the eligible ops to the hand-written kernels
 through ``kernels.dispatch`` under the JAX package's eligibility rules;
 ``False`` keeps the reference ops, which repeat the JAX package's op for op.
 RMS norm has no kernel in either package, and KV-cache decode attention
 stays on the reference ops (the JAX package fuses the cache update and the
-AF8 codec with it).  The other activations and cross-attention come with
-the slices that need them.
+AF8 codec with it).  Cross-attention comes with the slices that need it.
 """
 from __future__ import annotations
 
@@ -39,9 +38,10 @@ def _ceil_div(a: int, b: int) -> int:
 
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6,
                use_kernels: bool = False, kind: str = "layernorm") -> torch.Tensor:
-    """LayerNorm with E[X^2] - E[X]^2 variance (the albert family's norm),
-    or with ``kind="rms"`` RMS norm (the dense decoder's; no kernel, as in
-    the JAX package, so ``use_kernels`` does not apply to it)."""
+    """LayerNorm with E[X^2] - E[X]^2 variance (the albert family's norm,
+    minitron-8b's and rwkv6-7b's), or with ``kind="rms"`` RMS norm
+    (deepseek-7b's and the qwen decoders'; no kernel, as in the JAX package,
+    so ``use_kernels`` does not apply to it)."""
     if kind == "rms":
         xf = x.float()
         var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -275,9 +275,11 @@ def apply_mlp(
     block_masks: Optional[Dict[str, Any]] = None,   # dispatch.mlp_block_masks
     act: str = "gelu",
 ) -> torch.Tensor:
-    """w_up -> gelu (tanh form, jax.nn.gelu's default) -> w_down, or with
-    ``act="swiglu"`` silu(x @ w_gate) * (x @ w_up) -> w_down; with
-    ``use_kernels`` a block-pruned weight goes to the block-sparse kernel."""
+    """w_up -> gelu (tanh form, jax.nn.gelu's default) or with
+    ``act="relu2"`` the squared ReLU (minitron-8b's) -> w_down, each in fp32
+    and cast back, or with ``act="swiglu"`` silu(x @ w_gate) * (x @ w_up)
+    -> w_down; with ``use_kernels`` a block-pruned weight goes to the
+    block-sparse kernel."""
     def mm(h_, name):
         if use_kernels and block_masks and block_masks.get(name) is not None:
             return dispatch.sparse_matmul(h_, p[name], block_masks[name])
@@ -287,6 +289,8 @@ def apply_mlp(
         h = F.silu(mm(x, "w_gate").float()).to(x.dtype) * mm(x, "w_up")
     elif act == "gelu":
         h = F.gelu(mm(x, "w_up").float(), approximate="tanh").to(x.dtype)
+    elif act == "relu2":
+        h = torch.square(torch.relu(mm(x, "w_up").float())).to(x.dtype)
     else:
         raise ValueError(f"activation {act!r} is not ported")
     return mm(h, "w_down")

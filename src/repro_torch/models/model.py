@@ -1,25 +1,29 @@
-"""The port's model (``repro/models/model.py``): the albert family and the
-dense and MoE decoder families.
+"""The port's model (``repro/models/model.py``): the albert family, the
+dense and MoE decoder families and the ssm family (RWKV6).
 
 ``init_params`` returns a tree with exactly the keys and shapes of the JAX
 package's ``Model.init_params`` for those families, with the same init
 scales; the decoder families' layers are stacked on a leading
 ``[n_layers]`` axis as the JAX package's ``_stack_init`` stacks them (the
-MoE family's expert weights too: ``[n_layers, E, d, ff]``).  The random numbers
-come from a ``torch.Generator`` and so differ from JAX's; parity tests
-bring the JAX tree across with ``repro_torch.bridge`` instead.
+MoE family's expert weights too: ``[n_layers, E, d, ff]``, and the RWKV6
+layers' time mix and channel mix).  The random numbers come from a
+``torch.Generator`` and so differ from JAX's; parity tests bring the JAX
+tree across with ``repro_torch.bridge`` instead.
 
 ``Model`` carries the layer math the classifier serving step and the dense
 all-layers forward (``apply_train``) run: embedding, the post-LN shared
 encoder layer, activation fake-quant, the early-exit off-ramp; and the
-decoder's: the pre-LN layer (RMS norm, rotary positions, qkv biases where
-the config has them, SwiGLU or the MoE layer of ``models/moe.py``), the
-untied LM head, the KV cache (``init_cache``, ``prefill``, ``decode_step``)
-and per-token early exit (``decode_step_ee``, ``decode_step_spec``,
-``forward_token_exit``).  Its methods take a tree of tensors on one device
-and compute there; the decode methods take each lane's cache position as a
-``[B]`` tensor (the JAX package ``vmap``s one-lane calls with a scalar) and
-write the cache in place.
+decoder's: the pre-LN layer (RMS norm or LayerNorm, rotary positions, qkv
+biases where the config has them, SwiGLU, squared ReLU or the MoE layer of
+``models/moe.py``), the untied LM head, the KV cache (``init_cache``,
+``prefill``, ``decode_step``) and per-token early exit (``decode_step_ee``,
+``decode_step_spec``, ``forward_token_exit``); and the RWKV6 layer
+(``models/rwkv6.py``) with its recurrent state (``init_cache``,
+``prefill``, ``decode_step``; it has no early exit in the JAX package).
+Its methods take a tree of tensors on one device and compute there; the
+decode methods take each lane's cache position as a ``[B]`` tensor (the
+JAX package ``vmap``s one-lane calls with a scalar) and write the cache in
+place.
 
 MoE routing couples the tokens of one routing through expert capacity, so
 each method keeps the JAX package's grouping: the decode methods route each
@@ -42,7 +46,7 @@ from repro_torch.core.adaptivfloat import AFFormat, fake_quant
 from repro_torch.core.entropy import entropy_from_logits
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, rwkv6
 
 Params = Dict[str, Any]
 
@@ -59,8 +63,11 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
     ``embed_dim`` differs from ``d_model``, as in the smoke config), the
     layers stacked on a leading [n_layers] axis (zero qkv biases with
     ``qkv_bias``, as the JAX package's ``init_attention`` makes them; the
-    SwiGLU MLP, or for the MoE family ``moe.init_moe``'s tree), the final
-    RMS norm and the untied LM head."""
+    SwiGLU MLP or the squared-ReLU one (``w_up``, ``w_down``), or for the
+    MoE family ``moe.init_moe``'s tree; for the ssm family the RWKV6 time
+    and channel mix between two LayerNorms), the final norm (RMS or
+    LayerNorm, the ssm family's LayerNorm, with a zero ``norm_bias``) and
+    the untied LM head."""
     dtype = _DTYPES[cfg.dtype]
     d, hd, H, KV, L_ = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
 
@@ -68,46 +75,71 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         return _normal(gen, (L_,) + tuple(shape), scale).to(dev, dtype)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
+    def norm(*lead, kind=cfg.norm):
+        n = {"scale": torch.ones(lead + (d,), dtype=dtype, device=dev)}
+        if kind == "layernorm":
+            n["norm_bias"] = torch.zeros(lead + (d,), dtype=dtype, device=dev)
+        return n
 
     embed = {"tok": _normal(gen, (cfg.vocab_size, cfg.embed_dim), 0.02).to(dev, dtype)}
     if cfg.embed_dim != d:
         embed["proj"] = _normal(gen, (cfg.embed_dim, d), 1.0 / math.sqrt(cfg.embed_dim)).to(dev, dtype)
+    if cfg.family == "ssm":
+        layers = {"norm1": norm(L_, kind="layernorm"),
+                  "tmix": rwkv6.init_rwkv6(cfg, gen, dev, dtype, lead=(L_,)),
+                  "norm2": norm(L_, kind="layernorm"),
+                  "cmix": rwkv6.init_channel_mix(cfg, gen, dev, dtype, lead=(L_,))}
+        return {"embed": embed, "layers": layers, "final_norm": norm(),
+                "lm_head": _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype)}
     attn = {"wq": stacked((d, H * hd)), "wk": stacked((d, KV * hd)),
             "wv": stacked((d, KV * hd)), "wo": stacked((H * hd, d))}
     if cfg.qkv_bias:
         attn.update(bq=torch.zeros(L_, H * hd, dtype=dtype, device=dev),
                     bk=torch.zeros(L_, KV * hd, dtype=dtype, device=dev),
                     bv=torch.zeros(L_, KV * hd, dtype=dtype, device=dev))
-    layers = {"norm1": {"scale": ones(L_, d)}, "attn": attn, "norm2": {"scale": ones(L_, d)}}
+    layers = {"norm1": norm(L_), "attn": attn, "norm2": norm(L_)}
     if cfg.family == "moe":
         layers["moe"] = moe.init_moe(cfg, gen, dev, dtype, lead=(L_,))
-    else:
+    elif cfg.act == "swiglu":
         layers["mlp"] = {"w_gate": stacked((d, cfg.d_ff)), "w_up": stacked((d, cfg.d_ff)),
                          "w_down": stacked((cfg.d_ff, d))}
+    else:
+        layers["mlp"] = {"w_up": stacked((d, cfg.d_ff)), "w_down": stacked((cfg.d_ff, d))}
     return {
         "embed": embed,
         "layers": layers,
-        "final_norm": {"scale": ones(d)},
+        "final_norm": norm(),
         "lm_head": _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype),
     }
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """The decoders as deepseek-7b and the qwen MoE configs have them:
-    pre-LN with RMS norm, rotary positions, SwiGLU (in every expert too),
-    with or without qkv biases, an untied LM head, none of the EdgeBERT
-    encoder features (spans, activation quantization, off-ramps); the MoE
-    family with its experts and top-k."""
+    """The decoders as deepseek-7b, minitron-8b, internlm2-20b, qwen1.5-110b
+    and the qwen MoE configs have them: pre-LN with RMS norm or (dense
+    only) LayerNorm, rotary positions, SwiGLU (in every expert too) or
+    (dense only) the squared ReLU, with or without qkv biases, an untied LM
+    head, none of the EdgeBERT encoder features (spans, activation
+    quantization, off-ramps); the MoE family with its experts and top-k.
+    The ssm family as rwkv6-7b has it: RWKV6 layers, an untied LM head, no
+    EdgeBERT encoder features."""
     eb = cfg.edgebert
+    encoder_features = eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes
+    if cfg.family == "ssm":
+        if cfg.tie_embeddings or cfg.shared_layers or encoder_features or cfg.d_model != cfg.n_heads * cfg.head_dim:
+            raise ValueError("only the ssm decoder of rwkv6-7b's kind (RWKV6 layers, untied head, no EdgeBERT "
+                             "encoder features) is ported")
+        return
+    # the squared ReLU and LayerNorm as minitron-8b has them: the dense family only
+    dense = cfg.family == "dense"
     if (cfg.family not in ("dense", "moe")
             or (cfg.family == "moe" and not (cfg.n_experts and cfg.top_k))
-            or (cfg.act, cfg.norm, cfg.pos, cfg.tie_embeddings, cfg.shared_layers) != (
-                "swiglu", "rms", "rope", False, False)
-            or eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes):
-        raise ValueError("only the dense decoder of deepseek-7b's kind and the MoE decoder of qwen-moe's "
-                         "(swiglu, rms, rope, untied head, no EdgeBERT encoder features) are ported")
+            or cfg.act not in (("swiglu", "relu2") if dense else ("swiglu",))
+            or cfg.norm not in (("rms", "layernorm") if dense else ("rms",))
+            or (cfg.pos, cfg.tie_embeddings, cfg.shared_layers) != ("rope", False, False)
+            or encoder_features):
+        raise ValueError("only the dense decoder of deepseek-7b's and minitron-8b's kinds (swiglu or relu2, "
+                         "rms or layernorm) and the MoE decoder of qwen-moe's (swiglu, rms), each with rope, an "
+                         "untied head and no EdgeBERT encoder features, are ported")
 
 
 def init_params(
@@ -119,7 +151,7 @@ def init_params(
     ``generator`` (a seed-0 CPU generator when None); the decoder families
     from ``generator`` on the generator's own device (a seed-0 generator on
     ``device`` when None), so a 7B tree made for the card is drawn there."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "ssm"):
         _check_dense(cfg)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
@@ -127,8 +159,8 @@ def init_params(
     if (cfg.family, cfg.act, cfg.norm, cfg.qkv_bias, cfg.tie_embeddings) != (
         "albert", "gelu", "layernorm", False, True
     ):
-        raise ValueError("only the ALBERT configs (gelu, layernorm, tied embeddings) and the dense "
-                         "and MoE decoders are ported")
+        raise ValueError("only the ALBERT configs (gelu, layernorm, tied embeddings) and the dense, "
+                         "MoE and ssm decoders are ported")
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = _DTYPES[cfg.dtype]
@@ -195,16 +227,17 @@ class ModelOutput(NamedTuple):
 
 
 class Model:
-    """The albert, dense and MoE families of the JAX package's ``Model``:
-    one shared post-LN encoder layer with entropy off-ramps and AdaptivFloat
-    activations, or a stack of pre-LN decoder layers (SwiGLU or MoE) with a
-    KV cache and per-token early exit on the LM head."""
+    """The albert, dense, MoE and ssm families of the JAX package's
+    ``Model``: one shared post-LN encoder layer with entropy off-ramps and
+    AdaptivFloat activations, a stack of pre-LN decoder layers (SwiGLU,
+    squared ReLU or MoE) with a KV cache and per-token early exit on the LM
+    head, or a stack of RWKV6 layers with a recurrent state."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "ssm"):
             _check_dense(cfg)
         elif cfg.family != "albert" or not cfg.shared_layers:
-            raise ValueError("only the albert family (one shared layer) and the dense and MoE families "
+            raise ValueError("only the albert family (one shared layer) and the dense, MoE and ssm families "
                              "are ported")
         self.cfg = cfg
 
@@ -273,7 +306,10 @@ class Model:
         post-LN for the albert family, pre-LN for the decoder families.  An
         MoE layer routes each batch row on its own with ``moe_grouped``, all
         rows together without it (None: the config's
-        ``moe_grouped_dispatch``); its aux loss is not kept."""
+        ``moe_grouped_dispatch``); its aux loss is not kept.  The decoder's
+        two pre-norms take ``use_kernels`` as the JAX package's take
+        ``use_pallas``: a LayerNorm goes to the layernorm kernel, an RMS
+        norm has none."""
         cfg = self.cfg
         attn = dict(causal=causal, positions=positions, span_z=span_z, span_ramp=cfg.edgebert.span.ramp,
                     kv_len=kv_len, cache=cache, cache_pos=cache_pos, use_kernels=use_kernels)
@@ -283,15 +319,30 @@ class Model:
             mo = L.apply_mlp(lp["mlp"], h, use_kernels=use_kernels, block_masks=block_masks)
             h = L.apply_norm(lp["norm2"], h + mo, use_kernels=use_kernels)
             return self._maybe_actquant(h, use_kernels=use_kernels, per_lane=per_lane)
-        h = h + L.attention_layer(lp["attn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm), cfg, **attn)
-        hn = L.apply_norm(lp["norm2"], h, kind=cfg.norm)
+        h = h + L.attention_layer(lp["attn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm, use_kernels=use_kernels),
+                                  cfg, **attn)
+        hn = L.apply_norm(lp["norm2"], h, kind=cfg.norm, use_kernels=use_kernels)
         if "moe" in lp:
             return h + moe.apply_moe(lp["moe"], hn, cfg, grouped=moe_grouped)[0]
         return h + L.apply_mlp(lp["mlp"], hn, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
 
+    def _rwkv_layer_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
+                         decode: bool = False):
+        """One RWKV6 layer (the JAX package's ``_rwkv_layer_step``) -> (h,
+        new states {"last_tm", "wkv", "last_cm"}).  Its two LayerNorms take
+        no kernel flag in the JAX package, so they stay on the reference
+        ops here too."""
+        st = states or {}
+        tout, (last_tm, wkv) = rwkv6.apply_rwkv6(lp["tmix"], L.apply_norm(lp["norm1"], h), self.cfg,
+                                                 last_x=st.get("last_tm"), wkv_state=st.get("wkv"),
+                                                 decode=decode)
+        h = h + tout
+        cout, last_cm = rwkv6.apply_channel_mix(lp["cmix"], L.apply_norm(lp["norm2"], h), last_x=st.get("last_cm"))
+        return h + cout, {"last_tm": last_tm, "wkv": wkv, "last_cm": last_cm}
+
     def _layer(self, p: Params, i: int):
         """(layer params, span) of layer ``i``: the shared layer (albert) or
-        views into the stacked layers (dense, MoE)."""
+        views into the stacked layers (dense, MoE, ssm)."""
         if self.cfg.family == "albert":
             return p["layer"], self._span_for_layer(p, 0)
 
@@ -314,7 +365,7 @@ class Model:
         end to end, as XLA differentiates the JAX package's."""
         cfg = self.cfg
         if cfg.family != "albert":
-            raise NotImplementedError("the dense family's training forward is not ported")
+            raise NotImplementedError(f"the {cfg.family} family's training forward is not ported")
         tokens = torch.as_tensor(batch["tokens"], device=p["embed"]["tok"].device)
         h = self.embed(p, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -344,9 +395,14 @@ class Model:
         lg = self.lm_logits(p, L.apply_norm(p["final_norm"], h, kind=self.cfg.norm, use_kernels=use_kernels))
         return lg, (dispatch.entropy(lg) if use_kernels else entropy_from_logits(lg))
 
-    def _check_decoder(self) -> None:
-        if self.cfg.family not in ("dense", "moe", "albert"):
-            raise ValueError("KV-cache decode: the dense, MoE and albert families")
+    def _check_decoder(self, early_exit: bool = False) -> None:
+        """Decode, prefill and the cache serve the dense, MoE, albert and ssm
+        families; per-token exit and speculative decode (``early_exit``)
+        the KV-cache families only, as in the JAX package."""
+        families = ("dense", "moe", "albert") if early_exit else ("dense", "moe", "albert", "ssm")
+        if self.cfg.family not in families:
+            what = "per-token exit and speculative decode" if early_exit else "decode"
+            raise ValueError(f"{what}: the {', '.join(families)} families, not {self.cfg.family}")
 
     def forward_token_exit(self, p: Params, tokens: torch.Tensor, threshold: float):
         """Per-TOKEN early exit over a whole sequence: after each layer,
@@ -355,7 +411,7 @@ class Model:
         exit_layer [B, S]).  MoE layers route all B x S tokens together,
         as the JAX package's call does."""
         if self.cfg.family not in ("dense", "moe"):
-            raise ValueError("token exit: decoder LMs")
+            raise ValueError(f"token exit: the dense and MoE decoder LMs, not {self.cfg.family}")
         n = self.cfg.n_layers
         h = self.embed(p, torch.as_tensor(tokens, device=p["embed"]["tok"].device))
         B, S, _ = h.shape
@@ -372,15 +428,37 @@ class Model:
 
     # ============================================================ decode ====
     def init_cache(self, batch_size: int, max_seq: int, device: DeviceLike = "cuda") -> Params:
-        """Zeroed KV cache {"k", "v"}: [n_layers, B, max_seq, KV, head_dim]
-        in the config's dtype, or uint8 AF8 codes (``kv_cache_dtype="af8"``)."""
+        """The zeroed decode state, every leaf [n_layers, B, ...] (layer,
+        then lane): the KV-cache families' {"k", "v"} [n_layers, B,
+        max_seq, KV, head_dim] in the config's dtype, or uint8 AF8 codes
+        (``kv_cache_dtype="af8"``); the ssm family's recurrent state,
+        whatever ``max_seq``: the token-shift inputs "last_tm" and
+        "last_cm" [n_layers, B, 1, d] in the config's dtype and the WKV
+        state "wkv" [n_layers, B, H, K, K] in float32."""
         self._check_decoder()
         cfg = self.cfg
+        dev = resolve_device(device)
+        if cfg.family == "ssm":
+            n, d, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim
+            dtype = _DTYPES[cfg.dtype]
+            return {"last_tm": torch.zeros((n, batch_size, 1, d), dtype=dtype, device=dev),
+                    "last_cm": torch.zeros((n, batch_size, 1, d), dtype=dtype, device=dev),
+                    "wkv": torch.zeros((n, batch_size, H, K, K), dtype=torch.float32, device=dev)}
         dtype = torch.uint8 if cfg.kv_cache_dtype == "af8" else _DTYPES[cfg.dtype]
         shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        dev = resolve_device(device)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def _rwkv_layers(self, p: Params, h: torch.Tensor, cache: Params, *, decode: bool):
+        """Every RWKV6 layer over h, writing each layer's new state into
+        ``cache`` in place: a decode step from the cache's state, or a
+        prefill from a zero state (the chunked WKV)."""
+        for i in range(self.cfg.n_layers):
+            states = {k: cache[k][i] for k in ("last_tm", "last_cm", "wkv")} if decode else None
+            h, new = self._rwkv_layer_step(self._layer(p, i)[0], h, states=states, decode=decode)
+            for k, v in new.items():
+                cache[k][i].copy_(v)
+        return h
 
     def _positions(self, pos: Any, S: int, device) -> tuple:
         """(pos as a [B] or [1] tensor, positions [B, S]) for a cache
@@ -396,9 +474,16 @@ class Model:
         (``moe_per_lane``, the JAX serving step's per-lane ``vmap``), or
         with ``moe_per_lane=False`` as the config groups them, all lanes
         together by default (the JAX model's batched call, which its
-        serving prefill makes).  Returns (logits [B, S, V], cache)."""
+        serving prefill makes).  The ssm family steps its recurrent state
+        instead (``pos`` unused), in place too; only its final LayerNorm
+        takes ``use_kernels``, as in the JAX package.  Returns (logits
+        [B, S, V], cache)."""
         self._check_decoder()
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
+        if self.cfg.family == "ssm":
+            h = self._rwkv_layers(p, self.embed(p, tokens), cache, decode=True)
+            h = L.apply_norm(p["final_norm"], h, use_kernels=use_kernels)
+            return self.lm_logits(p, h), cache
         pos_t, positions = self._positions(pos, tokens.shape[1], tokens.device)
         h = self.embed(p, tokens, positions=positions)
         for i in range(self.cfg.n_layers):
@@ -426,7 +511,7 @@ class Model:
         ``vmap``).  Returns ``(logits [B, 1, V], cache, exit_layer [B]
         (1-based), first_entropy [B])``, the last the entropy after layer
         1."""
-        self._check_decoder()
+        self._check_decoder(early_exit=True)
         n = self.cfg.n_layers
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
         dev = tokens.device
@@ -479,7 +564,7 @@ class Model:
         ``pos + j``); MoE layers route each lane on its own.  Returns
         ``(tokens [B, W], logits [B, W, V], cache, exit_layers [B, W],
         first_ent [B, W], accepted [B, W])``."""
-        self._check_decoder()
+        self._check_decoder(early_exit=True)
         W = int(spec_window)
         if W < 1:
             raise ValueError("spec_window must be >= 1")
@@ -506,11 +591,16 @@ class Model:
     def prefill(self, p: Params, tokens: torch.Tensor, cache: Params):
         """The whole prompt through the model in one pass, filling the cache
         at positions 0..S-1 (in place); MoE layers route all B x S tokens
-        together, as the JAX package's call does.  Returns (last-token
-        logits [B, 1, V], cache)."""
+        together, as the JAX package's call does.  The ssm family runs the
+        chunked WKV from a zero state, whatever the cache holds (as the JAX
+        package's prefill does), and writes the state after the prompt into
+        the cache in place.  Returns (last-token logits [B, 1, V], cache)."""
         self._check_decoder()
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
         h = self.embed(p, tokens)
+        if self.cfg.family == "ssm":
+            h = L.apply_norm(p["final_norm"], self._rwkv_layers(p, h, cache, decode=False))
+            return self.lm_logits(p, h[:, -1:]), cache
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         for i in range(self.cfg.n_layers):
             lp, span_z = self._layer(p, i)

@@ -22,8 +22,9 @@
   ``ClassifierServer`` per task (paper §III-D).
 
 * ``DecoderServer``: LM decode with per-lane KV cache positions (refilled
-  lanes continue from their own prompt end), EOS retirement and refill, a
-  prefill per lane load; with ``exit_threshold=`` per-token entropy early
+  lanes continue from their own prompt end) or, for RWKV6, a per-lane
+  recurrent state zeroed at refill, EOS retirement and refill, a prefill
+  per lane load; with ``exit_threshold=`` per-token entropy early
   exit on the LM head after every layer (``Model.decode_step_ee``), a
   position-binned exit LUT, shared-clock DVFS priced per token at its exit
   depth, and with ``spec_window > 1`` (or a ``threshold_schedule``)
@@ -524,10 +525,23 @@ class DecoderServer:
     cache window, so a refilled lane continues from its actual prompt end.
     Cache shapes bucket by prompt plus generation budget; the caches live in
     a bucket-keyed dict, since the scheduler time-slices across buckets.
-    It drives the dense and MoE families; an MoE layer routes each lane on
-    its own in the fused step and the lanes together in the prefill, as
-    the JAX package's lane ``vmap`` and batched prefill do
-    (``step_math.decoder_prefill``).
+    It drives the dense, MoE and ssm families; an MoE layer routes each
+    lane on its own in the fused step and the lanes together in the
+    prefill, as the JAX package's lane ``vmap`` and batched prefill do
+    (``step_math.decoder_prefill``).  The ssm family (RWKV6) carries a
+    recurrent state per lane instead of KV rows (the bucket then bounds
+    only the positions): plain decode only, as in the JAX package, with or
+    without an arbiter or residency.
+
+    A refilled lane's recurrent state is zeroed before its prefill, so a
+    request's tokens do not depend on the request the lane served before.
+    Here the port departs from the JAX server on purpose: that one starts
+    the prefill from whatever state the lane holds (harmless for KV rows,
+    which the new request overwrites, not for a recurrent state), so its
+    RWKV6 output depends on the lane's history.  The two agree on every
+    request that is the first in its lane, and the port agrees with the
+    JAX model's own ``init_cache`` -> prefill -> ``decode_step`` contract
+    on every request.
 
     ``exit_threshold`` — per-token early exit: the fused step runs
     ``Model.decode_step_ee`` over the lanes (after every layer the LM head
@@ -552,11 +566,13 @@ class DecoderServer:
     ``preempt`` — lanes checkpoint (cache row, position, pending token and
     the arbiter's lane clock) and restore into any free lane.
     ``use_kernels`` — the LM-head entropy goes to the softmax_entropy
-    kernel's wide-row entry (the decoder's only kernel: its norms are RMS
-    norms, its cache attention stays on the reference ops); the default is
-    True, as in ``ClassifierServer``.  ``device`` — the card unless the
-    caller asks for ``"cpu"``.  ``task`` / ``residency`` — multi-task
-    residency, as in ``ClassifierServer``.
+    kernel's wide-row entry, and a LayerNorm decoder's pre-norms and final
+    norms (minitron-8b's; the ssm family's final norm alone) to the
+    layernorm kernel, as the JAX package routes ``use_pallas`` (RMS norms
+    have no kernel, cache attention stays on the reference ops); the
+    default is True, as in ``ClassifierServer``.  ``device`` — the card
+    unless the caller asks for ``"cpu"``.  ``task`` / ``residency`` —
+    multi-task residency, as in ``ClassifierServer``.
 
     The ``decode`` / ``prefill`` traces count the buckets whose decode step
     and prefill have run (one each per bucket used), under the JAX
@@ -585,8 +601,12 @@ class DecoderServer:
         threshold_schedule: Optional[Any] = None,
         device: DeviceLike = "cuda",
     ):
-        if model.cfg.family not in ("dense", "moe"):
-            raise ValueError("the decoder server drives the dense and MoE families")
+        if model.cfg.family not in ("dense", "moe", "ssm"):
+            raise ValueError("the decoder server drives the dense, MoE and ssm families")
+        if model.cfg.family == "ssm" and (exit_threshold is not None or threshold_schedule is not None
+                                          or spec_window != 1):
+            raise ValueError("the ssm family has no per-token exit: no exit_threshold, threshold_schedule "
+                             "or spec_window > 1")
         if replicas != 1 or mesh is not None:
             raise ValueError("one device, one replica: the sharded decoder server is not ported")
         if isinstance(arbiter, (list, tuple)):
@@ -791,6 +811,11 @@ class DecoderServer:
         toks[: len(req.tokens)] = req.tokens
         self._built("prefill", bucket)
         with torch.no_grad():
+            if self.model.cfg.family == "ssm":
+                # a fresh recurrent state: the request before it in this lane
+                # leaves its state behind (see the class docstring)
+                for v in st["cache"].values():
+                    v[:, lane].zero_()
             step_math.decoder_prefill(self.model, self.params, st["cache"], toks, lane, len(req.tokens),
                                       use_kernels=self.use_kernels)
         st["pos"][lane] = len(req.tokens) - 1
@@ -969,10 +994,10 @@ class DecoderServer:
         del self._bstate[bucket]
 
     def lane_checkpoint(self, bucket: int, lane: int, req: Request):
-        """Snapshot the lane's cache row, cache position and pending token,
-        so a preempted decode resumes exactly where it stopped (its tokens
-        and exit depths live on the request); with an arbiter, the lane
-        clock is frozen alongside."""
+        """Snapshot the lane's cache row (KV rows or recurrent state), cache
+        position and pending token, so a preempted decode resumes exactly
+        where it stopped (its tokens and exit depths live on the request);
+        with an arbiter, the lane clock is frozen alongside."""
         st = self._bstate[bucket]
         payload = {
             "cache": {k: v[:, lane].clone() for k, v in st["cache"].items()},

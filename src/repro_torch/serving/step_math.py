@@ -14,8 +14,9 @@ port runs all lanes at once.  The classifier's ``[lanes, S_bucket, D]``
 slab carries per-lane lengths masking each lane's bucket padding out of
 attention and one activation-quant bias per lane; the decoder's steps take
 a ``[lanes]`` tensor of cache positions, and each lane reads and writes its
-own cache row at its own position, so each lane computes what the one-lane
-body does.  The decoder's cache is updated in place.
+own cache row at its own position (the ssm family: its own recurrent
+state), so each lane computes what the one-lane body does.  The decoder's
+cache is updated in place.
 """
 from __future__ import annotations
 
@@ -172,8 +173,9 @@ def decoder_prefill(
     *,
     use_kernels: bool = False,
 ):
-    """Write one lane's prompt[:length - 1] into its cache row: full-depth
-    ``decode_step``s, one token at a time, as the JAX package runs them.
+    """Write one lane's prompt[:length - 1] into its cache row (the KV rows,
+    or the recurrent state): full-depth ``decode_step``s, one token at a
+    time, as the JAX package runs them.
 
     The JAX package steps every lane in one batched call per token (token 0
     on the other lanes) on a scratch copy of the cache, and merges the lane
@@ -185,10 +187,16 @@ def decoder_prefill(
     only when C lanes of lower index took that expert before it in the
     stable sort, and it has at most ``lanes - 1`` of them.  With more lanes
     the dummy lanes can take the lane's expert slots, so the port steps all
-    lanes on a scratch copy as the JAX package does.  Returns the cache."""
-    dev = cache["k"].device
+    lanes on a scratch copy as the JAX package does.  The ssm family's
+    recurrent state couples no lanes either, so its lane steps alone too.
+
+    Every cache leaf is [n_layers, lanes, ...]: the KV cache's rows, or the
+    ssm family's recurrent state (token-shift inputs and WKV state), which
+    this prefill carries on from whatever the lane's row holds (the server
+    zeroes it first).  Returns the cache."""
+    leaf = next(iter(cache.values()))
+    dev, lanes = leaf.device, leaf.shape[1]
     toks = torch.as_tensor(np.asarray(tokens[: max(length - 1, 0)], np.int64), device=dev)
-    lanes = cache["k"].shape[1]
     if model.cfg.family == "moe" and lanes > moe.capacity(lanes, model.cfg):
         scratch = {k: v.clone() for k, v in cache.items()}
         is_lane = torch.arange(lanes, device=dev)[:, None] == lane

@@ -264,6 +264,89 @@ def test_decoder_server_matches_cpu(cuda):
             np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)
 
 
+@pytest.mark.parametrize("rows", [4, 1])
+def test_layernorm_at_the_decoder_width(cuda, rows):
+    """minitron-8b's and rwkv6-7b's d_model 4096, the decode step's 4 lanes
+    and the prefill's one: above the register path's 1024, so the generic
+    path (scalar strides, a second pass over the row); atol 1e-5 against
+    the plain version, the same bits twice, one launch per call."""
+    x, g, b = _t((rows, 4096), 40 + rows, 3.0).to(cuda), _t((4096,), 42).to(cuda), _t((4096,), 43).to(cuda)
+    before = layernorm.launches
+    got = layernorm(x, g, b)
+    assert layernorm.launches == before + 1
+    torch.testing.assert_close(got, ref.layernorm(x, g, b), atol=1e-5, rtol=0)
+    assert torch.equal(layernorm(x, g, b), got)
+
+
+@pytest.mark.parametrize("rows", [4, 1])
+def test_entropy_wide_rows_at_minitron_vocab(cuda, rows):
+    """minitron-8b's LM-head entropy at vocabulary 256000: atol 1e-5
+    against the plain version, the same bits twice."""
+    x = (_t((rows, 256000), 44 + rows, 1.3) + _t((rows, 1), 46, 3.0)).to(cuda)
+    got = entropy(x)
+    torch.testing.assert_close(got, ref.softmax_entropy(x)[1], atol=1e-5, rtol=0)
+    assert torch.equal(entropy(x), got)
+
+
+def _drain_cpu_and_card(cuda, model, params, prompts, **kw):
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = DecoderServer(model, params, max_seq=32, eos_id=-1, buckets=(16,), device=dev, **kw)
+        for i, p in enumerate(prompts):
+            srv.submit(Request(uid=i, tokens=p, max_new_tokens=4))
+        ops.reset_launch_counts()
+        st = srv.run()
+        out[str(dev)] = (srv, ops.launch_counts(), st)
+    return out["cpu"], out[str(cuda)]
+
+
+def test_layernorm_decoder_server_matches_cpu(cuda):
+    """The smoke minitron-8b drain (LayerNorm, squared ReLU, GQA 8 / 2) on
+    the card against the same on the CPU, at full depth, with every token
+    exiting at layer 1 and at spec window 4: tokens and exits equal, final
+    logits atol 1e-4; layernorm launched 3 n_layers x W times per fused
+    step and 2 n_layers + 1 times per prefill token, softmax_entropy
+    n_layers x W times per fused step."""
+    cfg = dataclasses.replace(get_smoke_config("minitron_8b"), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [np.random.default_rng(i).integers(4, cfg.vocab_size, 6 + i) for i in range(5)]
+    n, prefill_tokens = cfg.n_layers, sum(len(p) - 1 for p in prompts)
+    for thr, W in ((-1.0, 1), (1e9, 1), (1e9, 4)):
+        (cpu, _, _), (gpu, launches, st) = _drain_cpu_and_card(cuda, model, params, prompts, batch_lanes=2,
+                                                               exit_threshold=thr, spec_window=W)
+        assert launches["softmax_entropy"] == n * W * st["decode_steps"]
+        assert launches["layernorm"] == 3 * n * W * st["decode_steps"] + (2 * n + 1) * prefill_tokens
+        assert all(launches[k] > 0 for k in ops.LN_DECODE_KERNELS)
+        for i in range(len(prompts)):
+            assert gpu.done[i].generated == cpu.done[i].generated
+            assert gpu.done[i].token_exit_layers == cpu.done[i].token_exit_layers
+            np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)
+
+
+def test_ssm_decoder_server_matches_cpu(cuda):
+    """The smoke rwkv6-7b drain on the card against the same on the CPU (2
+    lanes, refills): tokens equal; layernorm launched once per fused step
+    and once per prefill token, nothing else; the same traffic submitted in
+    reverse order (so other lanes and other predecessors) gives every
+    request the same tokens (the refill's zeroed state)."""
+    cfg = dataclasses.replace(get_smoke_config("rwkv6_7b"), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [np.random.default_rng(i).integers(4, cfg.vocab_size, 6 + i) for i in range(5)]
+    (cpu, _, _), (gpu, launches, st) = _drain_cpu_and_card(cuda, model, params, prompts, batch_lanes=2)
+    assert launches["layernorm"] == st["decode_steps"] + sum(len(p) - 1 for p in prompts)
+    assert {k for k, v in launches.items() if v} == set(ops.SSM_DECODE_KERNELS)
+    for i in range(len(prompts)):
+        assert gpu.done[i].generated == cpu.done[i].generated
+    rev = DecoderServer(model, params, batch_lanes=2, max_seq=32, eos_id=-1, buckets=(16,), device=cuda)
+    for i in reversed(range(len(prompts))):
+        rev.submit(Request(uid=i, tokens=prompts[i], max_new_tokens=4))
+    rev.run()
+    for i in range(len(prompts)):
+        assert rev.done[i].generated == gpu.done[i].generated
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = _t((4, 8), 21).to(cuda)
     with pytest.raises(TypeError):

@@ -142,6 +142,21 @@ def test_decoder_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch):
         serve.main(["--arch", "qwen2_moe_a2p7b", "--smoke"])
     assert DecoderServer(model, params, device="cpu").device.type == "cpu"
 
+    # the ssm family (RWKV6) and the LayerNorm decoder through the same entry points
+    for arch in ("rwkv6_7b", "minitron_8b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        model = build_model(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(cfg)
+        params = init_params(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DecoderServer(model, params)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_cache(1, 8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--smoke"])
+        assert DecoderServer(model, params, device="cpu").device.type == "cpu"
+
 
 def test_scan_covers_the_decoder_slice():
     """The module scan walks the package, so it covers the decoder slice's
@@ -157,6 +172,14 @@ def test_scan_covers_the_moe_slice():
     names = {name for _, name in _modules()}
     assert {"repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2p7b",
             "repro_torch.configs.qwen3_moe_235b"} <= names
+
+
+def test_scan_covers_the_ssm_slice():
+    """The module scan walks the package, so it covers the ssm slice's
+    modules too: RWKV6 and the four new configs."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.models.rwkv6", "repro_torch.configs.rwkv6_7b", "repro_torch.configs.minitron_8b",
+            "repro_torch.configs.internlm2_20b", "repro_torch.configs.qwen1_5_110b"} <= names
 
 
 def test_scan_covers_the_training_slice():

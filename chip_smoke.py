@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
                 softmax_entropy's wide-row entry at the decoders' [4 and 1,
                 102400], [4 and 1, 151936] and [4 and 1, 256000] logits
                 beside the warp-per-row entry, and layernorm at the
-                decoders' [4 and 1, 4096] rows (its generic path);
+                decoders' [4 and 1, 4096] rows (its generic path) and at
+                whisper-medium's [4 and 1, 1024] (its register path);
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -57,9 +58,11 @@ Phases, each printing one JSON line:
                 depth (tasks, exits, summaries; logits and first entropies
                 within 5e-2 as served, within 1e-4 with activation
                 quantization off) and the whole smoke-size replay.
-  8. decode   — the dense decoder at full width and depth (deepseek-7b:
-                30 layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab
-                102400, float32 weights drawn on the card from seed 0):
+  8. decode   — the dense decoder at full width (deepseek-7b: its first
+                10 of 30 layers, cut for the script's time, since ln_decode
+                drives the same decoder path at full depth; d_model 4096,
+                32 x 128 heads, d_ff 11008, vocab 102400, float32 weights
+                drawn on the card from seed 0):
                 probe_exit_threshold, then a DecoderServer drain of 8
                 SyntheticLM requests (16-token prompts, 8 new tokens, 4
                 lanes) with per-token exit and a shared-clock arbiter at
@@ -111,7 +114,41 @@ Phases, each printing one JSON line:
                 drain times, the fused step and the prefill profiled
                 alone beside the step's HBM bound; then the card against
                 the CPU on the first 2 layers (logits of every step, and
-                the recurrent state after the prompt, within 1e-4).
+                the recurrent state after the prompt, within 1e-4), and
+                layer 0's error op by op (each op on the card from the
+                CPU's inputs, and the card's own chain).
+ 8e. hybrid_decode — the hybrid decoder at full width and depth
+                (zamba2-1.2b: 38 Mamba2 blocks of d_model 2048, d_inner
+                4096, 64 SSD heads of 64, state 64; the shared attention
+                block after every 6th block at width 4096, 32 x 128 heads,
+                d_ff 8192; vocab 32000; 4.98 GB drawn on the card): the
+                ssm_decode recipe, with no kernel launched (RMS norms, cache
+                attention on torch ops, as in the JAX package); the reverse
+                order the same tokens; Model.prefill (the chunked SSD) of
+                every prompt against the server's one-token prefill (logits,
+                conv and SSM state within 1e-4 of each leaf's largest
+                magnitude); the first 6 blocks (one shared-block call)
+                against the CPU: every step's logits within 1e-4, the state
+                after the prompt within 1e-4 of each leaf's largest
+                magnitude, and block 0's error op by op (as ssm_decode
+                reports rwkv6-7b's layer 0: w_in, the conv, the SSD step,
+                the gate, w_out).
+ 8f. encdec_decode — the encoder-decoder at full width and depth
+                (whisper-medium: 24 + 24 layers of d_model 1024, 16 x 64
+                heads, d_ff 4096, vocab 51865, 1500 frames; 5.40 GB drawn)
+                through the model's own entry points (the DecoderServer
+                refuses the family: the JAX server never feeds it its
+                encoder input): seeded frames [4, 1500, 1024] x 0.1,
+                init_cache(4, 32) -> prefill of 16-token prompts with
+                aux={"enc_input": frames} -> 8 greedy decode_step calls on
+                the kernel route; layernorm launched once per step (the
+                final norm) and nothing else, none in the prefill; frames
+                from another seed change the logits; the encoder, the
+                prefill and a decode step timed and profiled alone beside
+                their bounds (fp32 operations; the step's bytes); the first
+                2 encoder and 2 decoder layers against the CPU (the
+                prefill's and every teacher-forced step's logits within
+                1e-4).
   9. train    — the Fig. 6 pipeline at albert_edgebert's published width
                 (float32 weights from seed 0, SyntheticCLS seq 128, batch
                 16): a teacher (make_train_step, pruning off), phase 1
@@ -135,8 +172,10 @@ for af_matmul, which only the deployed path runs, at the deployed layer
 with that path's launches; softmax_entropy has two more rows, its wide-row
 entry at the decode shape [4, 102400] with the decode phase's launches,
 at the moe_decode shape [4, 151936] with that phase's and at the ln_decode
-shape [4, 256000] with that phase's; layernorm two more, at [4, 4096] with
-the ln_decode and the ssm_decode phases' launches),
+shape [4, 256000] with that phase's; layernorm three more, at [4, 4096] with
+the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
+encdec_decode phase's; `launches_by_path` gives every path's, hybrid_decode
+and encdec_decode included),
 the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
@@ -505,16 +544,20 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     # phase's launches) and 1 in the prefill.  Above the register path's
     # 1024, so the kernel's generic path (scalar strides, a second pass over
     # the row); within 1e-5 of the plain version (the determinism phase
-    # launches it twice at these shapes for the same bits).
-    for path, arch in (("ln_decode", "minitron_8b"), ("ssm_decode", "rwkv6_7b")):
+    # launches it twice at these shapes for the same bits).  And at
+    # whisper-medium's d_model 1024 (the final norm of its decode step,
+    # encdec_decode's launches): the register path's widest rows.
+    for path, arch in (("ln_decode", "minitron_8b"), ("ssm_decode", "rwkv6_7b"),
+                       ("encdec_decode", "whisper_medium")):
         dw = get_config(arch).d_model
+        route = "register path" if dw <= 1024 else "generic path"
         gw = 1.0 + 0.1 * torch.randn(dw, generator=g, device=dev)
         bw = 0.1 * torch.randn(dw, generator=g, device=dev)
         for rows_ in (DECODE_LANES, 1):
             xw = torch.randn(rows_, dw, generator=g, device=dev) * 3.0
             err = (layernorm(xw, gw, bw) - ref.layernorm(xw, gw, bw)).abs().max().item()
             row("layernorm", "src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/layernorm.py:17",
-                f"{path}: [{rows_}, {dw}] fp32 (generic path)", err, "atol 1e-5", err <= 1e-5,
+                f"{path}: [{rows_}, {dw}] fp32 ({route})", err, "atol 1e-5", err <= 1e-5,
                 (2 * rows_ * dw + 2 * dw) * 4, 8 * rows_ * dw,
                 **kernel_times(lambda: layernorm(xw, gw, bw), lambda: ref.layernorm(xw, gw, bw),
                                lambda: F.layer_norm(xw, (dw,), gw, bw, eps=1e-6), enqueue=True),
@@ -771,11 +814,13 @@ def check_determinism(dep, masks, mlp, dev) -> None:
         for rows_ in (DECODE_LANES, 1):
             lgv = torch.randn(rows_, get_config(arch).vocab_size, generator=g, device=dev)
             same(f"softmax_entropy wide rows [{rows_}, {lgv.shape[1]}]", lambda: entropy_rows(lgv))
-    # layernorm's generic path at the LayerNorm decoders' d_model
-    gw, bw = torch.randn(4096, generator=g, device=dev), torch.randn(4096, generator=g, device=dev)
-    for rows_ in (DECODE_LANES, 1):
-        xw = torch.randn(rows_, 4096, generator=g, device=dev)
-        same(f"layernorm [{rows_}, 4096] (generic path)", lambda: layernorm(xw, gw, bw))
+    # layernorm's generic path at the LayerNorm decoders' d_model, and its
+    # register path at whisper-medium's
+    for dw, route in ((4096, "generic path"), (1024, "register path")):
+        gw, bw = torch.randn(dw, generator=g, device=dev), torch.randn(dw, generator=g, device=dev)
+        for rows_ in (DECODE_LANES, 1):
+            xw = torch.randn(rows_, dw, generator=g, device=dev)
+            same(f"layernorm [{rows_}, {dw}] ({route})", lambda: layernorm(xw, gw, bw))
     # the off-ramp head: its partials are summed in block order by whichever
     # block ends last, on fp32 weights (serving, with an active mask) and on
     # the deployed AF8 codes
@@ -1131,6 +1176,27 @@ def profile_device(fn) -> dict:
         g["ms"] += evt.self_device_time_total / 1e3
         g["calls"] += evt.count
     return groups
+
+
+def profile_parts(parts_fns) -> dict:
+    """Each (name, fn, count) run once warm, then timed alone (host clock,
+    synchronised) and profiled: wall and busy ms per count, idle share,
+    device time by kernel."""
+    import torch
+
+    parts = {}
+    for name, fn, count in parts_fns:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / count
+        by_kernel = profile_device(fn)
+        busy = sum(g_["ms"] for g_ in by_kernel.values()) / count
+        parts[name] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                       "device_ms_by_kernel": by_kernel, "per": count}
+    return parts
 
 
 def run_main_path(dep, cfg, dev) -> dict:
@@ -1716,6 +1782,11 @@ def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
 
 # the phase of each decoder that run_decode_path drives
 DECODE_PHASES = {"deepseek_7b": "decode", "qwen2_moe_a2p7b": "moe_decode", "minitron_8b": "ln_decode"}
+# depth cut for the script's time: deepseek-7b's decode phase runs its
+# first 10 of 30 layers at full width (ln_decode drives the same pre-LN
+# decoder path at full width and depth; with the hybrid and encdec phases
+# the whole script took 544 s of its 600 s aim at full depth)
+DECODE_DEPTH = {"deepseek_7b": 10}
 
 
 def draw_decoder(cfg, phase, dev):
@@ -1754,10 +1825,11 @@ def draw_decoder(cfg, phase, dev):
 
 
 def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
-    """A decoder at full width and depth, float32 weights drawn on the card
-    from seed 0, through the DecoderServer: deepseek-7b (the ``decode``
-    phase: 30 layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab
-    102400), qwen2-moe-a2.7b (``moe_decode``: 24 layers, d_model 2048,
+    """A decoder at full width (and depth, but for DECODE_DEPTH's cut),
+    float32 weights drawn on the card from seed 0, through the
+    DecoderServer: deepseek-7b (the ``decode`` phase: its first 10 of 30
+    layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab 102400),
+    qwen2-moe-a2.7b (``moe_decode``: 24 layers, d_model 2048,
     16 x 128 heads, 60 experts of d_ff 1408 top-4 and a shared expert of
     5632, qkv biases drawn nonzero from the same generator, vocab 151936)
     or minitron-8b (``ln_decode``: 32 layers, d_model 4096, 32 x 128 query
@@ -1790,7 +1862,9 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     from repro_torch.serving import step_math
     from repro_torch.serving.engine import DecoderServer, probe_exit_threshold
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32", remat_policy="none")
+    full_depth = get_config(arch).n_layers
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", remat_policy="none",
+                              n_layers=DECODE_DEPTH.get(arch, full_depth))
     phase = DECODE_PHASES[arch]
     kernels = (ops.MOE_DECODE_KERNELS if cfg.family == "moe" else
                ops.LN_DECODE_KERNELS if cfg.norm == "layernorm" else ops.DECODE_KERNELS)
@@ -1901,18 +1975,7 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
         with torch.no_grad():
             step_math.decoder_prefill(model, params, cache, prompts[0], 0, DECODE_PROMPT, use_kernels=True)
 
-    parts = {}
-    for name, fn, count in (("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / count
-        by_kernel = profile_device(fn)
-        busy = sum(g_["ms"] for g_ in by_kernel.values()) / count
-        parts[name] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
-                       "device_ms_by_kernel": by_kernel, "per": count}
+    parts = profile_parts((("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)))
     # the fused step's least time: its bytes at the HBM rate (every layer's
     # weights, all experts' too, since each layer runs every expert's
     # capacity buffer as the JAX package does; the LM head once per layer;
@@ -1933,8 +1996,9 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     step_bound_ms = sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3
     ref = check_decode_reference(cfg, params, prompts, thr, dev)
     result = {
-        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "depth_cut_from": full_depth,
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "act": cfg.act, "norm": cfg.norm,
         "n_experts": cfg.n_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
         "shared_expert_d_ff": cfg.shared_expert_d_ff, "qkv_bias": cfg.qkv_bias,
@@ -1960,6 +2024,149 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
 # ---------------------------------------------------------------------------
 # phase 8d: the RWKV6 decoder (rwkv6-7b, the ssm family)
 # ---------------------------------------------------------------------------
+
+
+def stage_split(stages, lp_card, lp_cpu, env, dev, whole=None) -> dict:
+    """One layer's card-against-CPU error, op by op.  ``stages`` is a list of
+    (name, fn(env, lp) -> new tensors); ``env`` holds the layer's inputs on
+    the CPU.  The CPU runs every stage; the card runs them from the same
+    inputs in turn (`carried`: the error the card's own chain has reached
+    after the stage) and each stage alone from the CPU's inputs (`local`:
+    the error that stage adds by itself).  ``whole``, the CPU's output of
+    the model's own layer step, must equal the stages' last output within
+    1e-6 (the split computes what the model computes).  Returns {stage:
+    {carried, local, max_abs}}, maxima over the stage's outputs."""
+    import torch
+
+    cpu = dict(env)
+    outs = []
+    for name, fn in stages:
+        new = fn(cpu, lp_cpu)
+        cpu.update(new)
+        outs.append((name, fn, tuple(new)))
+    card = {k: v.to(dev) for k, v in env.items()}
+    cpu_on_card = {k: v.to(dev) for k, v in cpu.items()}
+    split = {}
+    for name, fn, keys in outs:
+        card.update(fn(card, lp_card))
+        local = fn(cpu_on_card, lp_card)
+        split[name] = {
+            "carried_max_abs_err": max((card[k].cpu() - cpu[k]).abs().max().item() for k in keys),
+            "local_max_abs_err": max((local[k].cpu() - cpu[k]).abs().max().item() for k in keys),
+            "max_abs": max(cpu[k].abs().max().item() for k in keys),
+        }
+    if whole is not None:
+        last = cpu[outs[-1][2][0]]
+        if not torch.allclose(last, whole, rtol=0, atol=1e-6):
+            raise AssertionError(f"the op split does not compute the layer step: {(last - whole).abs().max()}")
+    return split
+
+
+def rwkv_layer_stages(cfg) -> list:
+    """One RWKV6 layer's decode step (``Model._rwkv_layer_step`` with
+    ``decode=True``, one token) as named stages, op for op as
+    ``models/rwkv6.py`` computes it.  Inputs: h [B, 1, d], last_tm,
+    last_cm, wkv."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv6
+
+    H, K, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+
+    def norm1(e, lp):
+        return {"x": L.apply_norm(lp["norm1"], e["h"])}
+
+    def shift_and_loras(e, lp):
+        p, x = lp["tmix"], e["x"]
+        B, S, _ = x.shape
+        x_prev = rwkv6._token_shift(x, e["last_tm"])
+        lora = torch.tanh((x @ p["ts_lora_a"]).float()) @ p["ts_lora_b"].float()
+        mix = torch.sigmoid(p["mix_rkvg"].float()[None, None] + lora.reshape(B, S, 4, d)).to(x.dtype)
+        return dict(zip(("xr", "xk", "xv", "xg"), (x * mix[:, :, i] + x_prev * (1 - mix[:, :, i]) for i in range(4))))
+
+    def projections(e, lp):
+        p = lp["tmix"]
+        B, S, _ = e["xr"].shape
+        return {"r": (e["xr"] @ p["w_r"]).reshape(B, S, H, K), "k": (e["xk"] @ p["w_k"]).reshape(B, S, H, K),
+                "v": (e["xv"] @ p["w_v"]).reshape(B, S, H, K), "g": F.silu((e["xg"] @ p["w_g"]).float())}
+
+    def decay(e, lp):
+        p = lp["tmix"]
+        B, S, _ = e["xk"].shape
+        dlora = torch.tanh((e["xk"] @ p["decay_lora_a"]).float()) @ p["decay_lora_b"].float()
+        return {"w": torch.exp(-torch.exp(p["decay_base"][None, None] + dlora)).reshape(B, S, H, K)}
+
+    def wkv_step(e, lp):
+        y, state = rwkv6._wkv_recurrent(e["r"], e["k"], e["v"], e["w"], lp["tmix"]["bonus_u"], init_state=e["wkv"])
+        return {"y": y, "wkv_new": state}
+
+    def group_norm(e, lp):
+        y = e["y"]
+        B, S = y.shape[:2]
+        mean = y.mean(dim=-1, keepdim=True)
+        var = torch.square(y - mean).mean(dim=-1, keepdim=True)
+        return {"yn": ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, d) * lp["tmix"]["ln_x_scale"][None, None]}
+
+    def gate(e, lp):
+        return {"h1": e["h"] + (e["yn"] * e["g"]).to(e["x"].dtype) @ lp["tmix"]["w_o"]}
+
+    def channel_mix(e, lp):
+        cout, _ = rwkv6.apply_channel_mix(lp["cmix"], L.apply_norm(lp["norm2"], e["h1"]), last_x=e["last_cm"])
+        return {"h2": e["h1"] + cout}
+
+    return [("norm1", norm1), ("token_shift_and_loras", shift_and_loras), ("projections_r_k_v_g", projections),
+            ("decay", decay), ("wkv_step", wkv_step), ("group_norm", group_norm), ("gate_and_w_o", gate),
+            ("channel_mix", channel_mix)]
+
+
+def mamba_block_stages(cfg) -> list:
+    """One Mamba2 block's decode step (``Model._mamba_block_step`` with
+    ``decode=True``, one token) as named stages, op for op as
+    ``models/mamba2.py`` computes it.  Inputs: h [B, 1, d], conv, ssm."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2
+
+    di, H, N, P, K_ = mamba2.d_inner(cfg), mamba2.n_ssm_heads(cfg), cfg.ssm_state, cfg.ssm_head_dim, mamba2.CONV_K
+
+    def norm(e, lp):
+        return {"xin": L.apply_norm(lp["norm"], e["h"], kind=cfg.norm)}
+
+    def w_in(e, lp):
+        return {"proj": e["xin"] @ lp["mixer"]["w_in"]}
+
+    def conv(e, lp):
+        window = torch.cat([e["conv"], e["proj"][..., di:2 * di + 2 * N]], dim=1)
+        cw = lp["mixer"]["conv_w"].float()
+        out = window[:, :1].float() * cw[0]
+        for k in range(1, K_):
+            out = out + window[:, k:k + 1].float() * cw[k]
+        return {"conv_out": F.silu(out).to(e["h"].dtype), "conv_new": window[:, -(K_ - 1):]}
+
+    def ssd_step(e, lp):
+        p, c = lp["mixer"], e["conv_out"]
+        B = c.shape[0]
+        dt = torch.logaddexp(e["proj"][..., 2 * di + 2 * N:].float() + p["dt_bias"], torch.zeros((), device=c.device))
+        x = c[..., :di].reshape(B, 1, H, P)
+        state, y = mamba2._ssd_step(e["ssm"].float(), x[:, 0].float(), dt[:, 0], -torch.exp(p["a_log"]),
+                                    c[:, 0, di:di + N].float(), c[:, 0, di + N:].float())
+        return {"y": y[:, None], "ssm_new": state}
+
+    def gate(e, lp):
+        B = e["y"].shape[0]
+        x = e["conv_out"][..., :di].reshape(B, 1, H, P)
+        y = (e["y"] + lp["mixer"]["d_skip"][None, None, :, None] * x.float()).reshape(B, -1, di).to(e["h"].dtype)
+        return {"yg": y * F.silu(e["proj"][..., :di].float()).to(e["h"].dtype)}
+
+    def w_out(e, lp):
+        return {"h1": e["h"] + e["yg"] @ lp["mixer"]["w_out"]}
+
+    return [("rms_norm", norm), ("w_in", w_in), ("conv", conv), ("ssd_step", ssd_step), ("gate", gate),
+            ("w_out", w_out)]
 
 
 def check_ssm_reference(cfg, params, prompts, dev) -> dict:
@@ -1995,15 +2202,25 @@ def check_ssm_reference(cfg, params, prompts, dev) -> dict:
 
     t0 = time.perf_counter()
     card, card_state = run(cut, dev)
-    host, host_state = run(tree_to(cut, torch.device("cpu")), torch.device("cpu"))
+    p_cpu = tree_to(cut, torch.device("cpu"))
+    host, host_state = run(p_cpu, torch.device("cpu"))
     logit_err = max((a - b).abs().max().item() for a, b in zip(card, host))
     state_err = {k: (card_state[k] - host_state[k]).abs().max().item() for k in host_state}
+    # layer 0's error op by op, at the next token after the prompt, from the
+    # CPU's state after the prompt
+    model = build_model(cfg_r)
+    lp_cpu, lp_card = model._layer(p_cpu, 0)[0], model._layer(cut, 0)[0]
+    env = {"h": model.embed(p_cpu, torch.tensor([[seq[DECODE_PROMPT]]])),
+           **{k: host_state[k][0] for k in ("last_tm", "last_cm", "wkv")}}
+    whole = model._rwkv_layer_step(lp_cpu, env["h"], states={k: env[k] for k in ("last_tm", "last_cm", "wkv")},
+                                   decode=True)[0]
+    split = stage_split(rwkv_layer_stages(cfg), lp_card, lp_cpu, env, dev, whole=whole)
     result = {"phase": "reference", "config": f"{cfg.name} first {DECODE_REF_LAYERS} layers (cut from "
               f"{cfg.n_layers})", "teacher_forced_tokens": len(seq),
               "tolerance": f"atol {DECODE_ATOL} (every step's logits, the state after the prompt)",
               "step_logits_max_abs_err": logit_err, "state_after_prompt_max_abs_err": state_err,
               "state_after_prompt_max_abs": {k: v.abs().max().item() for k, v in host_state.items()},
-              "seconds": time.perf_counter() - t0}
+              "layer0_error_by_op": split, "seconds": time.perf_counter() - t0}
     emit(result)
     if max(logit_err, *state_err.values()) > DECODE_ATOL:
         raise AssertionError(f"ssm reference: card and CPU differ beyond {DECODE_ATOL}")
@@ -2112,18 +2329,7 @@ def run_ssm_decode_path(dev) -> dict:
         with torch.no_grad():
             step_math.decoder_prefill(model, params, cache, prompts[0], 0, DECODE_PROMPT, use_kernels=True)
 
-    parts = {}
-    for name, fn, count in (("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / count
-        by_kernel = profile_device(fn)
-        busy = sum(g_["ms"] for g_ in by_kernel.values()) / count
-        parts[name] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
-                       "device_ms_by_kernel": by_kernel, "per": count}
+    parts = profile_parts((("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)))
     # the step's least time: every layer's weights and the LM head read
     # once, the recurrent state read and written
     layers = params["layers"]
@@ -2144,10 +2350,436 @@ def run_ssm_decode_path(dev) -> dict:
         "reverse_order_same_tokens": True, "parts": parts,
         "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()},
         "fused_step_hbm_bound_ms": step_bound_ms, "launches": drains["forward"]["launches"],
-        "reference": {k: ref[k] for k in ("step_logits_max_abs_err", "state_after_prompt_max_abs_err")},
+        "reference": {k: ref[k] for k in ("step_logits_max_abs_err", "state_after_prompt_max_abs_err",
+                                           "layer0_error_by_op")},
     }
     emit(result)
     del params, servers, srv, cache, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: the hybrid decoder (zamba2-1.2b: Mamba2 blocks and the shared
+# attention block)
+# ---------------------------------------------------------------------------
+
+# the first 6 blocks, which hold one call of the shared block
+HYBRID_REF_LAYERS = 6
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest magnitude of b (at least 1)."""
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+def check_hybrid_reference(cfg, params, prompts, dev) -> dict:
+    """The card against the CPU on the hybrid decoder's first
+    HYBRID_REF_LAYERS blocks (one shared-block call; views of the card's
+    weights, their copy on the CPU): one lane, teacher-forced through a
+    prompt and a fixed continuation, each token one ``decode_step``.  Every
+    step's logits within DECODE_ATOL, and the state after the prompt (conv,
+    SSM state, the shared block's K/V) within DECODE_ATOL of each leaf's
+    largest magnitude; then block 0's error op by op."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    L_ = HYBRID_REF_LAYERS
+    cfg_r = dataclasses.replace(cfg, n_layers=L_)
+    cut = dict(params, layers=cut_layers(params["layers"], L_))
+    seq = [int(t) for t in prompts[0]] + [int(t) for t in prompts[1][:DECODE_NEW]]
+
+    def run(p, d):
+        model = build_model(cfg_r)
+        cache = model.init_cache(1, DECODE_BUCKET, device=d)
+        logits, state = [], None
+        with torch.no_grad():
+            for t, tok in enumerate(seq):
+                lg, cache = model.decode_step(p, cache, torch.tensor([[tok]], device=d), t, use_kernels=True)
+                logits.append(lg[0, 0].cpu())
+                if t == DECODE_PROMPT - 1:
+                    state = {k: v.cpu().clone() for k, v in cache.items()}
+        return logits, state
+
+    t0 = time.perf_counter()
+    card, card_state = run(cut, dev)
+    p_cpu = tree_to(cut, torch.device("cpu"))
+    host, host_state = run(p_cpu, torch.device("cpu"))
+    logit_err = max((a - b).abs().max().item() for a, b in zip(card, host))
+    state_rel = {k: rel_err(card_state[k], host_state[k]) for k in host_state}
+    model = build_model(cfg_r)
+    lp_cpu, lp_card = model._layer(p_cpu, 0)[0], model._layer(cut, 0)[0]
+    env = {"h": model.embed(p_cpu, torch.tensor([[seq[DECODE_PROMPT]]])),
+           "conv": host_state["conv"][0], "ssm": host_state["ssm"][0]}
+    whole = model._mamba_block_step(lp_cpu, env["h"], states={"conv": env["conv"], "ssm": env["ssm"]},
+                                    decode=True)[0]
+    split = stage_split(mamba_block_stages(cfg), lp_card, lp_cpu, env, dev, whole=whole)
+    result = {"phase": "reference", "config": f"{cfg.name} first {L_} blocks and 1 shared-block call (cut from "
+              f"{cfg.n_layers})", "teacher_forced_tokens": len(seq),
+              "tolerance": f"atol {DECODE_ATOL} (every step's logits); the state after the prompt within "
+                           f"{DECODE_ATOL} of each leaf's largest magnitude",
+              "step_logits_max_abs_err": logit_err, "state_after_prompt_rel_err": state_rel,
+              "state_after_prompt_max_abs": {k: v.abs().max().item() for k, v in host_state.items()},
+              "block0_error_by_op": split, "seconds": time.perf_counter() - t0}
+    emit(result)
+    if logit_err > DECODE_ATOL or max(state_rel.values()) > DECODE_ATOL:
+        raise AssertionError(f"hybrid reference: card and CPU differ beyond {DECODE_ATOL}")
+    return result
+
+
+def run_hybrid_decode_path(dev) -> dict:
+    """zamba2-1.2b at full width and depth (38 Mamba2 blocks of d_model
+    2048: d_inner 4096, 64 SSD heads of 64, state 64, chunk 128; the shared
+    attention block after every 6th block at width 4096, 32 x 128 heads,
+    d_ff 8192; vocab 32000), float32 weights drawn on the card from seed 0,
+    through the DecoderServer: plain decode (the family has no per-token
+    exit) of DECODE_REQUESTS SyntheticLM requests in DECODE_LANES lanes with
+    a shared-clock arbiter.  Checks that no kernel launched (the family's
+    norms are RMS, the shared block's cache attention stays on the
+    reference ops: ``ops.HYBRID_DECODE_KERNELS`` is empty), one decode and
+    one prefill build, the same tokens for every request when the requests
+    come in reverse order (a refill zeroes the lane's state), and
+    ``Model.prefill`` (the chunked SSD) of every prompt against the
+    server's one-token prefill (logits, conv and SSM state within 1e-4 of
+    each leaf's largest magnitude); then times, the fused step and one
+    request's prefill profiled alone beside the step's HBM bound, and the
+    card against the CPU on the first 6 blocks."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import step_math
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
+    from repro_torch.serving.engine import DecoderServer, Request
+
+    phase = "hybrid_decode"
+    cfg = dataclasses.replace(get_config("zamba2_1p2b"), dtype="float32", remat_policy="none")
+    model = build_model(cfg)
+    params, drawn = draw_decoder(cfg, phase, dev)
+    prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
+    n = DECODE_REQUESTS
+    stats = albert_layer_stats(seq_len=DECODE_BUCKET)
+    stats.n_layers = cfg.n_layers
+    target = no_early_exit_baseline(stats)["latency_s"] * 2.0
+
+    def fresh():
+        arb = BatchedDVFSArbiter(LatencyAwareDVFSController(stats, target))
+        return DecoderServer(model, params, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET, eos_id=-1,
+                             buckets=(DECODE_BUCKET,), arbiter=arb, device=dev)
+
+    drains, servers = {}, {}
+    for order in ("forward", "reverse"):
+        srv = fresh()
+        uids = range(n) if order == "forward" else reversed(range(n))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in uids:
+            srv.submit(Request(uid=i, tokens=prompts[i], max_new_tokens=DECODE_NEW))
+        srv.run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        tel = srv.telemetry()
+        if any(launches.values()) or ops.HYBRID_DECODE_KERNELS:
+            raise AssertionError(f"{phase} {order}: launches {launches}, want none")
+        if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
+            raise AssertionError(f"{phase} {order}: builds per bucket: {tel}")
+        gen_toks = [srv.done[i].generated for i in range(n)]
+        if any(len(g_) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g_) for g_ in gen_toks):
+            raise AssertionError(f"{phase} {order}: generated tokens off: {gen_toks}")
+        if not all(x == cfg.n_layers for i in range(n) for x in srv.done[i].token_exit_layers):
+            raise AssertionError(f"{phase} {order}: a token left before the last layer")
+        servers[order] = srv
+        drains[order] = {
+            "order": order, "drain_ms": wall, "tokens": tel["tokens"], "tokens_per_s": tel["tokens"] / (wall / 1e3),
+            "fused_steps": tel["decode_steps"], "launches": launches,
+            "modeled_energy_j": tel["energy_j"], "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
+            "deadline_misses": tel["deadline_misses"], "op_switches": tel["op_switches"], "generated": gen_toks,
+        }
+    for i in range(n):
+        if servers["forward"].done[i].generated != servers["reverse"].done[i].generated:
+            raise AssertionError(f"{phase} request {i}: its tokens depend on the lane's earlier requests")
+
+    split = host_split(fresh(), prompts, sync=True, max_new_tokens=DECODE_NEW)
+    fwd = drains["forward"]
+    fwd["host_split_ms"] = split
+    fwd["ms_per_fused_step"] = split["lanes_step"] / fwd["fused_steps"]
+    fwd["prefill_share"] = split["lane_load"] / split["wall"]
+
+    # Model.prefill (the chunked SSD over the padded chunk) of all prompts
+    # at once, against the server's one-token prefill of each lane and one
+    # batched decode step of the prompts' last tokens
+    toks = torch.as_tensor(np.asarray(prompts, np.int64), device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg_chunked, c_chunked = model.prefill(params, toks, model.init_cache(n, DECODE_BUCKET, device=dev))
+        torch.cuda.synchronize()
+        chunked_ms = (time.perf_counter() - t0) * 1e3
+        c_steps = model.init_cache(n, DECODE_BUCKET, device=dev)
+        for lane in range(n):
+            step_math.decoder_prefill(model, params, c_steps, prompts[lane], lane, DECODE_PROMPT)
+        lg_steps, c_steps = model.decode_step(params, c_steps, toks[:, -1:],
+                                              torch.full((n,), DECODE_PROMPT - 1, device=dev))
+    prefill_cmp = {"logits": rel_err(lg_chunked, lg_steps), **{k: rel_err(c_chunked[k], c_steps[k])
+                                                                for k in ("conv", "ssm")},
+                   "chunked_prefill_ms": chunked_ms,
+                   "tolerance": "1e-4 of each leaf's largest magnitude (logits at least 1)"}
+    if max(v for k, v in prefill_cmp.items() if k in ("logits", "conv", "ssm")) > DECODE_ATOL:
+        raise AssertionError(f"{phase}: the chunked prefill differs from the one-token prefill: {prefill_cmp}")
+
+    # the fused step (DECODE_STEPS plain steps of the 4 lanes) and one
+    # request's prefill (15 one-token full-depth steps), each timed and
+    # profiled alone
+    cache = model.init_cache(DECODE_LANES, DECODE_BUCKET, device=dev)
+    cur = toks[:DECODE_LANES, -1:]
+    pos = torch.full((DECODE_LANES,), DECODE_PROMPT - 1, dtype=torch.int64, device=dev)
+
+    def fused_steps():
+        with torch.no_grad():
+            for _ in range(DECODE_STEPS):
+                step_math.decoder_decode(model, params, cache, cur, pos, use_kernels=True)
+
+    def prefill():
+        with torch.no_grad():
+            step_math.decoder_prefill(model, params, cache, prompts[0], 0, DECODE_PROMPT, use_kernels=True)
+
+    parts = profile_parts((("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)))
+    # the step's least time: every block's weights, the shared block's once
+    # per call, the LM head, the recurrent state read and written, the
+    # shared block's K/V rows read
+    layers, n_attn = params["layers"], cfg.n_layers // cfg.attn_every
+    step_bytes = {"mamba_blocks": n_bytes(layers), "shared_block_per_call": n_attn * n_bytes(params["shared_attn"]),
+                  "lm_head": n_bytes(params["lm_head"]),
+                  "state_read_and_written": 2 * (n_bytes(cache["conv"]) + n_bytes(cache["ssm"])),
+                  "kv_cache": n_bytes(cache["k"]) + n_bytes(cache["v"])}
+    step_bound_ms = sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3
+    ref = check_hybrid_reference(cfg, params, prompts, dev)
+    result = {
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "ssm_heads": 2 * cfg.d_model // cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+        "shared_block_calls": n_attn, "n_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": drawn["params"], "init_s": drawn["init_s"],
+        "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
+        "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
+        "bucket": DECODE_BUCKET, "target_latency_s": target, "drains": drains,
+        "reverse_order_same_tokens": True, "chunked_vs_one_token_prefill": prefill_cmp, "parts": parts,
+        "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()},
+        "fused_step_hbm_bound_ms": step_bound_ms, "launches": fwd["launches"],
+        "reference": {k: ref[k] for k in ("step_logits_max_abs_err", "state_after_prompt_rel_err",
+                                           "block0_error_by_op")},
+    }
+    emit(result)
+    del params, servers, srv, cache, layers, c_chunked, c_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8f: the encoder-decoder (whisper-medium) at model level
+# ---------------------------------------------------------------------------
+
+# the card against the CPU on the first 2 encoder and 2 decoder layers
+ENCDEC_REF_LAYERS = 2
+
+
+def encode_flops(cfg, B: int) -> dict:
+    """The encoder's operations over B x enc_seq_len frames: the layers'
+    projections and MLPs, the attention products, and the decoder's cross
+    K/V projections, 2 operations per multiply-add."""
+    S, d, H, hd = cfg.enc_seq_len, cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"layers": 2.0 * B * S * (2 * d * H * hd + 2 * d * cfg.n_kv_heads * hd + 2 * d * cfg.d_ff)
+            * cfg.n_enc_layers,
+            "attention": 4.0 * B * H * S * S * hd * cfg.n_enc_layers,
+            "cross_kv": 2.0 * B * S * d * 2 * cfg.n_kv_heads * hd * cfg.n_layers}
+
+
+def check_encdec_reference(cfg, params, frames, prompts, cont, dev) -> dict:
+    """The card against the CPU on the first ENCDEC_REF_LAYERS encoder and
+    decoder layers (views of the card's weights, the decoder's position
+    table cut to the bucket; their copy on the CPU): the prefill of the
+    prompts over the frames, then each continuation token one teacher-
+    forced ``decode_step`` on the kernel route; the prefill's logits and
+    every step's within DECODE_ATOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    L_ = ENCDEC_REF_LAYERS
+    cfg_r = dataclasses.replace(cfg, n_layers=L_, n_enc_layers=L_, max_seq_len=DECODE_BUCKET)
+    cut = dict(params, layers=cut_layers(params["layers"], L_), enc_layers=cut_layers(params["enc_layers"], L_),
+               dec_cross=cut_layers(params["dec_cross"], L_),
+               embed=dict(params["embed"], pos=params["embed"]["pos"][:DECODE_BUCKET]))
+    B, S = prompts.shape
+
+    def run(p, d):
+        model = build_model(cfg_r)
+        with torch.no_grad():
+            cache = model.init_cache(B, DECODE_BUCKET, device=d)
+            lg, cache = model.prefill(p, prompts.to(d), cache, aux={"enc_input": frames.to(d)})
+            out = [lg.cpu()]
+            for t in range(cont.shape[1]):
+                lg, cache = model.decode_step(p, cache, cont[:, t:t + 1].to(d), S + t, use_kernels=True)
+                out.append(lg.cpu())
+        return out
+
+    t0 = time.perf_counter()
+    card = run(cut, dev)
+    host = run(tree_to(cut, torch.device("cpu")), torch.device("cpu"))
+    errs = [(a - b).abs().max().item() for a, b in zip(card, host)]
+    result = {"phase": "reference", "config": f"{cfg.name} first {L_} encoder and {L_} decoder layers (cut from "
+              f"{cfg.n_enc_layers} + {cfg.n_layers})", "lanes": B, "frames": cfg.enc_seq_len,
+              "teacher_forced_steps": cont.shape[1], "tolerance": f"atol {DECODE_ATOL} (the prefill's and every "
+              "step's logits)", "prefill_logits_max_abs_err": errs[0], "step_logits_max_abs_err": max(errs[1:]),
+              "logits_max_abs": max(b.abs().max().item() for b in host), "seconds": time.perf_counter() - t0}
+    emit(result)
+    if max(errs) > DECODE_ATOL:
+        raise AssertionError(f"encdec reference: card and CPU differ beyond {DECODE_ATOL}")
+    return result
+
+
+def run_encdec_decode_path(dev) -> dict:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers of d_model 1024, 16 x 64 heads, d_ff 4096, vocab 51865, 1500
+    frames; the learned position table at the config's 524288 rows),
+    float32 weights drawn on the card from seed 0, through the model's own
+    entry points (the DecoderServer refuses the family): seeded frames
+    [4, 1500, 1024] x 0.1, ``init_cache(4, 32)`` -> ``prefill`` of 16-token
+    SyntheticLM prompts with ``aux={"enc_input": frames}`` -> DECODE_NEW
+    greedy ``decode_step(use_kernels=True)``.  Checks layernorm launched
+    once per decode step (its final norm) and nothing else, none in the
+    prefill; finite logits; frames from another seed changing the logits;
+    then times the encoder, the prefill and a decode step against their
+    bounds, and the card against the CPU on the first 2 + 2 layers."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    phase = "encdec_decode"
+    cfg = dataclasses.replace(get_config("whisper_medium"), dtype="float32", remat_policy="none")
+    model = build_model(cfg)
+    params, drawn = draw_decoder(cfg, phase, dev)
+    B = DECODE_LANES
+    prompts = torch.as_tensor(np.asarray(SyntheticLM(cfg.vocab_size, DECODE_PROMPT, B, seed=0).batch(0)["tokens"],
+                                         np.int64), device=dev)
+    cont = torch.as_tensor(np.asarray(SyntheticLM(cfg.vocab_size, DECODE_NEW, B, seed=1).batch(0)["tokens"],
+                                      np.int64))
+
+    def frames_of(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(B, cfg.enc_seq_len, cfg.d_model, generator=g, device=dev) * 0.1
+
+    frames = frames_of(1)
+
+    def prefill(fr):
+        with torch.no_grad():
+            return model.prefill(params, prompts, model.init_cache(B, DECODE_BUCKET, device=dev),
+                                 aux={"enc_input": fr})
+
+    # the path: prefill, then greedy decode steps, launches counted
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = prefill(frames)
+    torch.cuda.synchronize()
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = ops.launch_counts()
+    logits, generated = [lg], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cur = lg[:, -1].argmax(-1, keepdim=True)
+        for t in range(DECODE_NEW):
+            generated.append(cur[:, 0].cpu().tolist())
+            lg, cache = model.decode_step(params, cache, cur, DECODE_PROMPT + t, use_kernels=True)
+            logits.append(lg)
+            cur = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    if any(prefill_launches.values()):
+        raise AssertionError(f"{phase}: the prefill launched {prefill_launches}, want nothing")
+    if launches["layernorm"] != DECODE_NEW or any(v for k, v in launches.items() if k not in ops.ENCDEC_DECODE_KERNELS):
+        raise AssertionError(f"{phase}: launches {launches}, want layernorm = {DECODE_NEW} decode steps and "
+                             "nothing else")
+    if not all(torch.isfinite(x).all() and x.shape == (B, 1, cfg.vocab_size) for x in logits):
+        raise AssertionError(f"{phase}: logits not finite or of the wrong shape")
+    other, _ = prefill(frames_of(2))
+    frames_effect = (other - logits[0]).abs().max().item()
+    if frames_effect < 1e-3:
+        raise AssertionError(f"{phase}: frames from another seed move the logits by only {frames_effect}")
+
+    # the encoder, the prefill and a decode step timed alone, against their
+    # bounds: the encoder's and the prefill's operations at the fp32 rate,
+    # the step's bytes at the HBM rate
+    flops = encode_flops(cfg, B)
+
+    def encode():
+        with torch.no_grad():
+            model._encode(params, frames)
+
+    step_cache = cache
+
+    def steps():
+        with torch.no_grad():
+            for _ in range(DECODE_STEPS):
+                model.decode_step(params, step_cache, cur, DECODE_PROMPT + DECODE_NEW, use_kernels=True)
+
+    parts = profile_parts((("encode", encode, 1), ("prefill", lambda: prefill(frames), 1),
+                           ("decode_step", steps, DECODE_STEPS)))
+    xattn = params["dec_cross"]["xattn"]
+    step_bytes = {"decoder_layers": n_bytes(params["layers"]),
+                  "cross_wq_wo_and_norms": n_bytes(xattn["wq"]) + n_bytes(xattn["wo"])
+                  + n_bytes(params["dec_cross"]["norm"]),
+                  "lm_head": n_bytes(params["lm_head"]), "cross_kv_cache": n_bytes(cache["enc_k"])
+                  + n_bytes(cache["enc_v"]), "self_kv_cache": n_bytes(cache["k"]) + n_bytes(cache["v"])}
+    bounds = {"encode_ms": (flops["layers"] + flops["attention"]) / FP32_FLOP_PER_S * 1e3,
+              "prefill_ms": sum(flops.values()) / FP32_FLOP_PER_S * 1e3,
+              "decode_step_ms": sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3}
+    ref = check_encdec_reference(cfg, params, frames, prompts, cont, dev)
+    result = {
+        "phase": phase, "config": cfg.name, "n_enc_layers": cfg.n_enc_layers, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "frames": cfg.enc_seq_len, "dtype": cfg.dtype, "params": drawn["params"],
+        "bytes": drawn["bytes"], "init_s": drawn["init_s"],
+        "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
+        "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "lanes": B, "prompt_tokens": DECODE_PROMPT, "decode_steps": DECODE_NEW, "bucket": DECODE_BUCKET,
+        "first_prefill_ms": first_prefill_ms, "decode_ms": decode_ms,
+        "tokens_per_s": B * DECODE_NEW / (decode_ms / 1e3), "generated": generated,
+        "prefill_launches": prefill_launches, "launches": launches, "frames_effect_max_abs": frames_effect,
+        "tflop": {k: v / 1e12 for k, v in flops.items()}, "parts": parts,
+        "decode_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()}, "bounds_ms": bounds,
+        "reference": {k: ref[k] for k in ("prefill_logits_max_abs_err", "step_logits_max_abs_err")},
+    }
+    emit(result)
+    del params, cache, step_cache, logits, other
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -2613,17 +3245,21 @@ def main() -> int:
     moe_decode = timed("moe_decode", run_decode_path, dev, "qwen2_moe_a2p7b")
     ln_decode = timed("ln_decode", run_decode_path, dev, "minitron_8b")
     ssm_decode = timed("ssm_decode", run_ssm_decode_path, dev)
+    hybrid_decode = timed("hybrid_decode", run_hybrid_decode_path, dev)
+    encdec_decode = timed("encdec_decode", run_encdec_decode_path, dev)
     train = timed("train", run_train_path, dev)
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
                    "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]],
                    "moe_decode": moe_decode["launches"][r["name"]], "ln_decode": ln_decode["launches"][r["name"]],
-                   "ssm_decode": ssm_decode["launches"][r["name"]], "train": train["launches"][r["name"]]}
+                   "ssm_decode": ssm_decode["launches"][r["name"]],
+                   "hybrid_decode": hybrid_decode["launches"][r["name"]],
+                   "encdec_decode": encdec_decode["launches"][r["name"]], "train": train["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
         # replay's, the deployed path's for af_matmul, which only that path
         # runs, or a decoder path's for the wide-row entropy and the
-        # layernorm rows at d_model 4096
+        # layernorm rows at d_model 4096 and 1024
         r["launches"] = by_path[r["path"]]
         r["launches_by_path"] = by_path
         if r["launches"] <= 0:

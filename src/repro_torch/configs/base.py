@@ -4,9 +4,10 @@ The port carries its own copy so that it imports nothing of ``repro``.  The
 ALBERT configurations (``albert_base``, ``albert_edgebert``), the dense
 decoders ``deepseek_7b``, ``minitron_8b``, ``internlm2_20b`` and
 ``qwen1_5_110b``, the MoE decoders ``qwen2_moe_a2p7b`` and
-``qwen3_moe_235b`` and the RWKV6 decoder ``rwkv6_7b`` exist here so far; each exposes ``CONFIG`` (the
-published size) and ``smoke_config()`` (a reduced same-family config for CPU
-tests).
+``qwen3_moe_235b``, the RWKV6 decoder ``rwkv6_7b``, the hybrid
+``zamba2_1p2b`` and the encoder-decoder ``whisper_medium`` exist here so
+far; each exposes ``CONFIG`` (the published size) and ``smoke_config()``
+(a reduced same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -243,7 +244,7 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "minitron_8b", "internlm2_20b", "qwen1_5_110b",
-                "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b")
+                "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b", "zamba2_1p2b", "whisper_medium")
 
 
 def _config_module(arch: str):

@@ -70,6 +70,16 @@ LN_DECODE_KERNELS = ("layernorm", "softmax_entropy")
 # step; its per-layer LayerNorms, group norm and WKV scan are torch ops in
 # both packages (no Pallas kernel in the JAX layer)
 SSM_DECODE_KERNELS = ("layernorm",)
+# the hybrid decoder (zamba2-1.2b, plain decode): none.  Its norms are RMS
+# (no kernel in either package), the shared block's cache attention stays
+# on the reference ops, and the Mamba2 conv and SSD are torch ops in both
+# packages (no Pallas kernel in the JAX block)
+HYBRID_DECODE_KERNELS = ()
+# the encoder-decoder (whisper-medium, Model.prefill then decode_step): the
+# final LayerNorm of each decode step; its layers' norms, the cross norms,
+# the encoder and the prefill's final norm take no kernel flag in the JAX
+# package, and cache and cross attention stay on the reference ops
+ENCDEC_DECODE_KERNELS = ("layernorm",)
 
 
 def reset_launch_counts() -> None:

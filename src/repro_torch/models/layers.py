@@ -1,16 +1,18 @@
 """The layers' building blocks, the port of the parts of
-``repro/models/layers.py`` that the albert classifier and the dense, MoE
-and RWKV6 decoders run: LayerNorm and RMS norm, rotary positions,
-span-aware attention (chunked online softmax, with the qkv biases where the
-tree has them) with or without a KV cache (float32 or AF8 codes), and the
-GELU, squared-ReLU and SwiGLU MLPs.
+``repro/models/layers.py`` that the albert classifier and the dense, MoE,
+RWKV6, hybrid and encoder-decoder models run: LayerNorm and RMS norm,
+rotary positions, span-aware attention (chunked online softmax, with the
+qkv biases where the tree has them) with or without a KV cache (float32 or
+AF8 codes), or with keys and values from another input (``kv_source``), and
+the GELU, squared-ReLU and SwiGLU MLPs.
 
 ``use_kernels=True`` routes the eligible ops to the hand-written kernels
 through ``kernels.dispatch`` under the JAX package's eligibility rules;
 ``False`` keeps the reference ops, which repeat the JAX package's op for op.
 RMS norm has no kernel in either package, and KV-cache decode attention
-stays on the reference ops (the JAX package fuses the cache update and the
-AF8 codec with it).  Cross-attention comes with the slices that need it.
+and cross-attention stay on the reference ops (the JAX package fuses the
+cache update and the AF8 codec with the former, and its kernel takes no
+second input).
 """
 from __future__ import annotations
 
@@ -204,14 +206,20 @@ def attention_layer(
     kv_len: Optional[Any] = None,            # [B] valid key length (right padding)
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,   # (k, v) [B, Smax, KV, hd]
     cache_pos: Any = None,                   # [B] (or scalar) write position per lane
+    kv_source: Optional[torch.Tensor] = None,  # [B, Sk, d] cross-attention keys / values input
     use_kernels: bool = False,
 ) -> torch.Tensor:
-    """Self-attention with the output projection.
+    """Self-attention, or cross-attention to ``kv_source``, with the output
+    projection.
 
     Cache-free (the classifier): with ``use_kernels`` and no soft spans,
     attention goes to the span kernel (full window, per-row kv_len) as in
     the JAX package (its ``attention_layer`` eligibility test); soft spans
     keep the reference.
+
+    With ``kv_source`` the keys and values are projected from it, with no
+    rotary positions on either side, no causal mask and no cache, on the
+    reference ops (not eligible for the kernel in the JAX package either).
 
     With ``cache`` (decode and prefill): the new keys and values are written
     into the cache tensors IN PLACE at each lane's ``cache_pos`` (the JAX
@@ -224,12 +232,18 @@ def attention_layer(
     moved back to end there.  Cache attention stays on the reference ops."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if kv_source is not None and cache is not None:
+        raise ValueError("cross-attention (kv_source) takes no cache")
+    src = x if kv_source is None else kv_source
+    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     if "bq" in p:                 # qkv_bias (qwen2-moe): added before RoPE
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = k.reshape(B, src.shape[1], KV, hd)
+    v = v.reshape(B, src.shape[1], KV, hd)
+    if kv_source is not None:
+        out = attention(q, k, v, causal=False, span_z=span_z, span_ramp=span_ramp, kv_len=kv_len)
+        return out.reshape(B, S, H * hd) @ p["wo"]
     if cfg.pos == "rope":
         if positions is None:
             positions = torch.arange(S, device=x.device)

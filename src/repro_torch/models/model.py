@@ -1,29 +1,35 @@
 """The port's model (``repro/models/model.py``): the albert family, the
-dense and MoE decoder families and the ssm family (RWKV6).
+dense and MoE decoder families, the ssm family (RWKV6), the hybrid family
+(zamba2: Mamba2 blocks and a shared attention block) and the
+encoder-decoder family (whisper).
 
 ``init_params`` returns a tree with exactly the keys and shapes of the JAX
 package's ``Model.init_params`` for those families, with the same init
 scales; the decoder families' layers are stacked on a leading
 ``[n_layers]`` axis as the JAX package's ``_stack_init`` stacks them (the
-MoE family's expert weights too: ``[n_layers, E, d, ff]``, and the RWKV6
-layers' time mix and channel mix).  The random numbers come from a
+MoE family's expert weights too: ``[n_layers, E, d, ff]``, the RWKV6
+layers' time mix and channel mix, the Mamba2 blocks, the encoder's layers
+and the decoder's cross-attention).  The random numbers come from a
 ``torch.Generator`` and so differ from JAX's; parity tests bring the JAX
 tree across with ``repro_torch.bridge`` instead.
 
 ``Model`` carries the layer math the classifier serving step and the dense
 all-layers forward (``apply_train``) run: embedding, the post-LN shared
 encoder layer, activation fake-quant, the early-exit off-ramp; and the
-decoder's: the pre-LN layer (RMS norm or LayerNorm, rotary positions, qkv
-biases where the config has them, SwiGLU, squared ReLU or the MoE layer of
-``models/moe.py``), the untied LM head, the KV cache (``init_cache``,
-``prefill``, ``decode_step``) and per-token early exit (``decode_step_ee``,
-``decode_step_spec``, ``forward_token_exit``); and the RWKV6 layer
-(``models/rwkv6.py``) with its recurrent state (``init_cache``,
-``prefill``, ``decode_step``; it has no early exit in the JAX package).
-Its methods take a tree of tensors on one device and compute there; the
-decode methods take each lane's cache position as a ``[B]`` tensor (the
-JAX package ``vmap``s one-lane calls with a scalar) and write the cache in
-place.
+decoder's: the pre-LN layer (RMS norm or LayerNorm, rotary or learned
+positions, qkv biases where the config has them, SwiGLU, GELU, squared
+ReLU or the MoE layer of ``models/moe.py``), the untied LM head, the KV
+cache (``init_cache``, ``prefill``, ``decode_step``) and per-token early
+exit (``decode_step_ee``, ``decode_step_spec``, ``forward_token_exit``);
+the RWKV6 layer (``models/rwkv6.py``) and the Mamba2 block
+(``models/mamba2.py``) with their recurrent state; the shared attention
+block on concat(h, x0) with its own KV cache; the encoder over stubbed
+frames and the decoder's cross-attention to the encoder's cached K/V.
+Only the dense, MoE and albert families have early exit in the JAX
+package.  Its methods take a tree of tensors on one device and compute
+there; the decode methods take each lane's cache position as a ``[B]``
+tensor (the JAX package ``vmap``s one-lane calls with a scalar) and write
+the cache in place.
 
 MoE routing couples the tokens of one routing through expert capacity, so
 each method keeps the JAX package's grouping: the decode methods route each
@@ -34,6 +40,7 @@ together (the JAX model's batched calls).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence
 
@@ -46,7 +53,7 @@ from repro_torch.core.adaptivfloat import AFFormat, fake_quant
 from repro_torch.core.entropy import entropy_from_logits
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
-from repro_torch.models import moe, rwkv6
+from repro_torch.models import mamba2, moe, rwkv6
 
 Params = Dict[str, Any]
 
@@ -60,57 +67,79 @@ def _normal(gen: torch.Generator, shape: Sequence[int], scale: float) -> torch.T
 
 def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device) -> Params:
     """The decoder families' tree: token embedding (with a projection where
-    ``embed_dim`` differs from ``d_model``, as in the smoke config), the
-    layers stacked on a leading [n_layers] axis (zero qkv biases with
-    ``qkv_bias``, as the JAX package's ``init_attention`` makes them; the
-    SwiGLU MLP or the squared-ReLU one (``w_up``, ``w_down``), or for the
-    MoE family ``moe.init_moe``'s tree; for the ssm family the RWKV6 time
-    and channel mix between two LayerNorms), the final norm (RMS or
-    LayerNorm, the ssm family's LayerNorm, with a zero ``norm_bias``) and
-    the untied LM head."""
+    ``embed_dim`` differs from ``d_model``, as in the smoke config, and the
+    learned position table where ``pos`` is "learned"), the layers stacked
+    on a leading [n_layers] axis (zero qkv biases with ``qkv_bias``, as the
+    JAX package's ``init_attention`` makes them; the SwiGLU MLP or the
+    squared-ReLU or GELU one (``w_up``, ``w_down``), or for the MoE family
+    ``moe.init_moe``'s tree; for the ssm family the RWKV6 time and channel
+    mix between two LayerNorms; for the hybrid family the Mamba2 blocks and
+    the shared attention block), for the encdec family the encoder's layers,
+    its final norm and position table and the decoder's cross-attention,
+    the final norm (RMS or LayerNorm, the ssm family's LayerNorm, with a
+    zero ``norm_bias``) and the untied LM head."""
     dtype = _DTYPES[cfg.dtype]
     d, hd, H, KV, L_ = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
 
-    def stacked(shape, scale=None):
+    def dense(shape, lead=(), scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        return _normal(gen, (L_,) + tuple(shape), scale).to(dev, dtype)
+        return _normal(gen, tuple(lead) + tuple(shape), scale).to(dev, dtype)
 
-    def norm(*lead, kind=cfg.norm):
-        n = {"scale": torch.ones(lead + (d,), dtype=dtype, device=dev)}
+    def norm(*lead, kind=cfg.norm, width=d):
+        n = {"scale": torch.ones(lead + (width,), dtype=dtype, device=dev)}
         if kind == "layernorm":
-            n["norm_bias"] = torch.zeros(lead + (d,), dtype=dtype, device=dev)
+            n["norm_bias"] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
         return n
+
+    def attention(lead, d_in=d):
+        a = {"wq": dense((d_in, H * hd), lead), "wk": dense((d_in, KV * hd), lead),
+             "wv": dense((d_in, KV * hd), lead), "wo": dense((H * hd, d_in), lead)}
+        if cfg.qkv_bias and cfg.family != "hybrid":
+            a.update(bq=torch.zeros(lead + (H * hd,), dtype=dtype, device=dev),
+                     bk=torch.zeros(lead + (KV * hd,), dtype=dtype, device=dev),
+                     bv=torch.zeros(lead + (KV * hd,), dtype=dtype, device=dev))
+        return a
+
+    def dense_layers(n):
+        layers = {"norm1": norm(n), "attn": attention((n,)), "norm2": norm(n)}
+        if cfg.family == "moe":
+            layers["moe"] = moe.init_moe(cfg, gen, dev, dtype, lead=(n,))
+        elif cfg.act == "swiglu":
+            layers["mlp"] = {"w_gate": dense((d, cfg.d_ff), (n,)), "w_up": dense((d, cfg.d_ff), (n,)),
+                             "w_down": dense((cfg.d_ff, d), (n,))}
+        else:
+            layers["mlp"] = {"w_up": dense((d, cfg.d_ff), (n,)), "w_down": dense((cfg.d_ff, d), (n,))}
+        return layers
 
     embed = {"tok": _normal(gen, (cfg.vocab_size, cfg.embed_dim), 0.02).to(dev, dtype)}
     if cfg.embed_dim != d:
         embed["proj"] = _normal(gen, (cfg.embed_dim, d), 1.0 / math.sqrt(cfg.embed_dim)).to(dev, dtype)
+    if cfg.pos == "learned":
+        embed["pos"] = _normal(gen, (cfg.max_seq_len, d), 0.02).to(dev, dtype)
+    p: Params = {"embed": embed}
     if cfg.family == "ssm":
-        layers = {"norm1": norm(L_, kind="layernorm"),
-                  "tmix": rwkv6.init_rwkv6(cfg, gen, dev, dtype, lead=(L_,)),
-                  "norm2": norm(L_, kind="layernorm"),
-                  "cmix": rwkv6.init_channel_mix(cfg, gen, dev, dtype, lead=(L_,))}
-        return {"embed": embed, "layers": layers, "final_norm": norm(),
-                "lm_head": _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype)}
-    attn = {"wq": stacked((d, H * hd)), "wk": stacked((d, KV * hd)),
-            "wv": stacked((d, KV * hd)), "wo": stacked((H * hd, d))}
-    if cfg.qkv_bias:
-        attn.update(bq=torch.zeros(L_, H * hd, dtype=dtype, device=dev),
-                    bk=torch.zeros(L_, KV * hd, dtype=dtype, device=dev),
-                    bv=torch.zeros(L_, KV * hd, dtype=dtype, device=dev))
-    layers = {"norm1": norm(L_), "attn": attn, "norm2": norm(L_)}
-    if cfg.family == "moe":
-        layers["moe"] = moe.init_moe(cfg, gen, dev, dtype, lead=(L_,))
-    elif cfg.act == "swiglu":
-        layers["mlp"] = {"w_gate": stacked((d, cfg.d_ff)), "w_up": stacked((d, cfg.d_ff)),
-                         "w_down": stacked((cfg.d_ff, d))}
+        p["layers"] = {"norm1": norm(L_, kind="layernorm"),
+                       "tmix": rwkv6.init_rwkv6(cfg, gen, dev, dtype, lead=(L_,)),
+                       "norm2": norm(L_, kind="layernorm"),
+                       "cmix": rwkv6.init_channel_mix(cfg, gen, dev, dtype, lead=(L_,))}
+    elif cfg.family == "hybrid":
+        p["layers"] = {"norm": norm(L_), "mixer": mamba2.init_mamba2(cfg, gen, dev, dtype, lead=(L_,))}
+        if cfg.attn_every:
+            # the Zamba-style shared attention + MLP block on concat([h, x0])
+            d2 = 2 * d
+            p["shared_attn"] = {"norm1": norm(width=d2), "attn": attention((), d_in=d2), "norm2": norm(width=d2),
+                                "mlp": {"w_up": dense((d2, cfg.d_ff)), "w_down": dense((cfg.d_ff, d2))},
+                                "out_proj": dense((d2, d))}
     else:
-        layers["mlp"] = {"w_up": stacked((d, cfg.d_ff)), "w_down": stacked((cfg.d_ff, d))}
-    return {
-        "embed": embed,
-        "layers": layers,
-        "final_norm": norm(),
-        "lm_head": _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype),
-    }
+        p["layers"] = dense_layers(L_)
+    if cfg.family == "encdec":
+        p["enc_layers"] = dense_layers(cfg.n_enc_layers)
+        p["enc_norm"] = norm()
+        p["enc_pos"] = _normal(gen, (cfg.enc_seq_len, d), 0.02).to(dev, dtype)
+        p["dec_cross"] = {"norm": norm(L_), "xattn": attention((L_,))}
+    p["final_norm"] = norm()
+    p["lm_head"] = _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype)
+    return p
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -121,13 +150,33 @@ def _check_dense(cfg: ModelConfig) -> None:
     head, none of the EdgeBERT encoder features (spans, activation
     quantization, off-ramps); the MoE family with its experts and top-k.
     The ssm family as rwkv6-7b has it: RWKV6 layers, an untied LM head, no
-    EdgeBERT encoder features."""
+    EdgeBERT encoder features.  The hybrid family as zamba2-1.2b has it:
+    Mamba2 blocks with RMS pre-norms and the shared attention block (rotary
+    positions, its GELU MLP) every ``attn_every`` blocks, an untied head.
+    The encdec family as whisper-medium has it: pre-LN LayerNorm layers with
+    the GELU MLP in the encoder and the decoder, learned positions, an
+    untied head."""
     eb = cfg.edgebert
     encoder_features = eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes
+    plain = not (cfg.tie_embeddings or cfg.shared_layers or encoder_features)
     if cfg.family == "ssm":
-        if cfg.tie_embeddings or cfg.shared_layers or encoder_features or cfg.d_model != cfg.n_heads * cfg.head_dim:
+        if not plain or cfg.d_model != cfg.n_heads * cfg.head_dim:
             raise ValueError("only the ssm decoder of rwkv6-7b's kind (RWKV6 layers, untied head, no EdgeBERT "
                              "encoder features) is ported")
+        return
+    if cfg.family == "hybrid":
+        if (not plain or (cfg.norm, cfg.pos) != ("rms", "rope") or not cfg.ssm_state
+                or (2 * cfg.d_model) % cfg.ssm_head_dim
+                or (cfg.attn_every and 2 * cfg.d_model != cfg.n_heads * cfg.head_dim)):
+            raise ValueError("only the hybrid decoder of zamba2-1.2b's kind (Mamba2 blocks, rms, a shared "
+                             "rope attention block at width 2 d_model, untied head, no EdgeBERT encoder "
+                             "features) is ported")
+        return
+    if cfg.family == "encdec":
+        if (not plain or (cfg.act, cfg.norm, cfg.pos) != ("gelu", "layernorm", "learned")
+                or not cfg.n_enc_layers):
+            raise ValueError("only the encoder-decoder of whisper-medium's kind (gelu, layernorm, learned "
+                             "positions, an encoder, untied head, no EdgeBERT encoder features) is ported")
         return
     # the squared ReLU and LayerNorm as minitron-8b has them: the dense family only
     dense = cfg.family == "dense"
@@ -142,6 +191,9 @@ def _check_dense(cfg: ModelConfig) -> None:
                          "untied head and no EdgeBERT encoder features, are ported")
 
 
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+
+
 def init_params(
     cfg: ModelConfig,
     generator: Optional[torch.Generator] = None,
@@ -151,7 +203,7 @@ def init_params(
     ``generator`` (a seed-0 CPU generator when None); the decoder families
     from ``generator`` on the generator's own device (a seed-0 generator on
     ``device`` when None), so a 7B tree made for the card is drawn there."""
-    if cfg.family in ("dense", "moe", "ssm"):
+    if cfg.family in DECODER_FAMILIES:
         _check_dense(cfg)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
@@ -160,7 +212,7 @@ def init_params(
         "albert", "gelu", "layernorm", False, True
     ):
         raise ValueError("only the ALBERT configs (gelu, layernorm, tied embeddings) and the dense, "
-                         "MoE and ssm decoders are ported")
+                         "MoE, ssm, hybrid and encdec decoders are ported")
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = _DTYPES[cfg.dtype]
@@ -227,19 +279,24 @@ class ModelOutput(NamedTuple):
 
 
 class Model:
-    """The albert, dense, MoE and ssm families of the JAX package's
-    ``Model``: one shared post-LN encoder layer with entropy off-ramps and
-    AdaptivFloat activations, a stack of pre-LN decoder layers (SwiGLU,
-    squared ReLU or MoE) with a KV cache and per-token early exit on the LM
-    head, or a stack of RWKV6 layers with a recurrent state."""
+    """The albert, dense, MoE, ssm, hybrid and encdec families of the JAX
+    package's ``Model``: one shared post-LN encoder layer with entropy
+    off-ramps and AdaptivFloat activations, a stack of pre-LN decoder layers
+    (SwiGLU, squared ReLU or MoE) with a KV cache and per-token early exit
+    on the LM head, a stack of RWKV6 layers with a recurrent state, Mamba2
+    blocks with a recurrent state and a shared attention block with a KV
+    cache, or an encoder and a decoder with cross-attention."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family in ("dense", "moe", "ssm"):
+        if cfg.family in DECODER_FAMILIES:
             _check_dense(cfg)
         elif cfg.family != "albert" or not cfg.shared_layers:
-            raise ValueError("only the albert family (one shared layer) and the dense, MoE and ssm families "
-                             "are ported")
+            raise ValueError("only the albert family (one shared layer) and the dense, MoE, ssm, hybrid and "
+                             "encdec families are ported")
         self.cfg = cfg
+        # the shared attention block's config: its width, and no qkv bias
+        self._shared_cfg = (dataclasses.replace(cfg, d_model=2 * cfg.d_model, qkv_bias=False)
+                            if cfg.family == "hybrid" else None)
 
     # ------------------------------------------------------------ embedding
     def embed(self, p: Params, tokens: torch.Tensor, positions=None) -> torch.Tensor:
@@ -340,16 +397,65 @@ class Model:
         cout, last_cm = rwkv6.apply_channel_mix(lp["cmix"], L.apply_norm(lp["norm2"], h), last_x=st.get("last_cm"))
         return h + cout, {"last_tm": last_tm, "wkv": wkv, "last_cm": last_cm}
 
-    def _layer(self, p: Params, i: int):
+    def _mamba_block_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
+                          decode: bool = False):
+        """One Mamba2 block (the JAX package's ``_mamba_block_step``): RMS
+        pre-norm, the mixer, the residual -> (h, new states {"conv",
+        "ssm"}).  Its norm takes no kernel flag in the JAX package (and an
+        RMS norm has no kernel)."""
+        st = states or {}
+        out, (conv, ssm) = mamba2.apply_mamba2(lp["mixer"], L.apply_norm(lp["norm"], h, kind=self.cfg.norm),
+                                               self.cfg, conv_state=st.get("conv"), ssm_state=st.get("ssm"),
+                                               decode=decode)
+        return h + out, {"conv": conv, "ssm": ssm}
+
+    def _shared_attn_step(self, sp: Params, h: torch.Tensor, x0: torch.Tensor, *, span_z=None, cache=None,
+                          cache_pos=None, positions=None, use_kernels: bool = False) -> torch.Tensor:
+        """The zamba2 shared block (the JAX package's ``_shared_attn_step``)
+        on concat(h, x0), x0 the embedding output: attention at width
+        2 d_model under the block's config (rotary positions at each lane's
+        own positions, its KV written into ``cache`` in place), the GELU
+        MLP, then h + z @ out_proj."""
+        cfg = self.cfg
+        z = torch.cat([h, x0], dim=-1)
+        zi = L.apply_norm(sp["norm1"], z, kind=cfg.norm, use_kernels=use_kernels)
+        z = z + L.attention_layer(sp["attn"], zi, self._shared_cfg, causal=True, positions=positions,
+                                  span_z=span_z, span_ramp=cfg.edgebert.span.ramp, cache=cache,
+                                  cache_pos=cache_pos, use_kernels=use_kernels)
+        z = z + L.apply_mlp(sp["mlp"], L.apply_norm(sp["norm2"], z, kind=cfg.norm, use_kernels=use_kernels),
+                            act="gelu")
+        return h + z @ sp["out_proj"]
+
+    def _encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over stubbed frame embeddings [B, S_enc, d]: learned
+        positions, pre-LN non-causal layers, the final norm; all on the
+        reference ops, as the JAX package passes no kernel flag here."""
+        h = frames + p["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
+        for i in range(self.cfg.n_enc_layers):
+            h = self._dense_layer_step(self._layer(p, i, "enc_layers")[0], h, causal=False)
+        return L.apply_norm(p["enc_norm"], h, kind=self.cfg.norm)
+
+    def _precomputed_cross(self, xp: Params, h: torch.Tensor, ek: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+        """The decoder's cross-attention to the encoder's cached K/V (its
+        norm on the reference ops, as in the JAX package)."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        q = (L.apply_norm(xp["norm"], h, kind=cfg.norm) @ xp["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        if "bq" in xp["xattn"]:
+            q = q + xp["xattn"]["bq"].reshape(cfg.n_heads, cfg.head_dim)
+        return L.attention(q, ek, ev, causal=False).reshape(B, S, -1) @ xp["xattn"]["wo"]
+
+    def _layer(self, p: Params, i: int, key: str = "layers"):
         """(layer params, span) of layer ``i``: the shared layer (albert) or
-        views into the stacked layers (dense, MoE, ssm)."""
+        views into the stacked layers under ``key`` (dense, MoE, ssm,
+        hybrid; the encdec family's "enc_layers" and "dec_cross" too)."""
         if self.cfg.family == "albert":
             return p["layer"], self._span_for_layer(p, 0)
 
         def take(node):
             return {k: take(v) for k, v in node.items()} if isinstance(node, dict) else node[i]
 
-        return take(p["layers"]), None
+        return take(p[key]), None
 
     def _span_for_layer(self, p: Params, i: int) -> Optional[torch.Tensor]:
         if "span_z" not in p:
@@ -396,10 +502,11 @@ class Model:
         return lg, (dispatch.entropy(lg) if use_kernels else entropy_from_logits(lg))
 
     def _check_decoder(self, early_exit: bool = False) -> None:
-        """Decode, prefill and the cache serve the dense, MoE, albert and ssm
-        families; per-token exit and speculative decode (``early_exit``)
-        the KV-cache families only, as in the JAX package."""
-        families = ("dense", "moe", "albert") if early_exit else ("dense", "moe", "albert", "ssm")
+        """Decode, prefill and the cache serve the dense, MoE, albert, ssm,
+        hybrid and encdec families; per-token exit and speculative decode
+        (``early_exit``) the dense, MoE and albert families only, as in the
+        JAX package."""
+        families = ("dense", "moe", "albert") if early_exit else ("albert",) + DECODER_FAMILIES
         if self.cfg.family not in families:
             what = "per-token exit and speculative decode" if early_exit else "decode"
             raise ValueError(f"{what}: the {', '.join(families)} families, not {self.cfg.family}")
@@ -428,26 +535,48 @@ class Model:
 
     # ============================================================ decode ====
     def init_cache(self, batch_size: int, max_seq: int, device: DeviceLike = "cuda") -> Params:
-        """The zeroed decode state, every leaf [n_layers, B, ...] (layer,
-        then lane): the KV-cache families' {"k", "v"} [n_layers, B,
-        max_seq, KV, head_dim] in the config's dtype, or uint8 AF8 codes
+        """The zeroed decode state, every leaf [n, B, ...] (layer, then
+        lane): the KV-cache families' {"k", "v"} [n_layers, B, max_seq, KV,
+        head_dim] in the config's dtype, or uint8 AF8 codes
         (``kv_cache_dtype="af8"``); the ssm family's recurrent state,
         whatever ``max_seq``: the token-shift inputs "last_tm" and
         "last_cm" [n_layers, B, 1, d] in the config's dtype and the WKV
-        state "wkv" [n_layers, B, H, K, K] in float32."""
+        state "wkv" [n_layers, B, H, K, K] in float32; the hybrid family's
+        conv state "conv" [n_layers, B, 3, d_inner + 2 ssm_state] and SSM
+        state "ssm" [n_layers, B, H, P, N] in the config's dtype, with the
+        shared block's "k" / "v" [n_attn, B, max_seq, KV, head_dim]; the
+        encdec family's "k" / "v" and the encoder's cross K/V "enc_k" /
+        "enc_v" [n_layers, B, enc_seq_len, KV, head_dim] in the config's
+        dtype (``prefill`` writes them)."""
         self._check_decoder()
         cfg = self.cfg
         dev = resolve_device(device)
+        dtype = _DTYPES[cfg.dtype]
+        B = batch_size
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
         if cfg.family == "ssm":
             n, d, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim
-            dtype = _DTYPES[cfg.dtype]
-            return {"last_tm": torch.zeros((n, batch_size, 1, d), dtype=dtype, device=dev),
-                    "last_cm": torch.zeros((n, batch_size, 1, d), dtype=dtype, device=dev),
-                    "wkv": torch.zeros((n, batch_size, H, K, K), dtype=torch.float32, device=dev)}
-        dtype = torch.uint8 if cfg.kv_cache_dtype == "af8" else _DTYPES[cfg.dtype]
-        shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            return {"last_tm": zeros(n, B, 1, d), "last_cm": zeros(n, B, 1, d),
+                    "wkv": zeros(n, B, H, K, K, dt=torch.float32)}
+        kv_dtype = torch.uint8 if cfg.kv_cache_dtype == "af8" else dtype
+
+        def kv(n):
+            return {"k": zeros(n, B, max_seq, cfg.n_kv_heads, cfg.head_dim, dt=kv_dtype),
+                    "v": zeros(n, B, max_seq, cfg.n_kv_heads, cfg.head_dim, dt=kv_dtype)}
+
+        if cfg.family == "hybrid":
+            n_attn = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+            cache = {"conv": zeros(cfg.n_layers, B, mamba2.CONV_K - 1, mamba2.d_inner(cfg) + 2 * cfg.ssm_state),
+                     "ssm": zeros(cfg.n_layers, B, mamba2.n_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state)}
+            return {**cache, **kv(n_attn)} if n_attn else cache
+        cache = kv(cfg.n_layers)
+        if cfg.family == "encdec":
+            enc = (cfg.n_layers, B, cfg.enc_seq_len, cfg.n_kv_heads, cfg.head_dim)
+            cache.update(enc_k=zeros(*enc), enc_v=zeros(*enc))
+        return cache
 
     def _rwkv_layers(self, p: Params, h: torch.Tensor, cache: Params, *, decode: bool):
         """Every RWKV6 layer over h, writing each layer's new state into
@@ -460,13 +589,35 @@ class Model:
                 cache[k][i].copy_(v)
         return h
 
+    def _hybrid_layers(self, p: Params, h: torch.Tensor, cache: Params, *, positions, cache_pos, decode: bool):
+        """Every Mamba2 block over h, writing each block's conv and SSM state
+        into ``cache`` in place (a decode step from the cache's state, or a
+        prefill from a zero state, the chunked SSD), and the shared block
+        after blocks i with (i + 1) % attn_every == 0, on concat(h, x0) with
+        its own KV cache row per call."""
+        cfg = self.cfg
+        x0 = h
+        n_attn = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        attn_idx = 0
+        for i in range(cfg.n_layers):
+            states = {k: cache[k][i] for k in ("conv", "ssm")} if decode else None
+            h, new = self._mamba_block_step(self._layer(p, i)[0], h, states=states, decode=decode)
+            for k, v in new.items():
+                cache[k][i].copy_(v)
+            if cfg.attn_every and (i + 1) % cfg.attn_every == 0 and attn_idx < n_attn:
+                h = self._shared_attn_step(p["shared_attn"], h, x0, span_z=self._span_for_layer(p, 0),
+                                           cache=(cache["k"][attn_idx], cache["v"][attn_idx]),
+                                           cache_pos=cache_pos, positions=positions)
+                attn_idx += 1
+        return h
+
     def _positions(self, pos: Any, S: int, device) -> tuple:
         """(pos as a [B] or [1] tensor, positions [B, S]) for a cache
         position per lane (or one for all)."""
         pos_t = torch.as_tensor(pos, device=device).reshape(-1)
         return pos_t, pos_t[:, None] + torch.arange(S, device=device)
 
-    def decode_step(self, p: Params, cache: Params, tokens: torch.Tensor, pos: Any,
+    def decode_step(self, p: Params, cache: Params, tokens: torch.Tensor, pos: Any, aux: Optional[Params] = None,
                     use_kernels: bool = False, moe_per_lane: bool = True):
         """One decode step: tokens [B, S] at cache position ``pos`` ([B] or
         scalar) through every layer, writing their K/V into ``cache`` in
@@ -476,22 +627,39 @@ class Model:
         together by default (the JAX model's batched call, which its
         serving prefill makes).  The ssm family steps its recurrent state
         instead (``pos`` unused), in place too; only its final LayerNorm
-        takes ``use_kernels``, as in the JAX package.  Returns (logits
-        [B, S, V], cache)."""
+        takes ``use_kernels``, as in the JAX package.  The hybrid family
+        steps its blocks' conv and SSM state and the shared block's KV
+        cache; its norms are RMS, which has no kernel, so ``use_kernels``
+        changes nothing for it, as in the JAX package.  The encdec family
+        attends each layer's encoder K/V in the cache (``prefill`` writes
+        them); only its final LayerNorm takes ``use_kernels``, as in the JAX
+        package.  ``aux`` is the JAX signature's and unused.  Returns
+        (logits [B, S, V], cache)."""
         self._check_decoder()
+        cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
-        if self.cfg.family == "ssm":
+        if cfg.family == "ssm":
             h = self._rwkv_layers(p, self.embed(p, tokens), cache, decode=True)
             h = L.apply_norm(p["final_norm"], h, use_kernels=use_kernels)
             return self.lm_logits(p, h), cache
         pos_t, positions = self._positions(pos, tokens.shape[1], tokens.device)
         h = self.embed(p, tokens, positions=positions)
-        for i in range(self.cfg.n_layers):
-            lp, span_z = self._layer(p, i)
-            h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
-                                       cache=(cache["k"][i], cache["v"][i]), cache_pos=pos_t,
-                                       use_kernels=use_kernels, moe_grouped=moe_per_lane or None)
-        h = L.apply_norm(p["final_norm"], h, kind=self.cfg.norm, use_kernels=use_kernels)
+        if cfg.family == "hybrid":
+            h = self._hybrid_layers(p, h, cache, positions=positions, cache_pos=pos_t, decode=True)
+        else:
+            encdec = cfg.family == "encdec"
+            for i in range(cfg.n_layers):
+                lp, span_z = self._layer(p, i)
+                # the encdec family's layers pass no kernel flag in the JAX package
+                h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
+                                           cache=(cache["k"][i], cache["v"][i]), cache_pos=pos_t,
+                                           use_kernels=use_kernels and not encdec,
+                                           moe_grouped=moe_per_lane or None)
+                if encdec:
+                    h = h + self._precomputed_cross(self._layer(p, i, "dec_cross")[0], h, cache["enc_k"][i],
+                                                    cache["enc_v"][i])
+        # an RMS final norm has no kernel: use_kernels is a no-op for it
+        h = L.apply_norm(p["final_norm"], h, kind=cfg.norm, use_kernels=use_kernels)
         return self.lm_logits(p, h), cache
 
     def decode_step_ee(self, p: Params, cache: Params, tokens: torch.Tensor, pos: Any,
@@ -588,25 +756,50 @@ class Model:
         return toks, lgs, cache, xls, fes, accs
 
     # ---------------------------------------------------------------- prefill
-    def prefill(self, p: Params, tokens: torch.Tensor, cache: Params):
+    def prefill(self, p: Params, tokens: torch.Tensor, cache: Params, aux: Optional[Params] = None):
         """The whole prompt through the model in one pass, filling the cache
         at positions 0..S-1 (in place); MoE layers route all B x S tokens
         together, as the JAX package's call does.  The ssm family runs the
-        chunked WKV from a zero state, whatever the cache holds (as the JAX
-        package's prefill does), and writes the state after the prompt into
-        the cache in place.  Returns (last-token logits [B, 1, V], cache)."""
+        chunked WKV, and the hybrid family the chunked SSD, from a zero
+        state, whatever the cache holds (as the JAX package's prefill does),
+        and write the state after the prompt into the cache in place (the
+        hybrid family needs 3 prompt tokens or more: its conv state is the
+        last 3; the JAX package fails on fewer).  The encdec family encodes
+        ``aux["enc_input"]`` (frames [B, enc_seq_len, d_model]) once and
+        writes every layer's cross K/V into the cache.  Every norm stays on
+        the reference ops, as in the JAX package.  Returns (last-token
+        logits [B, 1, V], cache)."""
         self._check_decoder()
+        cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
         h = self.embed(p, tokens)
-        if self.cfg.family == "ssm":
+        if cfg.family == "ssm":
             h = L.apply_norm(p["final_norm"], self._rwkv_layers(p, h, cache, decode=False))
             return self.lm_logits(p, h[:, -1:]), cache
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        for i in range(self.cfg.n_layers):
-            lp, span_z = self._layer(p, i)
-            h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
-                                       cache=(cache["k"][i], cache["v"][i]), cache_pos=0)
-        h = L.apply_norm(p["final_norm"], h, kind=self.cfg.norm)
+        if cfg.family == "hybrid":
+            if tokens.shape[1] < mamba2.CONV_K - 1:
+                raise ValueError(f"the hybrid prefill needs {mamba2.CONV_K - 1} prompt tokens or more (the conv "
+                                 f"state is the last {mamba2.CONV_K - 1}), got {tokens.shape[1]}")
+            h = self._hybrid_layers(p, h, cache, positions=positions, cache_pos=0, decode=False)
+        else:
+            encdec = cfg.family == "encdec"
+            if encdec:
+                if not aux or "enc_input" not in aux:
+                    raise ValueError('the encdec prefill needs aux["enc_input"], the encoder frames '
+                                     "[B, enc_seq_len, d_model]")
+                enc = self._encode(p, torch.as_tensor(aux["enc_input"], device=tokens.device))
+                shape = (cfg.n_layers,) + tuple(enc.shape[:2]) + (cfg.n_kv_heads, cfg.head_dim)
+                for name, w in (("enc_k", "wk"), ("enc_v", "wv")):
+                    cache[name].copy_(torch.einsum("bsd,ldk->lbsk", enc, p["dec_cross"]["xattn"][w]).reshape(shape))
+            for i in range(cfg.n_layers):
+                lp, span_z = self._layer(p, i)
+                h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
+                                           cache=(cache["k"][i], cache["v"][i]), cache_pos=0)
+                if encdec:
+                    h = h + self._precomputed_cross(self._layer(p, i, "dec_cross")[0], h, cache["enc_k"][i],
+                                                    cache["enc_v"][i])
+        h = L.apply_norm(p["final_norm"], h, kind=cfg.norm)
         return self.lm_logits(p, h[:, -1:]), cache
 
 

@@ -517,6 +517,10 @@ class ClassifierServer:
         return out
 
 
+# the families whose decode state is recurrent, zeroed at refill
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+
+
 class DecoderServer:
     """Continuation-batching LM decode with PER-LANE cache positions and
     (optionally) PER-TOKEN entropy early exit under shared-clock DVFS.
@@ -525,23 +529,28 @@ class DecoderServer:
     cache window, so a refilled lane continues from its actual prompt end.
     Cache shapes bucket by prompt plus generation budget; the caches live in
     a bucket-keyed dict, since the scheduler time-slices across buckets.
-    It drives the dense, MoE and ssm families; an MoE layer routes each
-    lane on its own in the fused step and the lanes together in the
-    prefill, as the JAX package's lane ``vmap`` and batched prefill do
+    It drives the dense, MoE, ssm and hybrid families; an MoE layer
+    routes each lane on its own in the fused step and the lanes together in
+    the prefill, as the JAX package's lane ``vmap`` and batched prefill do
     (``step_math.decoder_prefill``).  The ssm family (RWKV6) carries a
     recurrent state per lane instead of KV rows (the bucket then bounds
-    only the positions): plain decode only, as in the JAX package, with or
-    without an arbiter or residency.
+    only the positions), and the hybrid family (zamba2) a conv and SSM
+    state per block beside the shared attention block's KV rows: plain
+    decode only for both, as in the JAX package, with or without an
+    arbiter or residency.  The encdec and vlm families are refused: the JAX
+    server never feeds them their encoder or image input (its requests
+    carry none, and its prefill runs ``decode_step`` alone), so it serves
+    them attending to zero cross K/V.
 
     A refilled lane's recurrent state is zeroed before its prefill, so a
     request's tokens do not depend on the request the lane served before.
     Here the port departs from the JAX server on purpose: that one starts
     the prefill from whatever state the lane holds (harmless for KV rows,
     which the new request overwrites, not for a recurrent state), so its
-    RWKV6 output depends on the lane's history.  The two agree on every
-    request that is the first in its lane, and the port agrees with the
-    JAX model's own ``init_cache`` -> prefill -> ``decode_step`` contract
-    on every request.
+    RWKV6 and zamba2 output depends on the lane's history.  The two agree
+    on every request that is the first in its lane, and the port agrees
+    with the JAX model's own ``init_cache`` -> prefill -> ``decode_step``
+    contract on every request.
 
     ``exit_threshold`` — per-token early exit: the fused step runs
     ``Model.decode_step_ee`` over the lanes (after every layer the LM head
@@ -569,8 +578,9 @@ class DecoderServer:
     kernel's wide-row entry, and a LayerNorm decoder's pre-norms and final
     norms (minitron-8b's; the ssm family's final norm alone) to the
     layernorm kernel, as the JAX package routes ``use_pallas`` (RMS norms
-    have no kernel, cache attention stays on the reference ops); the
-    default is True, as in ``ClassifierServer``.  ``device`` — the card
+    have no kernel, cache attention stays on the reference ops, so the
+    hybrid family launches none); the default is True, as in
+    ``ClassifierServer``.  ``device`` — the card
     unless the caller asks for ``"cpu"``.  ``task`` / ``residency`` —
     multi-task residency, as in ``ClassifierServer``.
 
@@ -601,11 +611,16 @@ class DecoderServer:
         threshold_schedule: Optional[Any] = None,
         device: DeviceLike = "cuda",
     ):
-        if model.cfg.family not in ("dense", "moe", "ssm"):
-            raise ValueError("the decoder server drives the dense, MoE and ssm families")
-        if model.cfg.family == "ssm" and (exit_threshold is not None or threshold_schedule is not None
-                                          or spec_window != 1):
-            raise ValueError("the ssm family has no per-token exit: no exit_threshold, threshold_schedule "
+        family = model.cfg.family
+        if family in ("encdec", "vlm"):
+            raise ValueError(f"the decoder server does not drive the {family} family: the JAX package's server "
+                             "never feeds it its encoder or image input (requests carry none, the prefill runs "
+                             "decode_step alone), so it would attend to zero cross K/V")
+        if family not in ("dense", "moe") + RECURRENT_FAMILIES:
+            raise ValueError("the decoder server drives the dense, MoE, ssm and hybrid families")
+        if family in RECURRENT_FAMILIES and (exit_threshold is not None or threshold_schedule is not None
+                                             or spec_window != 1):
+            raise ValueError(f"the {family} family has no per-token exit: no exit_threshold, threshold_schedule "
                              "or spec_window > 1")
         if replicas != 1 or mesh is not None:
             raise ValueError("one device, one replica: the sharded decoder server is not ported")
@@ -811,9 +826,11 @@ class DecoderServer:
         toks[: len(req.tokens)] = req.tokens
         self._built("prefill", bucket)
         with torch.no_grad():
-            if self.model.cfg.family == "ssm":
+            if self.model.cfg.family in RECURRENT_FAMILIES:
                 # a fresh recurrent state: the request before it in this lane
-                # leaves its state behind (see the class docstring)
+                # leaves its state behind (see the class docstring); the
+                # hybrid family's KV rows go too, which changes nothing (rows
+                # past the lane's position are masked)
                 for v in st["cache"].values():
                     v[:, lane].zero_()
             step_math.decoder_prefill(self.model, self.params, st["cache"], toks, lane, len(req.tokens),

@@ -14,8 +14,8 @@ port runs all lanes at once.  The classifier's ``[lanes, S_bucket, D]``
 slab carries per-lane lengths masking each lane's bucket padding out of
 attention and one activation-quant bias per lane; the decoder's steps take
 a ``[lanes]`` tensor of cache positions, and each lane reads and writes its
-own cache row at its own position (the ssm family: its own recurrent
-state), so each lane computes what the one-lane body does.  The decoder's
+own cache row at its own position (the ssm and hybrid families: its own
+recurrent state too), so each lane computes what the one-lane body does.  The decoder's
 cache is updated in place.
 """
 from __future__ import annotations
@@ -188,12 +188,16 @@ def decoder_prefill(
     stable sort, and it has at most ``lanes - 1`` of them.  With more lanes
     the dummy lanes can take the lane's expert slots, so the port steps all
     lanes on a scratch copy as the JAX package does.  The ssm family's
-    recurrent state couples no lanes either, so its lane steps alone too.
+    recurrent state couples no lanes either, so its lane steps alone too;
+    so does the hybrid family's: its causal conv, its SSD step and its
+    shared block's attention to the lane's own KV rows each read the lane's
+    row alone.
 
-    Every cache leaf is [n_layers, lanes, ...]: the KV cache's rows, or the
-    ssm family's recurrent state (token-shift inputs and WKV state), which
-    this prefill carries on from whatever the lane's row holds (the server
-    zeroes it first).  Returns the cache."""
+    Every cache leaf is [n, lanes, ...]: the KV cache's rows, the ssm
+    family's recurrent state (token-shift inputs and WKV state) or the
+    hybrid family's (conv and SSM state, beside the shared block's KV
+    rows), which this prefill carries on from whatever the lane's row holds
+    (the server zeroes it first).  Returns the cache."""
     leaf = next(iter(cache.values()))
     dev, lanes = leaf.device, leaf.shape[1]
     toks = torch.as_tensor(np.asarray(tokens[: max(length - 1, 0)], np.int64), device=dev)

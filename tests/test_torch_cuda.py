@@ -347,6 +347,71 @@ def test_ssm_decoder_server_matches_cpu(cuda):
         assert rev.done[i].generated == gpu.done[i].generated
 
 
+@pytest.mark.parametrize("rows", [4, 1])
+def test_layernorm_at_whisper_width(cuda, rows):
+    """whisper-medium's d_model 1024, its decode step's final norm at 4
+    lanes and 1: the register path's widest rows (float4, d <= 1024); atol
+    1e-5 against the plain version, the same bits twice, one launch."""
+    x, g, b = _t((rows, 1024), 50 + rows, 3.0).to(cuda), _t((1024,), 52).to(cuda), _t((1024,), 53).to(cuda)
+    before = layernorm.launches
+    got = layernorm(x, g, b)
+    assert layernorm.launches == before + 1
+    torch.testing.assert_close(got, ref.layernorm(x, g, b), atol=1e-5, rtol=0)
+    assert torch.equal(layernorm(x, g, b), got)
+
+
+def test_hybrid_decoder_server_matches_cpu(cuda):
+    """The smoke zamba2 drain on the card against the same on the CPU (2
+    lanes, refills): tokens equal; no kernel launched (RMS norms, cache
+    attention on the reference ops); the same traffic in reverse order
+    gives every request the same tokens (the refill's zeroed state)."""
+    cfg = dataclasses.replace(get_smoke_config("zamba2_1p2b"), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [np.random.default_rng(i).integers(4, cfg.vocab_size, 6 + i) for i in range(5)]
+    (cpu, _, _), (gpu, launches, st) = _drain_cpu_and_card(cuda, model, params, prompts, batch_lanes=2)
+    assert not any(launches.values()) and not ops.HYBRID_DECODE_KERNELS and st["completed"] == 5
+    for i in range(len(prompts)):
+        assert gpu.done[i].generated == cpu.done[i].generated
+    rev = DecoderServer(model, params, batch_lanes=2, max_seq=32, eos_id=-1, buckets=(16,), device=cuda)
+    for i in reversed(range(len(prompts))):
+        rev.submit(Request(uid=i, tokens=prompts[i], max_new_tokens=4))
+    rev.run()
+    for i in range(len(prompts)):
+        assert rev.done[i].generated == gpu.done[i].generated
+
+
+def test_encdec_prefill_and_decode_match_cpu(cuda):
+    """The smoke whisper model on the card against the CPU: the prefill over
+    seeded frames and 4 teacher-forced decode steps on the kernel route,
+    logits atol 1e-4; layernorm launched once per decode step (the final
+    norm) and nothing else, none in the prefill."""
+    from repro_torch.common.device import tree_to
+
+    cfg = dataclasses.replace(get_smoke_config("whisper_medium"), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    frames = _t((2, cfg.enc_seq_len, cfg.d_model), 60, 0.1)
+    toks = torch.from_numpy(np.random.default_rng(61).integers(0, cfg.vocab_size, (2, 12)))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_to(params, dev)
+        cache = model.init_cache(2, 16, device=dev)
+        ops.reset_launch_counts()
+        lg, cache = model.prefill(p, toks[:, :8].to(dev), cache, aux={"enc_input": frames.to(dev)})
+        prefill_launches = sum(ops.launch_counts().values())
+        logits = [lg.cpu()]
+        for t in range(8, 12):
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev), t, use_kernels=True)
+            logits.append(lg.cpu())
+        out[dev.type] = (logits, prefill_launches, ops.launch_counts())
+    (lc, _, _), (lg_card, pre, launches) = out["cpu"], out["cuda"]
+    assert pre == 0 and launches["layernorm"] == 4
+    assert {k for k, v in launches.items() if v} == set(ops.ENCDEC_DECODE_KERNELS)
+    for a, b in zip(lg_card, lc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = _t((4, 8), 21).to(cuda)
     with pytest.raises(TypeError):

@@ -487,8 +487,11 @@ def test_batched_lanes_match_one_lane_calls(dec):
 
 def test_dense_family_refuses_what_is_not_ported():
     """The activations, norms and EdgeBERT features the decoders do not
-    have, the training forward, and the families not ported yet (hybrid,
-    vlm, encdec)."""
+    have (gelu stays refused for the dense family: only the encdec family
+    takes it), the training forward, the family not ported yet (vlm:
+    refused by the model and the init), and what the hybrid and encdec
+    families do not have in the JAX package (per-token exit) or in the port
+    yet (their training forwards)."""
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="dense decoder"):
         t_build(dataclasses.replace(tcfg, act="gelu"))
@@ -496,11 +499,18 @@ def test_dense_family_refuses_what_is_not_ported():
         t_build(tcfg.with_edgebert(quant=dataclasses.replace(tcfg.edgebert.quant, enabled=True)))
     with pytest.raises(NotImplementedError):
         t_build(tcfg).apply_train({}, {"tokens": np.zeros((1, 4), np.int32)})
-    for family in ("hybrid", "vlm", "encdec"):
-        with pytest.raises(ValueError, match="families are ported"):
-            t_build(dataclasses.replace(tcfg, family=family))
-        with pytest.raises(ValueError, match="decoders are ported"):
-            t_init(dataclasses.replace(tcfg, family=family), device="cpu")
+    with pytest.raises(ValueError, match="families are ported"):
+        t_build(dataclasses.replace(tcfg, family="vlm"))
+    with pytest.raises(ValueError, match="decoders are ported"):
+        t_init(dataclasses.replace(tcfg, family="vlm"), device="cpu")
+    for arch in ("zamba2_1p2b", "whisper_medium"):
+        cfg = dataclasses.replace(t_smoke(arch), dtype="float32")
+        model = t_build(cfg)
+        params = t_init(cfg, device="cpu")
+        with pytest.raises(ValueError, match="per-token exit"):
+            model.decode_step_ee(params, model.init_cache(1, 8, device="cpu"), torch.tensor([[3]]), 0, 1.0)
+        with pytest.raises(NotImplementedError):
+            model.apply_train(params, {"tokens": np.zeros((1, 4), np.int32)})
 
 
 def test_albert_family_prefill_and_decode_step():

@@ -157,6 +157,36 @@ def test_decoder_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch):
             serve.main(["--arch", arch, "--smoke"])
         assert DecoderServer(model, params, device="cpu").device.type == "cpu"
 
+    # the hybrid family (zamba2) through the same entry points, and the
+    # encdec family (whisper) through the model's
+    cfg = dataclasses.replace(get_smoke_config("zamba2_1p2b"), dtype="float32")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderServer(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "zamba2_1p2b", "--smoke"])
+    assert DecoderServer(model, params, device="cpu").device.type == "cpu"
+    cfg = dataclasses.replace(get_smoke_config("whisper_medium"), dtype="float32")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    assert model.init_cache(1, 8, device="cpu")["enc_k"].device.type == "cpu"
+
+
+def test_scan_covers_the_hybrid_slice():
+    """The module scan walks the package, so it covers the hybrid and
+    encdec slice's modules too: Mamba2 and the two new configs."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.models.mamba2", "repro_torch.configs.zamba2_1p2b",
+            "repro_torch.configs.whisper_medium"} <= names
+
 
 def test_scan_covers_the_decoder_slice():
     """The module scan walks the package, so it covers the decoder slice's

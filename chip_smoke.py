@@ -78,14 +78,15 @@ Phases, each printing one JSON line:
                 bound; then the card against the CPU on the first 2
                 layers, teacher-forced (every off-ramp's logits and
                 entropy within 1e-4).
- 8b. moe_decode — the same recipe on the MoE decoder at full width and
-                depth (qwen2-moe-a2.7b: 24 layers, d_model 2048, 16 x 128
-                heads with qkv biases drawn nonzero, 60 experts of d_ff
-                1408 top-4 and a shared expert of 5632, vocab 151936;
-                57.3 GB of float32 weights drawn on the card after the
-                decode phase's are released, the free memory checked and
-                reported before and after the draw): softmax_entropy's
-                wide-row entry launched 24 x W times per fused step, W = 4
+ 8b. moe_decode — the same recipe on the MoE decoder at full width
+                (qwen2-moe-a2.7b: its first 12 of 24 layers, cut for the
+                script's time, d_model 2048, 16 x 128 heads with qkv biases
+                drawn nonzero, 60 experts of d_ff 1408 top-4 and a shared
+                expert of 5632, vocab 151936; the float32 weights drawn on
+                the card after the decode phase's are released, the free
+                memory checked and reported before and after the draw):
+                softmax_entropy's wide-row entry launched 12 x W times per
+                fused step, W = 4
                 equal to W = 1 bit for bit, the step's bytes by part
                 (experts, LM head, shared expert, attention) beside its
                 HBM bound, and the first 2 layers against the CPU.
@@ -136,19 +137,45 @@ Phases, each printing one JSON line:
  8f. encdec_decode — the encoder-decoder at full width and depth
                 (whisper-medium: 24 + 24 layers of d_model 1024, 16 x 64
                 heads, d_ff 4096, vocab 51865, 1500 frames; 5.40 GB drawn)
-                through the model's own entry points (the DecoderServer
-                refuses the family: the JAX server never feeds it its
-                encoder input): seeded frames [4, 1500, 1024] x 0.1,
-                init_cache(4, 32) -> prefill of 16-token prompts with
-                aux={"enc_input": frames} -> 8 greedy decode_step calls on
-                the kernel route; layernorm launched once per step (the
-                final norm) and nothing else, none in the prefill; frames
-                from another seed change the logits; the encoder, the
+                through the model's own entry points: seeded frames
+                [4, 1500, 1024] x 0.1, init_cache(4, 32) -> prefill of
+                16-token prompts with aux={"enc_input": frames} -> 8 greedy
+                decode_step calls on the kernel route; layernorm launched
+                once per step (the final norm) and nothing else, none in
+                the prefill; frames from another seed change the logits;
+                then served as the JAX server serves it (no frames reach
+                the server: zero cross K/V, the prefill one-token
+                decode_steps): the ssm_decode recipe's drains, layernorm
+                once per fused step and once per prefill token and nothing
+                else, the reverse order the same tokens; the encoder, the
                 prefill and a decode step timed and profiled alone beside
                 their bounds (fp32 operations; the step's bytes); the first
                 2 encoder and 2 decoder layers against the CPU (the
                 prefill's and every teacher-forced step's logits within
                 1e-4).
+ 8g. vlm_decode — the vision decoder at full width (llama-3.2-vision-90b:
+                d_model 8192, 64 x 128 query heads over 8 KV heads, d_ff
+                28672, vocab 128256, 1601 image tokens), its first 10 of
+                100 layers (2 groups of 4 self layers and a gated cross
+                layer; 42.6 GB drawn; the whole model's 350.7 GB exceed the
+                card), the cross layers' gates drawn nonzero and printed:
+                prefill over seeded image embeddings [4, 1601, 8192] x 0.1
+                then 8 greedy decode steps, an image from another seed
+                moving the logits; then served as the JAX server serves it
+                (no image: zero image K/V): the ssm_decode recipe's drains;
+                no kernel launched anywhere; the fused step, one request's
+                serving prefill and the model's prefill profiled alone
+                beside their bounds; the first group (4 self layers and 1
+                cross layer) against the CPU, logits within 1e-4 of their
+                magnitude.
+ 8h. lm_train — zamba2-1.2b trained at full width and depth (float32,
+                SyntheticLM batches of 4 x 128 tokens, one SSD chunk): the
+                first batch's gradients all finite, 3 AdamW steps through
+                make_train_step with finite losses and gradient norms, no
+                kernel launched; one step profiled alone beside its fp32
+                bound (6 N T operations); the first 6 blocks against the
+                CPU (the loss within 1e-4 relative, every gradient leaf
+                within 1e-4 of its largest magnitude).
   9. train    — the Fig. 6 pipeline at albert_edgebert's published width
                 (float32 weights from seed 0, SyntheticCLS seq 128, batch
                 16): a teacher (make_train_step, pruning off), phase 1
@@ -174,8 +201,8 @@ entry at the decode shape [4, 102400] with the decode phase's launches,
 at the moe_decode shape [4, 151936] with that phase's and at the ln_decode
 shape [4, 256000] with that phase's; layernorm three more, at [4, 4096] with
 the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
-encdec_decode phase's; `launches_by_path` gives every path's, hybrid_decode
-and encdec_decode included),
+encdec_decode phase's served drain's; `launches_by_path` gives every path's,
+hybrid_decode, encdec_decode, vlm_decode and lm_train included),
 the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
@@ -185,6 +212,7 @@ line also goes to build/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1782,11 +1810,14 @@ def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
 
 # the phase of each decoder that run_decode_path drives
 DECODE_PHASES = {"deepseek_7b": "decode", "qwen2_moe_a2p7b": "moe_decode", "minitron_8b": "ln_decode"}
-# depth cut for the script's time: deepseek-7b's decode phase runs its
-# first 10 of 30 layers at full width (ln_decode drives the same pre-LN
+# depth cuts for the script's time, at full width: deepseek-7b's decode
+# phase runs its first 10 of 30 layers (ln_decode drives the same pre-LN
 # decoder path at full width and depth; with the hybrid and encdec phases
-# the whole script took 544 s of its 600 s aim at full depth)
-DECODE_DEPTH = {"deepseek_7b": 10}
+# the whole script took 544 s of its 600 s aim at full depth), and
+# qwen2-moe-a2.7b's moe_decode its first 12 of 24 (the vlm_decode and
+# lm_train phases and the served whisper drains add ~89 s to the 521 s
+# the script took with the first cut; moe_decode took 108 s at full depth)
+DECODE_DEPTH = {"deepseek_7b": 10, "qwen2_moe_a2p7b": 12}
 
 
 def draw_decoder(cfg, phase, dev):
@@ -1829,7 +1860,7 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     float32 weights drawn on the card from seed 0, through the
     DecoderServer: deepseek-7b (the ``decode`` phase: its first 10 of 30
     layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab 102400),
-    qwen2-moe-a2.7b (``moe_decode``: 24 layers, d_model 2048,
+    qwen2-moe-a2.7b (``moe_decode``: its first 12 of 24 layers, d_model 2048,
     16 x 128 heads, 60 experts of d_ff 1408 top-4 and a shared expert of
     5632, qkv biases drawn nonzero from the same generator, vocab 151936)
     or minitron-8b (``ln_decode``: 32 layers, d_model 4096, 32 x 128 query
@@ -2227,41 +2258,23 @@ def check_ssm_reference(cfg, params, prompts, dev) -> dict:
     return result
 
 
-def run_ssm_decode_path(dev) -> dict:
-    """rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 WKV
-    heads of 64, d_ff 14336, vocab 65536), float32 weights drawn on the
-    card from seed 0, through the DecoderServer: plain decode (the family
-    has no per-token exit) of DECODE_REQUESTS SyntheticLM requests in
-    DECODE_LANES lanes with a shared-clock arbiter.  Checks the launches
-    (layernorm once per fused step and once per prefill token, no other
-    kernel), one decode and one prefill build, and that the same requests
-    submitted in reverse order, so that each lands in another lane after
-    another request, get the same tokens (a refill zeroes the lane's
-    recurrent state); then times, the fused step and one request's prefill
-    profiled alone beside the step's HBM bound, and the card against the
-    CPU on the first two layers."""
-    import dataclasses
-    import gc
-
-    import numpy as np
+def plain_drains(phase, cfg, model, params, prompts, dev, want) -> tuple:
+    """Two DecoderServer drains in plain decode (DECODE_LANES lanes, one
+    bucket of DECODE_BUCKET, DECODE_NEW new tokens a request, a shared-clock
+    arbiter): the requests in order, then in reverse order, so that each
+    lands in another lane after other requests.  Each drain's launches,
+    counted from zero, must be ``want(fused steps)`` exactly and no other
+    kernel's; one decode and one prefill build; every token at full depth;
+    every request the same tokens both ways.  Returns (the drains' records
+    by order, a factory of fresh servers)."""
     import torch
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
     from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
-    from repro_torch.serving import step_math
     from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
     from repro_torch.serving.engine import DecoderServer, Request
 
-    phase = "ssm_decode"
-    cfg = dataclasses.replace(get_config("rwkv6_7b"), dtype="float32", remat_policy="none")
-    model = build_model(cfg)
-    params, drawn = draw_decoder(cfg, phase, dev)
-    prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
-    n = DECODE_REQUESTS
-    prefill_tokens = n * (DECODE_PROMPT - 1)
+    n = len(prompts)
     stats = albert_layer_stats(seq_len=DECODE_BUCKET)
     stats.n_layers = cfg.n_layers
     target = no_early_exit_baseline(stats)["latency_s"] * 2.0
@@ -2286,10 +2299,9 @@ def run_ssm_decode_path(dev) -> dict:
         launches = ops.launch_counts()
         tel = srv.telemetry()
         steps = tel["decode_steps"]
-        if launches["layernorm"] != steps + prefill_tokens or any(
-                v for k, v in launches.items() if k not in ops.SSM_DECODE_KERNELS):
-            raise AssertionError(f"{phase} {order}: launches {launches}, want layernorm = fused steps + prefill "
-                                 f"tokens = {steps + prefill_tokens} and nothing else")
+        wanted = {k: want(steps).get(k, 0) for k in launches}
+        if launches != wanted:
+            raise AssertionError(f"{phase} {order}: launches {launches}, want {wanted}")
         if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
             raise AssertionError(f"{phase} {order}: builds per bucket: {tel}")
         gen_toks = [srv.done[i].generated for i in range(n)]
@@ -2300,16 +2312,49 @@ def run_ssm_decode_path(dev) -> dict:
         servers[order] = srv
         drains[order] = {
             "order": order, "drain_ms": wall, "tokens": tel["tokens"], "tokens_per_s": tel["tokens"] / (wall / 1e3),
-            "fused_steps": steps, "launches": launches,
-            "layernorm_launches_per_fused_step": (launches["layernorm"] - prefill_tokens) / steps,
-            "layernorm_launches_per_prefill_token": 1,
+            "fused_steps": steps, "launches": launches, "target_latency_s": target,
             "modeled_energy_j": tel["energy_j"], "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
             "deadline_misses": tel["deadline_misses"], "op_switches": tel["op_switches"], "generated": gen_toks,
         }
     for i in range(n):
         if servers["forward"].done[i].generated != servers["reverse"].done[i].generated:
             raise AssertionError(f"{phase} request {i}: its tokens depend on the lane's earlier requests")
+    return drains, fresh
 
+
+def run_ssm_decode_path(dev) -> dict:
+    """rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 WKV
+    heads of 64, d_ff 14336, vocab 65536), float32 weights drawn on the
+    card from seed 0, through the DecoderServer: plain decode (the family
+    has no per-token exit) of DECODE_REQUESTS SyntheticLM requests in
+    DECODE_LANES lanes with a shared-clock arbiter.  Checks the launches
+    (layernorm once per fused step and once per prefill token, no other
+    kernel), one decode and one prefill build, and that the same requests
+    submitted in reverse order, so that each lands in another lane after
+    another request, get the same tokens (a refill zeroes the lane's
+    recurrent state); then times, the fused step and one request's prefill
+    profiled alone beside the step's HBM bound, and the card against the
+    CPU on the first two layers."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import step_math
+
+    phase = "ssm_decode"
+    cfg = dataclasses.replace(get_config("rwkv6_7b"), dtype="float32", remat_policy="none")
+    model = build_model(cfg)
+    params, drawn = draw_decoder(cfg, phase, dev)
+    prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
+    prefill_tokens = DECODE_REQUESTS * (DECODE_PROMPT - 1)
+    # the final LayerNorm once per fused step and once per prefill token
+    drains, fresh = plain_drains(phase, cfg, model, params, prompts, dev,
+                                 lambda steps: {"layernorm": steps + prefill_tokens})
     split = host_split(fresh(), prompts, sync=True, max_new_tokens=DECODE_NEW)
     drains["forward"]["host_split_ms"] = split
     drains["forward"]["ms_per_fused_step"] = split["lanes_step"] / drains["forward"]["fused_steps"]
@@ -2345,8 +2390,8 @@ def run_ssm_decode_path(dev) -> dict:
         "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
         "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
-        "bucket": DECODE_BUCKET, "target_latency_s": target, "drains": drains,
+        "requests": DECODE_REQUESTS, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW,
+        "lanes": DECODE_LANES, "bucket": DECODE_BUCKET, "drains": drains,
         "reverse_order_same_tokens": True, "parts": parts,
         "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()},
         "fused_step_hbm_bound_ms": step_bound_ms, "launches": drains["forward"]["launches"],
@@ -2354,7 +2399,7 @@ def run_ssm_decode_path(dev) -> dict:
                                            "layer0_error_by_op")},
     }
     emit(result)
-    del params, servers, srv, cache, layers
+    del params, cache, layers
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -2457,12 +2502,9 @@ def run_hybrid_decode_path(dev) -> dict:
 
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import SyntheticLM
-    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.serving import step_math
-    from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
-    from repro_torch.serving.engine import DecoderServer, Request
 
     phase = "hybrid_decode"
     cfg = dataclasses.replace(get_config("zamba2_1p2b"), dtype="float32", remat_policy="none")
@@ -2470,48 +2512,9 @@ def run_hybrid_decode_path(dev) -> dict:
     params, drawn = draw_decoder(cfg, phase, dev)
     prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
     n = DECODE_REQUESTS
-    stats = albert_layer_stats(seq_len=DECODE_BUCKET)
-    stats.n_layers = cfg.n_layers
-    target = no_early_exit_baseline(stats)["latency_s"] * 2.0
-
-    def fresh():
-        arb = BatchedDVFSArbiter(LatencyAwareDVFSController(stats, target))
-        return DecoderServer(model, params, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET, eos_id=-1,
-                             buckets=(DECODE_BUCKET,), arbiter=arb, device=dev)
-
-    drains, servers = {}, {}
-    for order in ("forward", "reverse"):
-        srv = fresh()
-        uids = range(n) if order == "forward" else reversed(range(n))
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        for i in uids:
-            srv.submit(Request(uid=i, tokens=prompts[i], max_new_tokens=DECODE_NEW))
-        srv.run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        launches = ops.launch_counts()
-        tel = srv.telemetry()
-        if any(launches.values()) or ops.HYBRID_DECODE_KERNELS:
-            raise AssertionError(f"{phase} {order}: launches {launches}, want none")
-        if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
-            raise AssertionError(f"{phase} {order}: builds per bucket: {tel}")
-        gen_toks = [srv.done[i].generated for i in range(n)]
-        if any(len(g_) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g_) for g_ in gen_toks):
-            raise AssertionError(f"{phase} {order}: generated tokens off: {gen_toks}")
-        if not all(x == cfg.n_layers for i in range(n) for x in srv.done[i].token_exit_layers):
-            raise AssertionError(f"{phase} {order}: a token left before the last layer")
-        servers[order] = srv
-        drains[order] = {
-            "order": order, "drain_ms": wall, "tokens": tel["tokens"], "tokens_per_s": tel["tokens"] / (wall / 1e3),
-            "fused_steps": tel["decode_steps"], "launches": launches,
-            "modeled_energy_j": tel["energy_j"], "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
-            "deadline_misses": tel["deadline_misses"], "op_switches": tel["op_switches"], "generated": gen_toks,
-        }
-    for i in range(n):
-        if servers["forward"].done[i].generated != servers["reverse"].done[i].generated:
-            raise AssertionError(f"{phase} request {i}: its tokens depend on the lane's earlier requests")
+    if ops.HYBRID_DECODE_KERNELS:
+        raise AssertionError(f"{phase}: the path lists kernels {ops.HYBRID_DECODE_KERNELS}, want none")
+    drains, fresh = plain_drains(phase, cfg, model, params, prompts, dev, lambda steps: {})
 
     split = host_split(fresh(), prompts, sync=True, max_new_tokens=DECODE_NEW)
     fwd = drains["forward"]
@@ -2576,7 +2579,7 @@ def run_hybrid_decode_path(dev) -> dict:
         "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "requests": n, "prompt_tokens": DECODE_PROMPT, "max_new_tokens": DECODE_NEW, "lanes": DECODE_LANES,
-        "bucket": DECODE_BUCKET, "target_latency_s": target, "drains": drains,
+        "bucket": DECODE_BUCKET, "drains": drains,
         "reverse_order_same_tokens": True, "chunked_vs_one_token_prefill": prefill_cmp, "parts": parts,
         "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()},
         "fused_step_hbm_bound_ms": step_bound_ms, "launches": fwd["launches"],
@@ -2584,7 +2587,7 @@ def run_hybrid_decode_path(dev) -> dict:
                                            "block0_error_by_op")},
     }
     emit(result)
-    del params, servers, srv, cache, layers, c_chunked, c_steps
+    del params, cache, layers, c_chunked, c_steps
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -2660,15 +2663,20 @@ def run_encdec_decode_path(dev) -> dict:
     """whisper-medium at full width and depth (24 encoder and 24 decoder
     layers of d_model 1024, 16 x 64 heads, d_ff 4096, vocab 51865, 1500
     frames; the learned position table at the config's 524288 rows),
-    float32 weights drawn on the card from seed 0, through the model's own
-    entry points (the DecoderServer refuses the family): seeded frames
-    [4, 1500, 1024] x 0.1, ``init_cache(4, 32)`` -> ``prefill`` of 16-token
-    SyntheticLM prompts with ``aux={"enc_input": frames}`` -> DECODE_NEW
-    greedy ``decode_step(use_kernels=True)``.  Checks layernorm launched
-    once per decode step (its final norm) and nothing else, none in the
-    prefill; finite logits; frames from another seed changing the logits;
-    then times the encoder, the prefill and a decode step against their
-    bounds, and the card against the CPU on the first 2 + 2 layers."""
+    float32 weights drawn on the card from seed 0.  First through the
+    model's own entry points: seeded frames [4, 1500, 1024] x 0.1,
+    ``init_cache(4, 32)`` -> ``prefill`` of 16-token SyntheticLM prompts
+    with ``aux={"enc_input": frames}`` -> DECODE_NEW greedy
+    ``decode_step(use_kernels=True)``; layernorm launched once per decode
+    step (its final norm) and nothing else, none in the prefill; finite
+    logits; frames from another seed changing the logits.  Then served as
+    the JAX server serves it (no frames: zero cross K/V, the prefill
+    one-token decode_steps): plain DecoderServer drains of DECODE_REQUESTS
+    requests with an arbiter, in order and in reverse order (the same
+    tokens), layernorm once per fused step and once per prefill token and
+    nothing else (``plain_drains``), the host split by hook.  Then times the
+    encoder, the prefill and a decode step against their bounds, and the
+    card against the CPU on the first 2 + 2 layers."""
     import dataclasses
     import gc
 
@@ -2734,6 +2742,17 @@ def run_encdec_decode_path(dev) -> dict:
     if frames_effect < 1e-3:
         raise AssertionError(f"{phase}: frames from another seed move the logits by only {frames_effect}")
 
+    # served as the JAX server serves it: no frames reach the server (its
+    # cross K/V stay zero), the prefill is one-token decode_steps; layernorm
+    # once per fused step and once per prefill token, nothing else
+    prefill_tokens = DECODE_REQUESTS * (DECODE_PROMPT - 1)
+    served_prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
+    drains, fresh = plain_drains(phase, cfg, model, params, served_prompts, dev,
+                                 lambda steps: {"layernorm": steps + prefill_tokens})
+    split = host_split(fresh(), served_prompts, sync=True, max_new_tokens=DECODE_NEW)
+    drains["forward"].update(host_split_ms=split, ms_per_fused_step=split["lanes_step"] / drains["forward"]["fused_steps"],
+                             prefill_share=split["lane_load"] / split["wall"])
+
     # the encoder, the prefill and a decode step timed alone, against their
     # bounds: the encoder's and the prefill's operations at the fp32 rate,
     # the step's bytes at the HBM rate
@@ -2773,13 +2792,388 @@ def run_encdec_decode_path(dev) -> dict:
         "lanes": B, "prompt_tokens": DECODE_PROMPT, "decode_steps": DECODE_NEW, "bucket": DECODE_BUCKET,
         "first_prefill_ms": first_prefill_ms, "decode_ms": decode_ms,
         "tokens_per_s": B * DECODE_NEW / (decode_ms / 1e3), "generated": generated,
-        "prefill_launches": prefill_launches, "launches": launches, "frames_effect_max_abs": frames_effect,
+        "prefill_launches": prefill_launches, "model_level_launches": launches,
+        "frames_effect_max_abs": frames_effect, "served_drains": drains, "reverse_order_same_tokens": True,
+        "launches": drains["forward"]["launches"],
         "tflop": {k: v / 1e12 for k, v in flops.items()}, "parts": parts,
         "decode_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()}, "bounds_ms": bounds,
         "reference": {k: ref[k] for k in ("prefill_logits_max_abs_err", "step_logits_max_abs_err")},
     }
     emit(result)
     del params, cache, step_cache, logits, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8g: the vision decoder (llama-3.2-vision-90b), cut in depth
+# ---------------------------------------------------------------------------
+
+# llama-3.2-vision-90b at full width, its first 10 of 100 layers: two
+# groups of 4 self layers closed by a gated cross layer (the whole model's
+# 350.7 GB of float32 weights exceed the card)
+VLM_DEPTH = 10
+# the card against the CPU on the first group (4 self layers and 1 cross
+# layer; a copy of ~25.7 GB on the host) at 2 lanes: the prefill over the
+# image and VLM_REF_STEPS teacher-forced decode steps, logits within
+# DECODE_ATOL of their largest magnitude
+VLM_REF_LANES = 2
+VLM_REF_STEPS = 4
+
+
+def vlm_prefill_flops(cfg, B: int) -> float:
+    """A vlm prefill's operations (2 per multiply-add) over B prompts of
+    DECODE_PROMPT tokens and their images: every cross layer's image K/V
+    projection, the self layers' projections and MLPs and the cross
+    layers' q / o projections and MLPs per token, the attention products
+    (causal over the prompt, every token against every image token), the
+    LM head on the last token."""
+    d, H, KV, hd, ff, S, n_img = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, DECODE_PROMPT,
+                                  cfg.n_image_tokens)
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    n_self = cfg.n_layers - n_cross
+    per_token_self = 2 * d * (2 * H * hd + 2 * KV * hd) + 2 * 3 * d * ff
+    per_token_cross = 2 * d * 2 * H * hd + 2 * 3 * d * ff
+    return (2.0 * B * n_img * d * 2 * KV * hd * n_cross
+            + B * S * (n_self * per_token_self + n_cross * per_token_cross)
+            + 4.0 * B * H * hd * (n_self * S * S / 2 + n_cross * S * n_img)
+            + 2.0 * B * d * cfg.vocab_size)
+
+
+def check_vlm_reference(cfg, params, image, prompts, cont, dev) -> dict:
+    """The card against the CPU on the vlm's first group (views of the
+    card's weights: 4 self layers and cross layer 0; their copy on the
+    CPU): the prefill of VLM_REF_LANES prompts over their images, then
+    VLM_REF_STEPS teacher-forced ``decode_step``s; the prefill's logits and
+    every step's within DECODE_ATOL of the largest logit magnitude (at
+    least 1)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    every = cfg.cross_attn_every
+    cfg_r = dataclasses.replace(cfg, n_layers=every)
+    cut = dict(params, layers=cut_layers(params["layers"], every - 1),
+               cross_layers=cut_layers(params["cross_layers"], 1))
+    B = VLM_REF_LANES
+    img, toks, cont = image[:B], prompts[:B], cont[:B]
+
+    def run(p, d):
+        model = build_model(cfg_r)
+        with torch.no_grad():
+            cache = model.init_cache(B, DECODE_BUCKET, device=d)
+            lg, cache = model.prefill(p, toks.to(d), cache, aux={"image_embeds": img.to(d)})
+            out = [lg.cpu()]
+            for t in range(VLM_REF_STEPS):
+                lg, cache = model.decode_step(p, cache, cont[:, t:t + 1].to(d), toks.shape[1] + t, use_kernels=True)
+                out.append(lg.cpu())
+        return out
+
+    t0 = time.perf_counter()
+    card = run(cut, dev)
+    host = run(tree_to(cut, torch.device("cpu")), torch.device("cpu"))
+    errs = [rel_err(a, b) for a, b in zip(card, host)]
+    result = {"phase": "reference", "config": f"{cfg.name} first group: {every - 1} self layers and 1 cross layer "
+              f"(cut from {cfg.n_layers})", "lanes": B, "image_tokens": cfg.n_image_tokens,
+              "teacher_forced_steps": VLM_REF_STEPS,
+              "tolerance": f"{DECODE_ATOL} of the largest logit magnitude (the prefill's and every step's)",
+              "prefill_logits_rel_err": errs[0], "step_logits_rel_err": max(errs[1:]),
+              "logits_max_abs": max(b.abs().max().item() for b in host), "seconds": time.perf_counter() - t0}
+    emit(result)
+    if max(errs) > DECODE_ATOL:
+        raise AssertionError(f"vlm reference: card and CPU differ beyond {DECODE_ATOL} of the logits' magnitude")
+    return result
+
+
+def run_vlm_decode_path(dev) -> dict:
+    """llama-3.2-vision-90b at full width (d_model 8192, 64 x 128 query
+    heads over 8 KV heads, d_ff 28672, vocab 128256, 1601 image tokens),
+    its first VLM_DEPTH of 100 layers (2 groups of 4 self layers and 1
+    gated cross layer), float32 weights drawn on the card from seed 0 and
+    the cross layers' gates then drawn nonzero (their init of zero makes
+    each cross layer the identity).  At model level: seeded image
+    embeddings [4, 1601, 8192] x 0.1, ``init_cache(4, 32)`` -> ``prefill``
+    of 16-token SyntheticLM prompts with ``aux={"image_embeds": ...}`` ->
+    DECODE_NEW greedy ``decode_step``s; no kernel launched
+    (``ops.VLM_DECODE_KERNELS`` is empty: RMS norms, cache and cross
+    attention on the reference ops); finite logits; an image from another
+    seed moving them.  Then served as the JAX server serves it (no image:
+    zero image K/V): plain DecoderServer drains with an arbiter, in order
+    and in reverse order (the same tokens), no kernel launched
+    (``plain_drains``), the host split by hook.  Then the fused step, one
+    request's serving prefill and the model's prefill timed and profiled
+    alone beside their bounds, and the card against the CPU on the first
+    group."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import step_math
+
+    phase = "vlm_decode"
+    cfg = dataclasses.replace(get_config("llama3_2_vision_90b"), dtype="float32", remat_policy="none",
+                              n_layers=VLM_DEPTH)
+    model = build_model(cfg)
+    params, drawn = draw_decoder(cfg, phase, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name in ("gate_attn", "gate_mlp"):
+        params["cross_layers"][name].uniform_(0.3, 1.0, generator=gen)
+    gates = {name: params["cross_layers"][name].tolist() for name in ("gate_attn", "gate_mlp")}
+    emit({"phase": f"{phase}_gates", **gates})
+    if ops.VLM_DECODE_KERNELS:
+        raise AssertionError(f"{phase}: the path lists kernels {ops.VLM_DECODE_KERNELS}, want none")
+    B = DECODE_LANES
+    prompts = torch.as_tensor(np.asarray(SyntheticLM(cfg.vocab_size, DECODE_PROMPT, B, seed=0).batch(0)["tokens"],
+                                         np.int64), device=dev)
+    cont = torch.as_tensor(np.asarray(SyntheticLM(cfg.vocab_size, DECODE_NEW, B, seed=1).batch(0)["tokens"],
+                                      np.int64))
+
+    def image_of(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(B, cfg.n_image_tokens, cfg.d_model, generator=g, device=dev) * 0.1
+
+    image = image_of(1)
+
+    def prefill(img):
+        with torch.no_grad():
+            return model.prefill(params, prompts, model.init_cache(B, DECODE_BUCKET, device=dev),
+                                 aux={"image_embeds": img})
+
+    # the model level: prefill over the image, then greedy decode steps
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = prefill(image)
+    torch.cuda.synchronize()
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    logits, generated = [lg], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cur = lg[:, -1].argmax(-1, keepdim=True)
+        for t in range(DECODE_NEW):
+            generated.append(cur[:, 0].cpu().tolist())
+            lg, cache = model.decode_step(params, cache, cur, DECODE_PROMPT + t, use_kernels=True)
+            logits.append(lg)
+            cur = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    model_launches = ops.launch_counts()
+    if any(model_launches.values()):
+        raise AssertionError(f"{phase}: the model level launched {model_launches}, want nothing")
+    if not all(torch.isfinite(x).all() and x.shape == (B, 1, cfg.vocab_size) for x in logits):
+        raise AssertionError(f"{phase}: logits not finite or of the wrong shape")
+    other, _ = prefill(image_of(2))
+    image_effect = (other - logits[0]).abs().max().item()
+    if image_effect < 1e-3:
+        raise AssertionError(f"{phase}: an image from another seed moves the logits by only {image_effect}")
+    del other
+
+    # served as the JAX server serves it: no image reaches the server
+    served_prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
+    drains, fresh = plain_drains(phase, cfg, model, params, served_prompts, dev, lambda steps: {})
+    split = host_split(fresh(), served_prompts, sync=True, max_new_tokens=DECODE_NEW)
+    fwd = drains["forward"]
+    fwd.update(host_split_ms=split, ms_per_fused_step=split["lanes_step"] / fwd["fused_steps"],
+               prefill_share=split["lane_load"] / split["wall"])
+
+    # the fused step (DECODE_STEPS plain 4-lane steps), one request's
+    # serving prefill (15 one-token steps) and the model's prefill over the
+    # image, each timed and profiled alone
+    step_cache = model.init_cache(B, DECODE_BUCKET, device=dev)
+    pos = torch.full((B,), DECODE_PROMPT - 1, dtype=torch.int64, device=dev)
+
+    def fused_steps():
+        with torch.no_grad():
+            for _ in range(DECODE_STEPS):
+                step_math.decoder_decode(model, params, step_cache, prompts[:, -1:], pos, use_kernels=True)
+
+    def serving_prefill():
+        with torch.no_grad():
+            step_math.decoder_prefill(model, params, step_cache, served_prompts[0], 0, DECODE_PROMPT,
+                                      use_kernels=True)
+
+    parts = profile_parts((("fused_step", fused_steps, DECODE_STEPS), ("serving_prefill", serving_prefill, 1),
+                           ("model_prefill", lambda: prefill(image), 1)))
+    # a 4-lane step's least time: every layer's weights, the cross layers',
+    # the LM head and the final norm read once, the self K/V and the image
+    # K/V rows read (4 rows of the embedding table: nothing)
+    step_bytes = {"self_layers": n_bytes(params["layers"]), "cross_layers": n_bytes(params["cross_layers"]),
+                  "lm_head_and_final_norm": n_bytes(params["lm_head"]) + n_bytes(params["final_norm"]),
+                  "self_kv_cache": n_bytes(step_cache["k"]) + n_bytes(step_cache["v"]),
+                  "image_kv_cache": n_bytes(step_cache["img_k"]) + n_bytes(step_cache["img_v"])}
+    bounds = {"fused_step_ms": sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3,
+              "model_prefill_ms": bound_ms(n_bytes(params) - n_bytes(params["embed"]),
+                                           vlm_prefill_flops(cfg, B))[0]}
+    ref = check_vlm_reference(cfg, params, image, prompts, cont, dev)
+    result = {
+        "phase": phase, "config": f"{cfg.name} first {VLM_DEPTH} of 100 layers", "n_layers": cfg.n_layers,
+        "cross_attn_every": cfg.cross_attn_every, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "image_tokens": cfg.n_image_tokens, "dtype": cfg.dtype, "params": drawn["params"], "bytes": drawn["bytes"],
+        "init_s": drawn["init_s"], "gates": gates, "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
+        "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "lanes": B, "prompt_tokens": DECODE_PROMPT, "decode_steps": DECODE_NEW, "bucket": DECODE_BUCKET,
+        "first_prefill_ms": first_prefill_ms, "decode_ms": decode_ms, "generated": generated,
+        "model_level_launches": model_launches, "image_effect_max_abs": image_effect,
+        "served_drains": drains, "reverse_order_same_tokens": True, "parts": parts,
+        "fused_step_bytes_gb": {k: v / 1e9 for k, v in step_bytes.items()}, "bounds_ms": bounds,
+        "model_prefill_tflop": vlm_prefill_flops(cfg, B) / 1e12, "launches": fwd["launches"],
+        "reference": {k: ref[k] for k in ("prefill_logits_rel_err", "step_logits_rel_err", "logits_max_abs")},
+    }
+    emit(result)
+    del params, cache, step_cache, logits, image
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8h: a decoder trained on the card (zamba2-1.2b)
+# ---------------------------------------------------------------------------
+
+# zamba2-1.2b at full width and depth in float32, SyntheticLM batches of
+# 4 x 128 tokens: one ssm_chunk of the SSD, where the JAX package's order
+# of exp and mask gives NaN gradients; AdamW steps through make_train_step
+LM_TRAIN_BATCH = 4
+LM_TRAIN_SEQ = 128
+LM_TRAIN_STEPS = 3
+# the card against the CPU on the first 6 blocks (one shared-block call):
+# the loss within 1e-4 relative, every gradient leaf within 1e-4 of its
+# largest magnitude
+LM_TRAIN_REF_LAYERS = 6
+LM_TRAIN_RTOL = 1e-4
+
+
+def grads_of(model, params, batch) -> tuple:
+    """(loss, gradients) of ``make_loss_fn``'s lm_loss + aux."""
+    from repro_torch.training.train_loop import make_loss_fn, value_and_grad
+
+    loss_fn = make_loss_fn(model)
+    (loss, _), grads = value_and_grad(lambda p: loss_fn(p, batch), params)
+    return loss, grads
+
+
+def check_lm_train_reference(cfg, params, batch, dev) -> dict:
+    """The card against the CPU on the hybrid decoder's first
+    LM_TRAIN_REF_LAYERS blocks (views of the card's weights; their copy on
+    the CPU): the training loss and every gradient leaf of one batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    cfg_r = dataclasses.replace(cfg, n_layers=LM_TRAIN_REF_LAYERS)
+    cut = dict(params, layers=cut_layers(params["layers"], LM_TRAIN_REF_LAYERS))
+    model = build_model(cfg_r)
+    t0 = time.perf_counter()
+    loss_card, g_card = grads_of(model, cut, batch)
+    cpu = torch.device("cpu")
+    loss_cpu, g_cpu = grads_of(model, tree_to(cut, cpu), tree_to(batch, cpu))
+    leaves_card, leaves_cpu = leaves(g_card), leaves(g_cpu)
+    grad_rel = max((a.cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(leaves_card, leaves_cpu))
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    result = {"phase": "reference", "config": f"{cfg.name} first {LM_TRAIN_REF_LAYERS} blocks and 1 shared-block "
+              f"call (cut from {cfg.n_layers})", "batch": list(batch["tokens"].shape),
+              "tolerance": f"loss {LM_TRAIN_RTOL} relative; every gradient leaf {LM_TRAIN_RTOL} of its largest "
+                           "magnitude", "loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+              "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "grad_leaves": len(leaves_cpu),
+              "finite": all(bool(torch.isfinite(x).all()) for x in leaves_card + leaves_cpu),
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    if not result["finite"] or loss_rel > LM_TRAIN_RTOL or grad_rel > LM_TRAIN_RTOL:
+        raise AssertionError(f"lm_train reference: card and CPU differ: {result}")
+    return result
+
+
+def run_lm_train_path(dev) -> dict:
+    """zamba2-1.2b trained on the card at full width and depth (38 Mamba2
+    blocks and 6 shared-block calls, float32 weights drawn on the card from
+    seed 0): the gradients of one SyntheticLM batch of LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ tokens through ``make_loss_fn`` (every leaf finite: the
+    chunked SSD masks the decay's exponent before its exp), then
+    LM_TRAIN_STEPS AdamW steps through ``make_train_step`` (finite losses
+    and gradient norms), no kernel launched (training takes the reference
+    ops); one step timed and profiled alone beside its fp32 bound (6 N T
+    operations at 67 TFLOP/s); then the card against the CPU on the first
+    6 blocks."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optim import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import make_train_step, to_batch
+
+    phase = "lm_train"
+    cfg = dataclasses.replace(get_config("zamba2_1p2b"), dtype="float32", remat_policy="none")
+    model = build_model(cfg)
+    params, drawn = draw_decoder(cfg, phase, dev)
+    data = SyntheticLM(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=0)
+    batch = to_batch(data.batch(0), dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss0, grads = grads_of(model, params, batch)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    nonfinite = [i for i, g_ in enumerate(leaves(grads)) if not torch.isfinite(g_).all()]
+    grad_max = max(g_.abs().max().item() for g_ in leaves(grads))
+    del grads
+    if nonfinite or not torch.isfinite(loss0):
+        raise AssertionError(f"{phase}: loss {float(loss0)}, non-finite gradient leaves {nonfinite}")
+
+    step_fn = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=100))
+    opt_state = adamw_init(params)
+    history = []
+    for step in range(LM_TRAIN_STEPS):
+        b = to_batch(data.batch(step), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        loss = float(metrics["loss"])
+        history.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+                        "wall_ms": (time.perf_counter() - t0) * 1e3})
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: training launched {launches}, want nothing")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"{phase}: non-finite losses or gradient norms: {history}")
+
+    parts = profile_parts((("train_step", lambda: step_fn(params, opt_state, batch), 1),))
+    n_params = drawn["params"]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = 6.0 * n_params * tokens
+    ref = check_lm_train_reference(cfg, params, batch, dev)
+    result = {
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "ssm_chunk": cfg.ssm_chunk, "dtype": cfg.dtype, "params": n_params, "bytes": drawn["bytes"],
+        "init_s": drawn["init_s"], "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+        "first_loss": float(loss0), "first_grads_ms": grads_ms, "first_grad_max_abs": grad_max,
+        "history": history, "launches": launches, "parts": parts, "step_tflop": flops / 1e12,
+        "step_fp32_bound_ms": flops / FP32_FLOP_PER_S * 1e3,
+        "reference": {k: ref[k] for k in ("loss_rel_err", "grad_rel_err")},
+    }
+    emit(result)
+    del params, opt_state, batch
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -3247,6 +3641,8 @@ def main() -> int:
     ssm_decode = timed("ssm_decode", run_ssm_decode_path, dev)
     hybrid_decode = timed("hybrid_decode", run_hybrid_decode_path, dev)
     encdec_decode = timed("encdec_decode", run_encdec_decode_path, dev)
+    vlm_decode = timed("vlm_decode", run_vlm_decode_path, dev)
+    lm_train = timed("lm_train", run_lm_train_path, dev)
     train = timed("train", run_train_path, dev)
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
@@ -3255,7 +3651,9 @@ def main() -> int:
                    "moe_decode": moe_decode["launches"][r["name"]], "ln_decode": ln_decode["launches"][r["name"]],
                    "ssm_decode": ssm_decode["launches"][r["name"]],
                    "hybrid_decode": hybrid_decode["launches"][r["name"]],
-                   "encdec_decode": encdec_decode["launches"][r["name"]], "train": train["launches"][r["name"]]}
+                   "encdec_decode": encdec_decode["launches"][r["name"]],
+                   "vlm_decode": vlm_decode["launches"][r["name"]], "lm_train": lm_train["launches"][r["name"]],
+                   "train": train["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
         # replay's, the deployed path's for af_matmul, which only that path
         # runs, or a decoder path's for the wide-row entropy and the

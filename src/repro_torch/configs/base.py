@@ -5,8 +5,8 @@ ALBERT configurations (``albert_base``, ``albert_edgebert``), the dense
 decoders ``deepseek_7b``, ``minitron_8b``, ``internlm2_20b`` and
 ``qwen1_5_110b``, the MoE decoders ``qwen2_moe_a2p7b`` and
 ``qwen3_moe_235b``, the RWKV6 decoder ``rwkv6_7b``, the hybrid
-``zamba2_1p2b`` and the encoder-decoder ``whisper_medium`` exist here so
-far; each exposes ``CONFIG`` (the published size) and ``smoke_config()``
+``zamba2_1p2b``, the encoder-decoder ``whisper_medium`` and the vision
+decoder ``llama3_2_vision_90b`` exist here; each exposes ``CONFIG`` (the published size) and ``smoke_config()``
 (a reduced same-family config for CPU tests).
 """
 from __future__ import annotations
@@ -244,7 +244,8 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "minitron_8b", "internlm2_20b", "qwen1_5_110b",
-                "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b", "zamba2_1p2b", "whisper_medium")
+                "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b", "zamba2_1p2b", "whisper_medium",
+                "llama3_2_vision_90b")
 
 
 def _config_module(arch: str):

@@ -75,11 +75,16 @@ SSM_DECODE_KERNELS = ("layernorm",)
 # on the reference ops, and the Mamba2 conv and SSD are torch ops in both
 # packages (no Pallas kernel in the JAX block)
 HYBRID_DECODE_KERNELS = ()
-# the encoder-decoder (whisper-medium, Model.prefill then decode_step): the
-# final LayerNorm of each decode step; its layers' norms, the cross norms,
-# the encoder and the prefill's final norm take no kernel flag in the JAX
+# the encoder-decoder (whisper-medium: Model.prefill then decode_step, or
+# the DecoderServer, whose prefill is one-token decode_steps): the final
+# LayerNorm of each decode step; its layers' norms, the cross norms, the
+# encoder and Model.prefill's final norm take no kernel flag in the JAX
 # package, and cache and cross attention stay on the reference ops
 ENCDEC_DECODE_KERNELS = ("layernorm",)
+# the vision decoder (llama-3.2-vision: Model.prefill then decode_step, or
+# the DecoderServer): none.  Its norms are RMS (no kernel in either
+# package), and cache and cross attention stay on the reference ops
+VLM_DECODE_KERNELS = ()
 
 
 def reset_launch_counts() -> None:

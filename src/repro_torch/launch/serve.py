@@ -10,16 +10,19 @@ classification (the paper's workload) through the continuation-batching
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron_8b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1p2b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_medium --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_vision_90b --smoke --device cpu
 
 It runs on the card unless ``--device cpu`` is given; weights are random
 from ``--seed`` (float32).  The decoder serves ``SyntheticLM`` prompts cut
 to 16 tokens with ``--max-new-tokens`` each, at full depth, or with
 per-token early exit at ``--threshold`` (the dense and MoE families; the
-ssm family, RWKV6, and the hybrid family, zamba2, have no exit and refuse
-it).  The encdec family (whisper) is refused: the JAX package's launcher
-serves it through a server that never sees its encoder input, so its
-decoder attends to zero cross K/V (ROADMAP Queue 3 item 9); the port runs
-it through the model's own ``prefill(aux=...)`` and ``decode_step``.
+ssm family, RWKV6, the hybrid family, zamba2, the encdec family, whisper,
+and the vlm family, llama-3.2-vision, have no exit and refuse it).  As in
+the JAX package, the server never sees an encoder or image input: whisper
+and llama-3.2-vision are served attending to zero cross and image K/V.
+Their model's own ``prefill(aux=...)`` and ``decode_step`` take those
+inputs.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data.synthetic import SyntheticCLS, SyntheticLM
-from repro_torch.models.model import build_model, init_params
+from repro_torch.models.model import DECODER_FAMILIES, build_model, init_params
 from repro_torch.serving.engine import ClassifierServer, DecoderServer, Request
 
 
@@ -51,15 +54,11 @@ def main(argv=None) -> dict:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype="float32", remat_policy="none")
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family in DECODER_FAMILIES:
         return _serve_decoder(cfg, args)
-    if cfg.family == "encdec":
-        raise SystemExit(f"{args.arch}: the encdec family is not served (ROADMAP Queue 3 item 9): the JAX "
-                         "launcher serves it with zero cross K/V, since its server never sees the encoder "
-                         "input; run it through Model.prefill(aux={'enc_input': ...}) and decode_step")
     if cfg.family != "albert" or not cfg.edgebert.early_exit.enabled:
-        raise SystemExit(f"{args.arch}: only early-exit albert classification and the dense, MoE, ssm and "
-                         "hybrid decoders are ported")
+        raise SystemExit(f"{args.arch}: only early-exit albert classification and the dense, MoE, ssm, "
+                         "hybrid, encdec and vlm decoders are ported")
     if args.threshold is not None:
         cfg = cfg.with_edgebert(early_exit=dataclasses.replace(
             cfg.edgebert.early_exit, entropy_threshold=args.threshold))

@@ -3,16 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch albert_edgebert --steps 200 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch albert_base --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_1p2b --smoke --device cpu --steps 5
 
 It trains on the card unless ``--device cpu`` is given.  A config with any
 EdgeBERT training feature (pruning, spans, early exit: ``albert_edgebert``)
 runs the paper's two-phase procedure (``EdgeBertTrainer``; ``--phase2``
 adds the off-ramp phase) and checkpoints its params at the end.  Any other
-config (``albert_base``) runs the generic resumable route:
+config (``albert_base``, or a decoder on ``SyntheticLM`` tokens: the dense,
+MoE, ssm and hybrid families) runs the generic resumable route:
 ``make_train_step`` with ``--microbatches``, a checkpoint every
 ``--save-every`` steps holding ``{"params", "opt"}`` (the AdamW state), and
 auto-resume from the newest one, whichever package wrote it (the layout
-and keys are the JAX package's).
+and keys are the JAX package's).  The encdec and vlm families' training
+forward also needs encoder frames or image embeddings, which
+``SyntheticLM`` does not make (the JAX launcher fails on the missing key):
+the launcher exits with a message saying so.
 
 Production semantics, as in the reference: deterministic, seekable data (a
 pure function of (seed, step), so a restart is exact); atomic checkpoints,
@@ -79,6 +84,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype="float32", remat_policy="none")
+    if cfg.family in ("encdec", "vlm"):
+        key = "enc_input" if cfg.family == "encdec" else "image_embeds"
+        raise SystemExit(f'{args.arch}: the {cfg.family} training forward needs batch["{key}"] beside the tokens, '
+                         "and SyntheticLM makes tokens alone; train it through make_train_step with that input")
     dev = resolve_device(args.device)
     model = build_model(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed), device=dev)

@@ -9,11 +9,13 @@ Recurrence per head h with state S_t in R^{P x N} (P the head dim, N
     out = y + D x
 
 The one-token recurrence (``_ssd_step``) is the decode path; the chunked
-form (``_ssd_chunked``: a causal [Q, Q] decay within each chunk, chosen
-with ``where`` so that the upper triangle's overflowing ``exp`` never meets
-a mask, and the states carried between chunks in float32) is what
-``Model.prefill`` runs, with the JAX package's zero padding to a multiple
-of the chunk.
+form (``_ssd_chunked``: a causal [Q, Q] decay within each chunk, its
+upper triangle's exponent set to -inf before the ``exp``, and the states
+carried between chunks in float32) is what ``Model.prefill`` and the
+training forward run, with the JAX package's zero padding to a multiple of
+the chunk.  The JAX block exponentiates first and masks after, which gives
+the same forward but NaN gradients wherever the upper triangle's ``exp``
+overflows; the port's order keeps them finite.
 
 No Pallas kernel runs in the JAX block, so everything here stays torch ops.
 ``a_log``, ``dt_bias`` and ``d_skip`` are float32 whatever the config's
@@ -85,7 +87,9 @@ def _ssd_chunked(x, dt, a, Bm, Cm, chunk: int, init_state: Optional[torch.Tensor
     # intra-chunk: y[q] = sum_{s <= q} C_q.B_s exp(cum_q - cum_s) dt_s x_s
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # [B, nc, Q(q), Q(s), H]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), torch.zeros((), device=x.device))
+    # masked before exp: exp(-inf) is exactly 0, and no overflowing exp
+    # meets a zero cotangent in the backward (0 * inf = NaN)
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg, float("-inf")))
     cb = torch.einsum("bcqn,bcsn->bcqs", Cs, Bs)
     w = cb[..., None] * decay * dts[:, :, None, :, :]                # [B, nc, Q, Q, H]
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", w, xs)

@@ -1,20 +1,23 @@
 """The port's model (``repro/models/model.py``): the albert family, the
 dense and MoE decoder families, the ssm family (RWKV6), the hybrid family
-(zamba2: Mamba2 blocks and a shared attention block) and the
-encoder-decoder family (whisper).
+(zamba2: Mamba2 blocks and a shared attention block), the encoder-decoder
+family (whisper) and the vision decoder family (llama-3.2-vision: groups of
+self-attention layers, each followed by a gated cross-attention layer over
+image embeddings).
 
 ``init_params`` returns a tree with exactly the keys and shapes of the JAX
 package's ``Model.init_params`` for those families, with the same init
 scales; the decoder families' layers are stacked on a leading
 ``[n_layers]`` axis as the JAX package's ``_stack_init`` stacks them (the
 MoE family's expert weights too: ``[n_layers, E, d, ff]``, the RWKV6
-layers' time mix and channel mix, the Mamba2 blocks, the encoder's layers
-and the decoder's cross-attention).  The random numbers come from a
+layers' time mix and channel mix, the Mamba2 blocks, the encoder's layers,
+the decoder's cross-attention and the vlm family's cross layers, their
+gates ``[n_cross]``).  The random numbers come from a
 ``torch.Generator`` and so differ from JAX's; parity tests bring the JAX
 tree across with ``repro_torch.bridge`` instead.
 
-``Model`` carries the layer math the classifier serving step and the dense
-all-layers forward (``apply_train``) run: embedding, the post-LN shared
+``Model`` carries the layer math the classifier serving step and each
+family's training forward (``apply_train``) run: embedding, the post-LN shared
 encoder layer, activation fake-quant, the early-exit off-ramp; and the
 decoder's: the pre-LN layer (RMS norm or LayerNorm, rotary or learned
 positions, qkv biases where the config has them, SwiGLU, GELU, squared
@@ -24,7 +27,9 @@ exit (``decode_step_ee``, ``decode_step_spec``, ``forward_token_exit``);
 the RWKV6 layer (``models/rwkv6.py``) and the Mamba2 block
 (``models/mamba2.py``) with their recurrent state; the shared attention
 block on concat(h, x0) with its own KV cache; the encoder over stubbed
-frames and the decoder's cross-attention to the encoder's cached K/V.
+frames and the decoder's cross-attention to the encoder's cached K/V; the
+gated cross layer over stubbed image embeddings, or over their K/V cached
+at prefill.
 Only the dense, MoE and albert families have early exit in the JAX
 package.  Its methods take a tree of tensors on one device and compute
 there; the decode methods take each lane's cache position as a ``[B]``
@@ -76,6 +81,9 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
     mix between two LayerNorms; for the hybrid family the Mamba2 blocks and
     the shared attention block), for the encdec family the encoder's layers,
     its final norm and position table and the decoder's cross-attention,
+    for the vlm family the n_layers - n_layers / cross_attn_every self
+    layers and the gated cross layers (their gates zero, as the JAX
+    package's ``_init_cross_layer`` makes them, so each is the identity),
     the final norm (RMS or LayerNorm, the ssm family's LayerNorm, with a
     zero ``norm_bias``) and the untied LM head."""
     dtype = _DTYPES[cfg.dtype]
@@ -100,15 +108,18 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
                      bv=torch.zeros(lead + (KV * hd,), dtype=dtype, device=dev))
         return a
 
+    def mlp(n):
+        if cfg.act == "swiglu":
+            return {"w_gate": dense((d, cfg.d_ff), (n,)), "w_up": dense((d, cfg.d_ff), (n,)),
+                    "w_down": dense((cfg.d_ff, d), (n,))}
+        return {"w_up": dense((d, cfg.d_ff), (n,)), "w_down": dense((cfg.d_ff, d), (n,))}
+
     def dense_layers(n):
         layers = {"norm1": norm(n), "attn": attention((n,)), "norm2": norm(n)}
         if cfg.family == "moe":
             layers["moe"] = moe.init_moe(cfg, gen, dev, dtype, lead=(n,))
-        elif cfg.act == "swiglu":
-            layers["mlp"] = {"w_gate": dense((d, cfg.d_ff), (n,)), "w_up": dense((d, cfg.d_ff), (n,)),
-                             "w_down": dense((cfg.d_ff, d), (n,))}
         else:
-            layers["mlp"] = {"w_up": dense((d, cfg.d_ff), (n,)), "w_down": dense((cfg.d_ff, d), (n,))}
+            layers["mlp"] = mlp(n)
         return layers
 
     embed = {"tok": _normal(gen, (cfg.vocab_size, cfg.embed_dim), 0.02).to(dev, dtype)}
@@ -130,6 +141,12 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
             p["shared_attn"] = {"norm1": norm(width=d2), "attn": attention((), d_in=d2), "norm2": norm(width=d2),
                                 "mlp": {"w_up": dense((d2, cfg.d_ff)), "w_down": dense((cfg.d_ff, d2))},
                                 "out_proj": dense((d2, d))}
+    elif cfg.family == "vlm":
+        n_cross = L_ // cfg.cross_attn_every
+        p["layers"] = dense_layers(L_ - n_cross)
+        gate = torch.zeros(n_cross, dtype=torch.float32, device=dev)
+        p["cross_layers"] = {"norm1": norm(n_cross), "xattn": attention((n_cross,)), "gate_attn": gate,
+                             "norm2": norm(n_cross), "mlp": mlp(n_cross), "gate_mlp": gate.clone()}
     else:
         p["layers"] = dense_layers(L_)
     if cfg.family == "encdec":
@@ -155,7 +172,10 @@ def _check_dense(cfg: ModelConfig) -> None:
     positions, its GELU MLP) every ``attn_every`` blocks, an untied head.
     The encdec family as whisper-medium has it: pre-LN LayerNorm layers with
     the GELU MLP in the encoder and the decoder, learned positions, an
-    untied head."""
+    untied head.  The vlm family as llama-3.2-vision has it: RMS pre-norms,
+    rotary positions, SwiGLU, no qkv bias, a gated cross layer closing
+    every group of ``cross_attn_every`` layers (so ``n_layers`` a multiple
+    of it), an untied head."""
     eb = cfg.edgebert
     encoder_features = eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes
     plain = not (cfg.tie_embeddings or cfg.shared_layers or encoder_features)
@@ -178,6 +198,13 @@ def _check_dense(cfg: ModelConfig) -> None:
             raise ValueError("only the encoder-decoder of whisper-medium's kind (gelu, layernorm, learned "
                              "positions, an encoder, untied head, no EdgeBERT encoder features) is ported")
         return
+    if cfg.family == "vlm":
+        if (not plain or (cfg.act, cfg.norm, cfg.pos) != ("swiglu", "rms", "rope") or cfg.qkv_bias
+                or cfg.cross_attn_every < 2 or cfg.n_layers % cfg.cross_attn_every):
+            raise ValueError("only the vision decoder of llama-3.2-vision's kind (swiglu, rms, rope, no qkv bias, "
+                             "a gated cross layer closing every group of cross_attn_every layers, untied head, "
+                             "no EdgeBERT encoder features) is ported")
+        return
     # the squared ReLU and LayerNorm as minitron-8b has them: the dense family only
     dense = cfg.family == "dense"
     if (cfg.family not in ("dense", "moe")
@@ -191,7 +218,7 @@ def _check_dense(cfg: ModelConfig) -> None:
                          "untied head and no EdgeBERT encoder features, are ported")
 
 
-DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def init_params(
@@ -212,7 +239,7 @@ def init_params(
         "albert", "gelu", "layernorm", False, True
     ):
         raise ValueError("only the ALBERT configs (gelu, layernorm, tied embeddings) and the dense, "
-                         "MoE, ssm, hybrid and encdec decoders are ported")
+                         "MoE, ssm, hybrid, encdec and vlm decoders are ported")
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = _DTYPES[cfg.dtype]
@@ -279,20 +306,22 @@ class ModelOutput(NamedTuple):
 
 
 class Model:
-    """The albert, dense, MoE, ssm, hybrid and encdec families of the JAX
-    package's ``Model``: one shared post-LN encoder layer with entropy
+    """The albert, dense, MoE, ssm, hybrid, encdec and vlm families of the
+    JAX package's ``Model``: one shared post-LN encoder layer with entropy
     off-ramps and AdaptivFloat activations, a stack of pre-LN decoder layers
     (SwiGLU, squared ReLU or MoE) with a KV cache and per-token early exit
     on the LM head, a stack of RWKV6 layers with a recurrent state, Mamba2
     blocks with a recurrent state and a shared attention block with a KV
-    cache, or an encoder and a decoder with cross-attention."""
+    cache, an encoder and a decoder with cross-attention, or groups of
+    decoder layers each closed by a gated cross layer over image
+    embeddings."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family in DECODER_FAMILIES:
             _check_dense(cfg)
         elif cfg.family != "albert" or not cfg.shared_layers:
-            raise ValueError("only the albert family (one shared layer) and the dense, MoE, ssm, hybrid and "
-                             "encdec families are ported")
+            raise ValueError("only the albert family (one shared layer) and the dense, MoE, ssm, hybrid, "
+                             "encdec and vlm families are ported")
         self.cfg = cfg
         # the shared attention block's config: its width, and no qkv bias
         self._shared_cfg = (dataclasses.replace(cfg, d_model=2 * cfg.d_model, qkv_bias=False)
@@ -358,15 +387,16 @@ class Model:
         block_masks: Optional[Dict[str, Any]] = None,
         per_lane: bool = False,
         moe_grouped: Optional[bool] = None,
-    ) -> torch.Tensor:
-        """One layer (the JAX package's ``_dense_layer_step``) -> the new h:
-        post-LN for the albert family, pre-LN for the decoder families.  An
-        MoE layer routes each batch row on its own with ``moe_grouped``, all
-        rows together without it (None: the config's
-        ``moe_grouped_dispatch``); its aux loss is not kept.  The decoder's
-        two pre-norms take ``use_kernels`` as the JAX package's take
-        ``use_pallas``: a LayerNorm goes to the layernorm kernel, an RMS
-        norm has none."""
+        with_aux: bool = False,
+    ):
+        """One layer (the JAX package's ``_dense_layer_step``) -> the new h,
+        or with ``with_aux`` (h, the MoE router's aux loss, a float32 zero
+        for any other layer): post-LN for the albert family, pre-LN for the
+        decoder families.  An MoE layer routes each batch row on its own
+        with ``moe_grouped``, all rows together without it (None: the
+        config's ``moe_grouped_dispatch``).  The decoder's two pre-norms
+        take ``use_kernels`` as the JAX package's take ``use_pallas``: a
+        LayerNorm goes to the layernorm kernel, an RMS norm has none."""
         cfg = self.cfg
         attn = dict(causal=causal, positions=positions, span_z=span_z, span_ramp=cfg.edgebert.span.ramp,
                     kv_len=kv_len, cache=cache, cache_pos=cache_pos, use_kernels=use_kernels)
@@ -380,8 +410,11 @@ class Model:
                                   cfg, **attn)
         hn = L.apply_norm(lp["norm2"], h, kind=cfg.norm, use_kernels=use_kernels)
         if "moe" in lp:
-            return h + moe.apply_moe(lp["moe"], hn, cfg, grouped=moe_grouped)[0]
-        return h + L.apply_mlp(lp["mlp"], hn, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
+            mo, aux = moe.apply_moe(lp["moe"], hn, cfg, grouped=moe_grouped)
+        else:
+            mo = L.apply_mlp(lp["mlp"], hn, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
+        return (h + mo, aux) if with_aux else h + mo
 
     def _rwkv_layer_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
                          decode: bool = False):
@@ -445,10 +478,44 @@ class Model:
             q = q + xp["xattn"]["bq"].reshape(cfg.n_heads, cfg.head_dim)
         return L.attention(q, ek, ev, causal=False).reshape(B, S, -1) @ xp["xattn"]["wo"]
 
+    def _cross_layer_step(self, lp: Params, h: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+        """The gated cross layer of the training forward (the JAX package's
+        ``_cross_layer_step``): attention from the normed h to the image
+        embeddings [B, n_img, d] (keys and values projected from them, no
+        positions, no mask), then the SwiGLU MLP, each added through
+        tanh of its gate; on the reference ops, as in the JAX package."""
+        cfg = self.cfg
+        x = L.attention_layer(lp["xattn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm), cfg, causal=False,
+                              kv_source=img)
+        h = h + torch.tanh(lp["gate_attn"]).to(h.dtype) * x
+        m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], h, kind=cfg.norm), act=cfg.act)
+        return h + torch.tanh(lp["gate_mlp"]).to(h.dtype) * m
+
+    def _cross_decode(self, lp: Params, h: torch.Tensor, ik: torch.Tensor, iv: torch.Tensor) -> torch.Tensor:
+        """The gated cross layer against the image K/V in the cache [B,
+        n_img, KV, head_dim] (the JAX package's ``_cross_decode``): returns
+        what the layer adds to h, the gated attention and the gated MLP of
+        norm2(h + attention)."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        q = (L.apply_norm(lp["norm1"], h, kind=cfg.norm) @ lp["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        out = L.attention(q, ik, iv, causal=False).reshape(B, S, -1) @ lp["xattn"]["wo"]
+        x = torch.tanh(lp["gate_attn"]).to(h.dtype) * out
+        m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], h + x, kind=cfg.norm), act=cfg.act)
+        return x + torch.tanh(lp["gate_mlp"]).to(h.dtype) * m
+
+    def _vlm_groups(self):
+        """(group g, self layers of the group) over the vlm family's stack:
+        ``cross_attn_every - 1`` self layers, then cross layer g."""
+        n_self = self.cfg.cross_attn_every - 1
+        return [(g, range(g * n_self, (g + 1) * n_self))
+                for g in range(self.cfg.n_layers // self.cfg.cross_attn_every)]
+
     def _layer(self, p: Params, i: int, key: str = "layers"):
         """(layer params, span) of layer ``i``: the shared layer (albert) or
         views into the stacked layers under ``key`` (dense, MoE, ssm,
-        hybrid; the encdec family's "enc_layers" and "dec_cross" too)."""
+        hybrid, vlm; the encdec family's "enc_layers" and "dec_cross" and
+        the vlm family's "cross_layers" too)."""
         if self.cfg.family == "albert":
             return p["layer"], self._span_for_layer(p, 0)
 
@@ -465,14 +532,101 @@ class Model:
 
     # ------------------------------------------------------------- forward
     def apply_train(self, p: Params, batch: Dict[str, Any]) -> ModelOutput:
-        """Dense all-layers forward of the albert family (every off-ramp's
-        logits and entropy when early exit is on).  It runs on the reference
-        ops only (no kernel has a backward), so autograd differentiates it
-        end to end, as XLA differentiates the JAX package's."""
+        """The training forward over whole sequences, each family's as the
+        JAX package has it: the albert family's dense all-layers pass (every
+        off-ramp's logits and entropy when early exit is on), or a decoder's
+        causal pass to the LM logits [B, S, V] (the MoE family with its
+        router aux loss summed over layers; the ssm and hybrid families from
+        a zero state through the chunked WKV and SSD; the encdec family over
+        ``batch["enc_input"]`` frames, the vlm family over
+        ``batch["image_embeds"]``).  It runs on the reference ops only (no
+        kernel has a backward, and the JAX package passes no kernel flag
+        here), so autograd differentiates it end to end, as XLA
+        differentiates the JAX package's."""
+        forward = {"albert": self._forward_albert, "dense": self._forward_dense, "moe": self._forward_dense,
+                   "ssm": self._forward_ssm, "hybrid": self._forward_hybrid, "encdec": self._forward_encdec,
+                   "vlm": self._forward_vlm}[self.cfg.family]
+        return forward(p, torch.as_tensor(batch["tokens"], device=p["embed"]["tok"].device), batch)
+
+    def _aux_input(self, batch: Dict[str, Any], key: str, what: str, device) -> torch.Tensor:
+        if key not in batch:
+            raise ValueError(f'the {self.cfg.family} training forward needs batch["{key}"], {what}')
+        return torch.as_tensor(batch[key], device=device)
+
+    def _lm_output(self, p: Params, h: torch.Tensor, aux: Optional[torch.Tensor] = None,
+                   norm: Optional[str] = None) -> ModelOutput:
+        h = L.apply_norm(p["final_norm"], h, kind=norm or self.cfg.norm)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return ModelOutput(logits=self.lm_logits(p, h), aux_loss=aux)
+
+    def _forward_dense(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """The dense and MoE decoders (the JAX package's ``_forward_dense``):
+        each MoE layer routes the whole batch as the config groups it, and
+        the router aux losses are summed over the layers."""
+        h = self.embed(p, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(self.cfg.n_layers):
+            h, a = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, with_aux=True)
+            aux = aux + a
+        return self._lm_output(p, h, aux)
+
+    def _forward_ssm(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """RWKV6 (the JAX package's ``_forward_ssm``): every layer's chunked
+        WKV from a zero state, the final LayerNorm."""
+        h = self.embed(p, tokens)
+        for i in range(self.cfg.n_layers):
+            h = self._rwkv_layer_step(self._layer(p, i)[0], h)[0]
+        return self._lm_output(p, h, norm="layernorm")
+
+    def _forward_hybrid(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """zamba2 (the JAX package's ``_forward_hybrid``): the Mamba2 blocks
+        (chunked SSD from a zero state), the shared block on concat(h, x0)
+        after every ``attn_every``-th block, x0 the embedding output.  The
+        JAX package has two forms of the same computation, a scan with a
+        ``cond`` per block and (``hybrid_grouped``) a scan over groups of
+        ``attn_every`` blocks with the remainder blocks after; written out
+        as a loop, both are this one."""
         cfg = self.cfg
-        if cfg.family != "albert":
-            raise NotImplementedError(f"the {cfg.family} family's training forward is not ported")
-        tokens = torch.as_tensor(batch["tokens"], device=p["embed"]["tok"].device)
+        h = x0 = self.embed(p, tokens)
+        for i in range(cfg.n_layers):
+            h = self._mamba_block_step(self._layer(p, i)[0], h)[0]
+            if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+                h = self._shared_attn_step(p["shared_attn"], h, x0, span_z=self._span_for_layer(p, 0))
+        return self._lm_output(p, h)
+
+    def _forward_encdec(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """whisper (the JAX package's ``_forward_encdec``): the encoder over
+        ``batch["enc_input"]`` once, then each decoder layer followed by its
+        cross-attention to the encoder's output."""
+        cfg = self.cfg
+        enc = self._encode(p, self._aux_input(batch, "enc_input", "the encoder frames [B, enc_seq_len, d_model]",
+                                              tokens.device))
+        h = self.embed(p, tokens)
+        for i in range(cfg.n_layers):
+            h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True)
+            xp = self._layer(p, i, "dec_cross")[0]
+            h = h + L.attention_layer(xp["xattn"], L.apply_norm(xp["norm"], h, kind=cfg.norm), cfg, causal=False,
+                                      kv_source=enc)
+        return self._lm_output(p, h)
+
+    def _forward_vlm(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """llama-3.2-vision (the JAX package's ``_forward_vlm``): each group's
+        self layers, then its gated cross layer over
+        ``batch["image_embeds"]``."""
+        img = self._aux_input(batch, "image_embeds", "the image embeddings [B, n_image_tokens, d_model]",
+                              tokens.device)
+        h = self.embed(p, tokens)
+        for g, selfs in self._vlm_groups():
+            for i in selfs:
+                h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True)
+            h = self._cross_layer_step(self._layer(p, g, "cross_layers")[0], h, img)
+        return self._lm_output(p, h)
+
+    def _forward_albert(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """The shared layer n_layers times, non-causal (the JAX package's
+        ``_forward_albert``)."""
+        cfg = self.cfg
         h = self.embed(p, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         span_z = self._span_for_layer(p, 0)
@@ -547,7 +701,11 @@ class Model:
         shared block's "k" / "v" [n_attn, B, max_seq, KV, head_dim]; the
         encdec family's "k" / "v" and the encoder's cross K/V "enc_k" /
         "enc_v" [n_layers, B, enc_seq_len, KV, head_dim] in the config's
-        dtype (``prefill`` writes them)."""
+        dtype (``prefill`` writes them); the vlm family's "k" / "v" for its
+        self layers and the image K/V "img_k" / "img_v" [n_cross, B,
+        n_image_tokens, KV, head_dim] in the config's dtype (``prefill``
+        writes them; the serving prefill leaves them zero, as the JAX
+        server does)."""
         self._check_decoder()
         cfg = self.cfg
         dev = resolve_device(device)
@@ -572,6 +730,10 @@ class Model:
             cache = {"conv": zeros(cfg.n_layers, B, mamba2.CONV_K - 1, mamba2.d_inner(cfg) + 2 * cfg.ssm_state),
                      "ssm": zeros(cfg.n_layers, B, mamba2.n_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state)}
             return {**cache, **kv(n_attn)} if n_attn else cache
+        if cfg.family == "vlm":
+            n_cross = cfg.n_layers // cfg.cross_attn_every
+            img = (n_cross, B, cfg.n_image_tokens, cfg.n_kv_heads, cfg.head_dim)
+            return {**kv(cfg.n_layers - n_cross), "img_k": zeros(*img), "img_v": zeros(*img)}
         cache = kv(cfg.n_layers)
         if cfg.family == "encdec":
             enc = (cfg.n_layers, B, cfg.enc_seq_len, cfg.n_kv_heads, cfg.head_dim)
@@ -611,6 +773,18 @@ class Model:
                 attn_idx += 1
         return h
 
+    def _vlm_layers(self, p: Params, h: torch.Tensor, cache: Params, *, positions, cache_pos):
+        """Every group of the vlm stack over h: its self layers with their
+        KV written into ``cache`` in place, then its cross layer against
+        the cache's image K/V (no kernel flag reaches them in the JAX
+        package)."""
+        for g, selfs in self._vlm_groups():
+            for i in selfs:
+                h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, positions=positions,
+                                           cache=(cache["k"][i], cache["v"][i]), cache_pos=cache_pos)
+            h = h + self._cross_decode(self._layer(p, g, "cross_layers")[0], h, cache["img_k"][g], cache["img_v"][g])
+        return h
+
     def _positions(self, pos: Any, S: int, device) -> tuple:
         """(pos as a [B] or [1] tensor, positions [B, S]) for a cache
         position per lane (or one for all)."""
@@ -633,7 +807,10 @@ class Model:
         changes nothing for it, as in the JAX package.  The encdec family
         attends each layer's encoder K/V in the cache (``prefill`` writes
         them); only its final LayerNorm takes ``use_kernels``, as in the JAX
-        package.  ``aux`` is the JAX signature's and unused.  Returns
+        package.  The vlm family runs each group's self layers, then the
+        group's gated cross layer against the image K/V in the cache; its
+        layers take no kernel flag in the JAX package, and its final norm is
+        RMS.  ``aux`` is the JAX signature's and unused.  Returns
         (logits [B, S, V], cache)."""
         self._check_decoder()
         cfg = self.cfg
@@ -646,6 +823,8 @@ class Model:
         h = self.embed(p, tokens, positions=positions)
         if cfg.family == "hybrid":
             h = self._hybrid_layers(p, h, cache, positions=positions, cache_pos=pos_t, decode=True)
+        elif cfg.family == "vlm":
+            h = self._vlm_layers(p, h, cache, positions=positions, cache_pos=pos_t)
         else:
             encdec = cfg.family == "encdec"
             for i in range(cfg.n_layers):
@@ -766,7 +945,9 @@ class Model:
         hybrid family needs 3 prompt tokens or more: its conv state is the
         last 3; the JAX package fails on fewer).  The encdec family encodes
         ``aux["enc_input"]`` (frames [B, enc_seq_len, d_model]) once and
-        writes every layer's cross K/V into the cache.  Every norm stays on
+        writes every layer's cross K/V into the cache; the vlm family
+        projects ``aux["image_embeds"]`` ([B, n_image_tokens, d_model]) to
+        every cross layer's image K/V and writes them into the cache.  Every norm stays on
         the reference ops, as in the JAX package.  Returns (last-token
         logits [B, 1, V], cache)."""
         self._check_decoder()
@@ -782,6 +963,16 @@ class Model:
                 raise ValueError(f"the hybrid prefill needs {mamba2.CONV_K - 1} prompt tokens or more (the conv "
                                  f"state is the last {mamba2.CONV_K - 1}), got {tokens.shape[1]}")
             h = self._hybrid_layers(p, h, cache, positions=positions, cache_pos=0, decode=False)
+        elif cfg.family == "vlm":
+            if not aux or "image_embeds" not in aux:
+                raise ValueError('the vlm prefill needs aux["image_embeds"], the image embeddings '
+                                 "[B, n_image_tokens, d_model]")
+            img = torch.as_tensor(aux["image_embeds"], device=tokens.device)
+            xattn = p["cross_layers"]["xattn"]
+            shape = (xattn["wk"].shape[0],) + tuple(img.shape[:2]) + (cfg.n_kv_heads, cfg.head_dim)
+            for name, w in (("img_k", "wk"), ("img_v", "wv")):
+                cache[name].copy_(torch.einsum("bsd,ldk->lbsk", img, xattn[w]).reshape(shape))
+            h = self._vlm_layers(p, h, cache, positions=positions, cache_pos=0)
         else:
             encdec = cfg.family == "encdec"
             if encdec:

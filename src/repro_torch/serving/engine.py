@@ -50,7 +50,7 @@ from repro_torch.core.early_exit import (
     predicted_token_layers,
 )
 from repro_torch.kernels import dispatch
-from repro_torch.models.model import Model
+from repro_torch.models.model import DECODER_FAMILIES, Model
 from repro_torch.serving import step_math
 from repro_torch.serving.scheduler import LaneScheduler, SchedulingPolicy, StepReport
 
@@ -519,6 +519,8 @@ class ClassifierServer:
 
 # the families whose decode state is recurrent, zeroed at refill
 RECURRENT_FAMILIES = ("ssm", "hybrid")
+# the families served in plain decode only: no per-token exit in the JAX package
+PLAIN_DECODE_FAMILIES = RECURRENT_FAMILIES + ("encdec", "vlm")
 
 
 class DecoderServer:
@@ -529,7 +531,7 @@ class DecoderServer:
     cache window, so a refilled lane continues from its actual prompt end.
     Cache shapes bucket by prompt plus generation budget; the caches live in
     a bucket-keyed dict, since the scheduler time-slices across buckets.
-    It drives the dense, MoE, ssm and hybrid families; an MoE layer
+    It drives the dense, MoE, ssm, hybrid, encdec and vlm families; an MoE layer
     routes each lane on its own in the fused step and the lanes together in
     the prefill, as the JAX package's lane ``vmap`` and batched prefill do
     (``step_math.decoder_prefill``).  The ssm family (RWKV6) carries a
@@ -537,10 +539,12 @@ class DecoderServer:
     only the positions), and the hybrid family (zamba2) a conv and SSM
     state per block beside the shared attention block's KV rows: plain
     decode only for both, as in the JAX package, with or without an
-    arbiter or residency.  The encdec and vlm families are refused: the JAX
-    server never feeds them their encoder or image input (its requests
-    carry none, and its prefill runs ``decode_step`` alone), so it serves
-    them attending to zero cross K/V.
+    arbiter or residency.  The encdec and vlm families are served as the
+    JAX server serves them, in plain decode: a request carries no encoder
+    or image input, the bucket's cache comes from ``init_cache`` and the
+    prefill runs ``decode_step`` alone, so their cross layers attend to the
+    cache's zero cross or image K/V, which the server never writes.  Their
+    KV rows are not recurrent state, so a refill does not zero them.
 
     A refilled lane's recurrent state is zeroed before its prefill, so a
     request's tokens do not depend on the request the lane served before.
@@ -579,7 +583,8 @@ class DecoderServer:
     norms (minitron-8b's; the ssm family's final norm alone) to the
     layernorm kernel, as the JAX package routes ``use_pallas`` (RMS norms
     have no kernel, cache attention stays on the reference ops, so the
-    hybrid family launches none); the default is True, as in
+    hybrid and vlm families launch none; whisper's final LayerNorm of every
+    ``decode_step`` takes it, the prefill's steps too); the default is True, as in
     ``ClassifierServer``.  ``device`` — the card
     unless the caller asks for ``"cpu"``.  ``task`` / ``residency`` —
     multi-task residency, as in ``ClassifierServer``.
@@ -612,14 +617,10 @@ class DecoderServer:
         device: DeviceLike = "cuda",
     ):
         family = model.cfg.family
-        if family in ("encdec", "vlm"):
-            raise ValueError(f"the decoder server does not drive the {family} family: the JAX package's server "
-                             "never feeds it its encoder or image input (requests carry none, the prefill runs "
-                             "decode_step alone), so it would attend to zero cross K/V")
-        if family not in ("dense", "moe") + RECURRENT_FAMILIES:
-            raise ValueError("the decoder server drives the dense, MoE, ssm and hybrid families")
-        if family in RECURRENT_FAMILIES and (exit_threshold is not None or threshold_schedule is not None
-                                             or spec_window != 1):
+        if family not in DECODER_FAMILIES:
+            raise ValueError("the decoder server drives the dense, MoE, ssm, hybrid, encdec and vlm families")
+        if family in PLAIN_DECODE_FAMILIES and (exit_threshold is not None or threshold_schedule is not None
+                                                or spec_window != 1):
             raise ValueError(f"the {family} family has no per-token exit: no exit_threshold, threshold_schedule "
                              "or spec_window > 1")
         if replicas != 1 or mesh is not None:

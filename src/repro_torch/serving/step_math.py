@@ -191,7 +191,9 @@ def decoder_prefill(
     recurrent state couples no lanes either, so its lane steps alone too;
     so does the hybrid family's: its causal conv, its SSD step and its
     shared block's attention to the lane's own KV rows each read the lane's
-    row alone.
+    row alone; and so do the encdec and vlm families', whose cross layers
+    read the lane's own cross or image K/V rows (zeros: the server never
+    writes them, as the JAX server does not).
 
     Every cache leaf is [n, lanes, ...]: the KV cache's rows, the ssm
     family's recurrent state (token-shift inputs and WKV state) or the

@@ -412,6 +412,82 @@ def test_encdec_prefill_and_decode_match_cpu(cuda):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
 
 
+def test_vlm_smoke_prefill_decode_and_drain_match_cpu(cuda):
+    """The smoke llama-3.2-vision model on the card against the CPU, its
+    cross-layer gates set nonzero (at their init of zero each cross layer
+    is the identity): the prefill over a seeded image and 4 teacher-forced
+    decode steps, logits atol 1e-4; then a 2-lane DecoderServer drain
+    (image K/V zero, as the server serves the family), tokens equal; no
+    kernel launched on either (RMS norms, cache and cross attention on the
+    reference ops)."""
+    from repro_torch.common.device import tree_to
+
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_vision_90b"), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params["cross_layers"]["gate_attn"] = torch.tensor([0.7, -0.5])
+    params["cross_layers"]["gate_mlp"] = torch.tensor([0.4, 0.9])
+    img = _t((2, cfg.n_image_tokens, cfg.d_model), 62, 0.1)
+    toks = torch.from_numpy(np.random.default_rng(63).integers(0, cfg.vocab_size, (2, 12)))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_to(params, dev)
+        cache = model.init_cache(2, 16, device=dev)
+        ops.reset_launch_counts()
+        lg, cache = model.prefill(p, toks[:, :8].to(dev), cache, aux={"image_embeds": img.to(dev)})
+        logits = [lg.cpu()]
+        for t in range(8, 12):
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev), t, use_kernels=True)
+            logits.append(lg.cpu())
+        out[dev.type] = (logits, sum(ops.launch_counts().values()))
+    (lc, _), (lg_card, launches) = out["cpu"], out["cuda"]
+    assert launches == 0 and ops.VLM_DECODE_KERNELS == ()
+    for a, b in zip(lg_card, lc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+    prompts = [np.random.default_rng(70 + i).integers(4, cfg.vocab_size, 5 + i) for i in range(4)]
+    (cpu, _, _), (gpu, launches, st) = _drain_cpu_and_card(cuda, model, params, prompts, batch_lanes=2)
+    assert not any(launches.values()) and st["completed"] == 4
+    for i in range(len(prompts)):
+        assert gpu.done[i].generated == cpu.done[i].generated
+
+
+def test_zamba2_training_step_matches_cpu(cuda):
+    """One make_train_step step of the smoke zamba2 at its own ssm_chunk 32
+    (batch 2 x 64 tokens, where the JAX package's chunked SSD gives NaN
+    gradients and the port's masked exponent finite ones) on the card and
+    on the CPU from the same weights: the loss within 1e-5 relative, every
+    gradient finite and within 1e-4 of its leaf's largest magnitude (the
+    SSD's state carries the rounding of every op into a_log's and dt_bias's
+    sums over positions and heads; chip_smoke's lm_train holds the full
+    width's first 6 blocks at the same 1e-4), and no kernel launched
+    (training takes the reference ops)."""
+    from repro_torch.common.device import tree_to
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.training.optim import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import make_loss_fn, make_train_step, to_batch, value_and_grad
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2_1p2b"), dtype="float32", remat_policy="none")
+    assert cfg.ssm_chunk == 32
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    data = SyntheticLM(cfg.vocab_size, 64, 2, seed=0).batch(0)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p, batch = tree_to(params, dev), to_batch(data, dev)
+        loss_fn = make_loss_fn(model)
+        ops.reset_launch_counts()
+        (loss, _), grads = value_and_grad(lambda q: loss_fn(q, batch), p)
+        _, _, metrics = make_train_step(model, AdamWConfig(lr=1e-3))(p, adamw_init(p), batch)
+        assert sum(ops.launch_counts().values()) == 0
+        out[dev.type] = (float(loss), {k: v.cpu() for k, v in _flat(grads).items()}, float(metrics["loss"]))
+    (lc, gc, mc), (lg_, gg, mg) = out["cpu"], out["cuda"]
+    assert abs(lg_ - lc) <= 1e-5 * abs(lc) and abs(mg - mc) <= 1e-5 * abs(mc)
+    for path, want in gc.items():
+        assert torch.isfinite(gg[path]).all() and torch.isfinite(want).all(), path
+        err = float((gg[path] - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-4, (path, err)
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = _t((4, 8), 21).to(cuda)
     with pytest.raises(TypeError):

@@ -488,29 +488,26 @@ def test_batched_lanes_match_one_lane_calls(dec):
 def test_dense_family_refuses_what_is_not_ported():
     """The activations, norms and EdgeBERT features the decoders do not
     have (gelu stays refused for the dense family: only the encdec family
-    takes it), the training forward, the family not ported yet (vlm:
-    refused by the model and the init), and what the hybrid and encdec
-    families do not have in the JAX package (per-token exit) or in the port
-    yet (their training forwards)."""
+    takes it), the albert family without its one shared layer, and what the hybrid, encdec and vlm families do not have in
+    the JAX package (per-token exit).  Every decoder family's training
+    forward is ported: ``tests/test_torch_train_forwards.py``."""
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="dense decoder"):
         t_build(dataclasses.replace(tcfg, act="gelu"))
     with pytest.raises(ValueError, match="dense decoder"):
         t_build(tcfg.with_edgebert(quant=dataclasses.replace(tcfg.edgebert.quant, enabled=True)))
-    with pytest.raises(NotImplementedError):
-        t_build(tcfg).apply_train({}, {"tokens": np.zeros((1, 4), np.int32)})
+    assert t_build(tcfg).apply_train(t_init(tcfg, device="cpu"),
+                                     {"tokens": np.zeros((1, 4), np.int32)}).logits.shape == (1, 4, tcfg.vocab_size)
     with pytest.raises(ValueError, match="families are ported"):
-        t_build(dataclasses.replace(tcfg, family="vlm"))
+        t_build(dataclasses.replace(tcfg, family="albert"))
     with pytest.raises(ValueError, match="decoders are ported"):
-        t_init(dataclasses.replace(tcfg, family="vlm"), device="cpu")
-    for arch in ("zamba2_1p2b", "whisper_medium"):
+        t_init(dataclasses.replace(tcfg, family="albert"), device="cpu")
+    for arch in ("zamba2_1p2b", "whisper_medium", "llama3_2_vision_90b"):
         cfg = dataclasses.replace(t_smoke(arch), dtype="float32")
         model = t_build(cfg)
         params = t_init(cfg, device="cpu")
         with pytest.raises(ValueError, match="per-token exit"):
             model.decode_step_ee(params, model.init_cache(1, 8, device="cpu"), torch.tensor([[3]]), 0, 1.0)
-        with pytest.raises(NotImplementedError):
-            model.apply_train(params, {"tokens": np.zeros((1, 4), np.int32)})
 
 
 def test_albert_family_prefill_and_decode_step():

@@ -327,9 +327,11 @@ def test_decode_consistency(ed):
 
 def test_encdec_refusals(ed):
     """Per-token exit, speculative decode and the token-exit forward do not
-    exist for the family in the JAX package (it asserts): ValueError; the
-    training forward is not ported; the DecoderServer and the launcher
-    refuse it, since the JAX server never feeds it the encoder input."""
+    exist for the family in the JAX package (it asserts): ValueError, and
+    the DecoderServer and the launcher refuse exit for it.  The training
+    forward and the server are ported (``test_torch_train_forwards.py``,
+    ``test_torch_decoder_families_server.py``): the server serves the
+    family in plain decode, as the JAX server does."""
     _, tm, _, tp, cfg = ed
     cache = tm.init_cache(1, 8, device="cpu")
     tok = torch.tensor([[3]])
@@ -339,12 +341,13 @@ def test_encdec_refusals(ed):
         tm.decode_step_spec(tp, cache, tok, 0, 1.0, 2)
     with pytest.raises(ValueError, match="token exit"):
         tm.forward_token_exit(tp, np.zeros((1, 4), np.int64), 1.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="enc_input"):
         tm.apply_train(tp, {"tokens": np.zeros((1, 4), np.int64)})
-    with pytest.raises(ValueError, match="encoder or image input"):
-        DecoderServer(tm, tp, device="cpu")
-    with pytest.raises(SystemExit, match="Queue 3 item 9"):
-        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="encdec family has no per-token exit"):
+        DecoderServer(tm, tp, device="cpu", exit_threshold=1.0)
+    assert DecoderServer(tm, tp, device="cpu").model is tm
+    with pytest.raises(ValueError, match="no per-token exit"):
+        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--threshold", "1.0"])
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="encoder-decoder"):
         t_build(dataclasses.replace(tcfg, act="swiglu"))

@@ -188,6 +188,44 @@ def test_scan_covers_the_hybrid_slice():
             "repro_torch.configs.whisper_medium"} <= names
 
 
+def test_scan_covers_the_vlm_slice():
+    """The module scan walks the package, so it covers this slice's new
+    config, and the modules the slice changed: the model (the vlm family
+    and every decoder's training forward), the server and its launcher, the
+    training launcher."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.configs.llama3_2_vision_90b", "repro_torch.models.model", "repro_torch.models.mamba2",
+            "repro_torch.serving.engine", "repro_torch.launch.serve", "repro_torch.launch.train"} <= names
+
+
+def test_vlm_and_decoder_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serving.engine import DecoderServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_vision_90b"), dtype="float32")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderServer(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    for arch in ("llama3_2_vision_90b", "whisper_medium"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--smoke"])
+    assert DecoderServer(model, params, device="cpu").device.type == "cpu"
+    assert model.init_cache(1, 8, device="cpu")["img_k"].device.type == "cpu"
+    for arch in ("zamba2_1p2b", "deepseek_7b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--arch", arch, "--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
 def test_scan_covers_the_decoder_slice():
     """The module scan walks the package, so it covers the decoder slice's
     new module too."""

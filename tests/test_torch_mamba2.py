@@ -430,7 +430,8 @@ def test_decode_consistency(hyb):
 def test_hybrid_refuses_exit_and_spec(hyb):
     """Per-token exit, speculative decode and the token-exit forward do not
     exist for the hybrid family in the JAX package (it asserts); the port
-    raises ValueError, and the training forward is not ported."""
+    raises ValueError.  Its training forward is ported (held against the
+    JAX package in ``test_torch_train_forwards.py``)."""
     _, tm, _, tp, cfg = hyb
     cache = tm.init_cache(1, 8, device="cpu")
     tok = torch.tensor([[3]])
@@ -440,8 +441,7 @@ def test_hybrid_refuses_exit_and_spec(hyb):
         tm.decode_step_spec(tp, cache, tok, 0, 1.0, 2)
     with pytest.raises(ValueError, match="token exit"):
         tm.forward_token_exit(tp, np.zeros((1, 4), np.int64), 1.0)
-    with pytest.raises(NotImplementedError):
-        tm.apply_train(tp, {"tokens": np.zeros((1, 4), np.int64)})
+    assert tm.apply_train(tp, {"tokens": np.zeros((1, 4), np.int64)}).logits.shape == (1, 4, cfg.vocab_size)
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="hybrid decoder"):
         t_build(dataclasses.replace(tcfg, norm="layernorm"))

@@ -363,7 +363,8 @@ def test_decode_consistency(ssm):
 def test_ssm_refuses_exit_and_spec(ssm):
     """Per-token exit, speculative decode and the token-exit forward do not
     exist for the ssm family in the JAX package (it asserts); the port
-    raises ValueError, and the training forward is not ported."""
+    raises ValueError.  Its training forward is ported (held against the
+    JAX package in ``test_torch_train_forwards.py``)."""
     _, tm, _, tp, cfg = ssm
     cache = tm.init_cache(1, 8, device="cpu")
     tok = torch.tensor([[3]])
@@ -373,8 +374,7 @@ def test_ssm_refuses_exit_and_spec(ssm):
         tm.decode_step_spec(tp, cache, tok, 0, 1.0, 2)
     with pytest.raises(ValueError, match="token exit"):
         tm.forward_token_exit(tp, np.zeros((1, 4), np.int64), 1.0)
-    with pytest.raises(NotImplementedError):
-        tm.apply_train(tp, {"tokens": np.zeros((1, 4), np.int64)})
+    assert tm.apply_train(tp, {"tokens": np.zeros((1, 4), np.int64)}).logits.shape == (1, 4, cfg.vocab_size)
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="ssm decoder"):
         t_build(dataclasses.replace(tcfg, tie_embeddings=True))

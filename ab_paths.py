@@ -157,7 +157,9 @@ class Variant:
     def server(self):
         srv = self.ctx["fresh"]()
         if self.dense:
-            srv._block_masks = None        # the MLP takes h @ w (cuBLAS)
+            # the MLP takes h @ w (cuBLAS); a server with replicas keeps one
+            # set of masks per replica
+            srv._block_masks = [None] * srv.replicas if isinstance(srv._block_masks, list) else None
         return srv
 
     def round(self, warm: bool) -> None:

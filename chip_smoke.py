@@ -45,6 +45,21 @@ Phases, each printing one JSON line:
                 BatchedDVFSArbiter serving 32 seeded requests of 8-128
                 tokens over buckets (32, 64, 128), with its kernels' launch
                 counts, drain times and the device time by kernel;
+ 6b. sharded  — lane-sharded serving on the serving phase's config,
+                weights, requests, threshold and controller: a
+                ClassifierServer of 2 replicas x 4 lanes (cuda:0 and cuda:1
+                with two cards, else both named on cuda:0; the line gives
+                "devices" and "cards"), one clock domain per replica, then
+                2R contracts admitted at their own quote under
+                LeastLoadedPlacement; every serving kernel launched, zero
+                accepted-SLO misses, one build per (bucket, 2), exits equal
+                to the unsharded 8-lane drain's and logits within 5e-2,
+                every AF flip between the slabs' and the flat step's layer
+                outputs one grid step at a boundary (shard_flips, at each
+                bucket), each domain's clock, energy and switches, drain
+                wall and busy ms, idle share and requests/s beside the
+                unsharded drain's (in turns), and every launcher on every
+                card leaving the current device as it found it;
   7. replay   — the multi-task path at the same width
                 (launch/replay.py): a seeded 1000-event mmpp_multitask
                 trace through per-task AdmissionControllers over a
@@ -77,7 +92,12 @@ Phases, each printing one JSON line:
                 time by kernel, idle share) beside the fused step's HBM
                 bound; then the card against the CPU on the first 2
                 layers, teacher-forced (every off-ramp's logits and
-                entropy within 1e-4).
+                entropy within 1e-4); and the same traffic through a
+                DecoderServer of 2 replicas x 2 lanes (the sharded phase's
+                devices) at W = 1 and W = 4: tokens and exits equal to the
+                unsharded drains', W = 4 equal to W = 1 bit for bit,
+                softmax_entropy launched 2 x n_layers x W per fused step
+                and nothing else.
  8b. moe_decode — the same recipe on the MoE decoder at full width
                 (qwen2-moe-a2.7b: its first 12 of 24 layers, cut for the
                 script's time, d_model 2048, 16 x 128 heads with qkv biases
@@ -101,9 +121,10 @@ Phases, each printing one JSON line:
                 fused step, W = 4 equal to W = 1 bit for bit, the step's
                 bytes beside its HBM bound, and the first 2 layers against
                 the CPU.
- 8d. ssm_decode — the RWKV6 decoder at full width and depth (rwkv6-7b:
-                32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336,
-                vocab 65536; 30.2 GB drawn on the card): a DecoderServer
+ 8d. ssm_decode — the RWKV6 decoder at full width (rwkv6-7b: its first
+                16 of 32 layers, cut for the script's time;
+                d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab 65536;
+                the weights drawn on the card): a DecoderServer
                 drain of the same traffic, plain decode (no exit in this
                 family) with a shared-clock arbiter; layernorm launched
                 once per fused step and once per prefill token (the final
@@ -202,7 +223,10 @@ at the moe_decode shape [4, 151936] with that phase's and at the ln_decode
 shape [4, 256000] with that phase's; layernorm three more, at [4, 4096] with
 the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
 encdec_decode phase's served drain's; `launches_by_path` gives every path's,
-hybrid_decode, encdec_decode, vlm_decode and lm_train included),
+hybrid_decode, encdec_decode, vlm_decode, lm_train and sharded (the
+sharded classifier drain's and the sharded W = 1 decode drain's) included;
+every kernel row also checks that the launch left the current device as it
+found it),
 the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no final line.  Without a CUDA device, or outside a
@@ -409,6 +433,8 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
     def summary_of(path, S_b):
         return "replay" if (path, S_b) == ("replay", max(replay_buckets)) else None
 
+    start_dev = torch.cuda.current_device()
+
     def row(name, source, replaces, shape, err, tol, ok, n_bytes, flops, *, ms, plain_ms, library_ms,
             device_ms, library_device_ms=None, summary=None, label, **detail):
         """Emit and check one kernel row.  A ``summary`` row (one per kernel)
@@ -425,6 +451,9 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
         if passes:
             detail["fp32_rate_ms"] = bound_ms(n_bytes, flops)[0]
         emit({"phase": "kernel", **r, "row": f"{name}@{label}", **detail})
+        if torch.cuda.current_device() != start_dev:
+            raise AssertionError(f"{name} ({shape}): the launch left cuda:{torch.cuda.current_device()} "
+                                 f"current, not cuda:{start_dev}")
         if not ok:
             raise AssertionError(f"{name} ({shape}): kernel and plain version disagree beyond {tol} "
                                  f"(max abs error {err})")
@@ -1046,19 +1075,17 @@ def af_next_step(lo, e_lo, fmt):
     return torch.where(lo == 0, min_pos, exact_pow2(e - fmt.n_mant))
 
 
-def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
-    """Layer by layer on the CPU's state (teacher forcing): the serving
-    layer step before activation quantization on the card and on the CPU,
-    at one ``bucket``, then the per-lane AF quantization of each.  The two
-    pre-quantization tensors must agree within PRE_QUANT_ATOL and give
-    every lane the same bias.  A quantized element that differs is a flip:
-    it must be one step between neighbouring grid points whose midpoint
-    lies within the pre-quantization difference of the CPU's value, so the
-    two values straddle an AF rounding boundary.  Every other element must
-    be equal."""
+def layer_steps(cfg, params, dev, kv_lens, bucket: int, slabs=None):
+    """A side of ``layer_flips``: the serving layer step before activation
+    quantization on ``dev`` (the kernel route), then the per-lane AF
+    quantization (``quantize_groups``, the call dispatch.act_quantize
+    makes), as a function of the CPU's hidden state -> (pre, quantized,
+    biases) on the CPU.  With ``slabs`` (one device per replica) the lanes
+    are cut into that many contiguous slabs, each stepped and quantized on
+    its device with its own params copy and block masks, as a sharded
+    server's fused step runs them."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.common.device import tree_to
@@ -1070,29 +1097,56 @@ def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
     q = cfg.edgebert.quant
     fmt = AFFormat(q.n_bits, q.n_exp)
     model = build_model(cfg.with_edgebert(quant=dataclasses.replace(q, quantize_activations=False)))
+    D = cfg.d_model
+    placed = {}
+    for d in slabs or [dev]:
+        d = torch.device(d)
+        if d not in placed:
+            p = tree_to(params, d)
+            placed[d] = (p, dispatch.mlp_block_masks(p["layer"]["mlp"]))
+    devs = [torch.device(d) for d in (slabs or [dev])]
+
+    def step(h):
+        outs = []
+        for hs, kv, d in zip(h.chunk(len(devs)), kv_lens.chunk(len(devs)), devs):
+            p, masks = placed[d]
+            with torch.no_grad():
+                pre = model._dense_layer_step(p["layer"], hs.to(d), causal=False, kv_len=kv.to(d),
+                                              use_kernels=True, block_masks=masks, per_lane=True)
+                qd, ed = quantize_groups(pre.reshape(-1, D).contiguous(), bucket, fmt=fmt)
+            outs.append((pre.cpu(), qd.reshape(pre.shape).cpu(), ed.cpu()))
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+    return step, fmt
+
+
+def layer_flips(cfg, params, requests, bucket: int, ref_side, test_side) -> dict:
+    """Layer by layer on the reference side's state (teacher forcing), the
+    serving layer step before activation quantization on two sides
+    (``layer_steps``) at one ``bucket``, then the per-lane AF quantization
+    of each.  The two pre-quantization tensors must agree within
+    PRE_QUANT_ATOL and give every lane the same bias.  A quantized element
+    that differs is a flip: it must be one step between neighbouring grid
+    points whose midpoint lies within the pre-quantization difference of
+    the reference's value, so the two values straddle an AF rounding
+    boundary.  Every other element must be equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.models.model import build_model
+
+    (ref_step, fmt), (test_step, _) = ref_side, test_side
     lanes, D = len(requests), cfg.d_model
     toks = np.zeros((lanes, bucket), np.int64)
     lens = np.array([len(t) for t in requests], np.int32)
     for i, t in enumerate(requests):
         toks[i, : len(t)] = t
     valid = torch.as_tensor(np.arange(bucket)[None, :] < lens[:, None])       # [lanes, S]
-    sides = {}
-    for d in ("cpu", dev):
-        p = tree_to(params, torch.device(d))
-        sides[str(d)] = (p, dispatch.mlp_block_masks(p["layer"]["mlp"]), torch.as_tensor(lens).to(d))
-    h = model.embed(sides["cpu"][0], torch.as_tensor(toks)).float()
+    h = build_model(cfg).embed(tree_to(params, torch.device("cpu")), torch.as_tensor(toks)).float()
     per_layer = []
     for layer in range(cfg.n_layers):
-        outs = {}
-        for d, (p, masks, kv) in sides.items():
-            with torch.no_grad():
-                pre = model._dense_layer_step(p["layer"], h.to(d), causal=False, kv_len=kv,
-                                              use_kernels=True, block_masks=masks, per_lane=True)
-                # the path's quantization (dispatch.act_quantize) is this
-                # call; on the card its biases come from the kernel
-                qd, ed = quantize_groups(pre.reshape(-1, D).contiguous(), bucket, fmt=fmt)
-                outs[d] = (pre.cpu(), qd.reshape(pre.shape).cpu(), ed.cpu())
-        (pre_c, q_c, e_c), (pre_g, q_g, e_g) = outs["cpu"], outs[str(dev)]
+        (pre_c, q_c, e_c), (pre_g, q_g, e_g) = ref_step(h), test_step(h)
         pre_err = (pre_g - pre_c).abs()
         flip = (q_g != q_c) & valid[..., None]
         lo = torch.minimum(q_g.abs(), q_c.abs())
@@ -1118,6 +1172,29 @@ def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
             "pre_quant_max_abs_err": max(r["pre_quant_max_abs_err"] for r in per_layer),
             "pre_quant_atol": PRE_QUANT_ATOL,
             "flip_max_abs": max(r["flip_max_abs"] for r in per_layer), "per_layer": per_layer}
+
+
+def quant_flips(cfg, params, requests, dev, bucket: int) -> dict:
+    """``layer_flips`` of the card (the kernels) against the CPU (their
+    plain versions)."""
+    import torch
+
+    kv = torch.as_tensor([len(t) for t in requests], dtype=torch.int32)
+    return layer_flips(cfg, params, requests, bucket, layer_steps(cfg, params, "cpu", kv, bucket),
+                       layer_steps(cfg, params, dev, kv, bucket))
+
+
+def shard_flips(cfg, params, requests, dev, bucket: int, devices) -> dict:
+    """``layer_flips`` of a sharded server's slabs (one per entry of
+    ``devices``, each on its card) against the unsharded step over all the
+    lanes on ``dev``: the slab's smaller shapes sum in another order
+    (split-K, the grouped quantize's clusters), and the flips that makes
+    must each be one grid step at an AF boundary."""
+    import torch
+
+    kv = torch.as_tensor([len(t) for t in requests], dtype=torch.int32)
+    return layer_flips(cfg, params, requests, bucket, layer_steps(cfg, params, dev, kv, bucket),
+                       layer_steps(cfg, params, dev, kv, bucket, slabs=devices))
 
 
 def check_serving_reference(cfg_full, sparams_full, dev) -> None:
@@ -1370,7 +1447,8 @@ def serving_setup(cfg, params, dev, n: int = 32, lanes: int = 8) -> dict:
     requests of 8-128 tokens, the exit threshold from a full-depth
     profiling drain, and ``fresh()``, which builds a ClassifierServer
     (``lanes`` lanes, BUCKETS) with a fresh shared-clock arbiter at the
-    full-depth latency target."""
+    full-depth latency target (``fresh(lanes, **kw)``: other lanes, or
+    a ClassifierServer's keywords such as ``replicas`` / ``devices``)."""
     import numpy as np
 
     from repro_torch.common.device import tree_to
@@ -1391,12 +1469,12 @@ def serving_setup(cfg, params, dev, n: int = 32, lanes: int = 8) -> dict:
     profile_exits = np.argmax(below, axis=1) + 1
     target = no_early_exit_baseline(albert_layer_stats(seq_len=128))["latency_s"]
 
-    def fresh():
+    def fresh(lanes=lanes, **kw):
         controller = default_albert_controller(
             target, seq_len=128, n_layers=cfg.n_layers,
             predictor=fit_exit_predictor(traces[:, 0], profile_exits, n_bins=8))
         return make_server(cfg, params, dev, buckets=BUCKETS, lanes=lanes, threshold=thr,
-                           arbiter=BatchedDVFSArbiter(controller))
+                           arbiter=BatchedDVFSArbiter(controller), **kw)
 
     return {"params": params, "requests": reqs, "threshold": thr, "profile_exits": profile_exits,
             "target": target, "fresh": fresh}
@@ -1473,6 +1551,207 @@ def run_serving_path(cfg, params, dev) -> dict:
         "target_latency_s": target,
         "queue_delay_steps_p50": tel["queue_delay_steps_p50"],
         "queue_delay_steps_p95": tel["queue_delay_steps_p95"],
+    }
+    emit(result)
+    return {**result, "ctx": ctx}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: lane-sharded serving
+# ---------------------------------------------------------------------------
+
+SHARDED_REPLICAS = 2
+
+
+def sharded_devices() -> tuple:
+    """(the replicas' devices, the cards present): cuda:0 and cuda:1 with
+    two cards or more, else both replicas named on cuda:0 (a server never
+    stacks replicas on one card unless they are named)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    devs = [f"cuda:{r}" for r in range(SHARDED_REPLICAS)] if cards >= SHARDED_REPLICAS \
+        else ["cuda:0"] * SHARDED_REPLICAS
+    return devs, cards
+
+
+def launch_every_kernel(dev) -> list:
+    """Every launcher once on small inputs on ``dev``; returns their names
+    (the current-device check: where a launch leaves the calling thread's
+    current device)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.adaptivfloat import af_encode
+    from repro_torch.kernels import block_sparse
+    from repro_torch.kernels.adaptivfloat_k import af_matmul, quantize, quantize_groups
+    from repro_torch.kernels.layernorm import layernorm
+    from repro_torch.kernels.softmax_entropy import entropy, offramp_head, softmax_entropy
+    from repro_torch.kernels.span_attention import span_attention
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(8, 64, generator=g, device=dev)
+    layernorm(x, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    softmax_entropy(x)
+    entropy(torch.randn(2, 4096, generator=g, device=dev))
+    h = torch.randn(4, 8, 64, generator=g, device=dev)
+    g_host = torch.Generator().manual_seed(8)         # the AF codes are encoded on the host
+    pw, cw = torch.randn(64, 64, generator=g_host) / 8, torch.randn(64, 3, generator=g_host) / 8
+    pb, cb = torch.zeros(64, device=dev), torch.zeros(3, device=dev)
+    offramp_head(h, pw.to(dev), pb, cw.to(dev), cb, threshold=0.5)
+    (pc, pe), (cc, ce) = af_encode(pw), af_encode(cw)
+    offramp_head(h, pc.to(dev), pb, cc.to(dev), cb, threshold=0.5, e_min=(int(pe), int(ce)))
+    af_matmul(x, pc.to(dev), int(pe))
+    quantize(x, torch.full((2,), -4, dtype=torch.int32, device=dev), 4)
+    quantize_groups(x, 4)
+    w = torch.randn(64, 64, generator=g, device=dev) / 8
+    mask = np.ones((2, 2), bool)
+    mask[1, 0] = False
+    block_sparse.block_sparse_matmul(x, w, block_sparse.BlockIndex.build(mask, 32, 32, dev, w=w))
+    q = torch.randn(4, 32, 16, generator=g, device=dev)
+    span_attention(q, q, q, torch.full((4,), 32, dtype=torch.int32, device=dev), 32, causal=False)
+    torch.cuda.synchronize(dev)
+    return ["layernorm", "softmax_entropy", "entropy", "offramp_head", "af_matmul", "quantize",
+            "quantize_groups", "block_sparse_matmul", "span_attention"]
+
+
+def check_current_device(cards: int) -> list:
+    """From every card as the current one, every launcher on every card:
+    each must leave the current device as it found it."""
+    import torch
+
+    start, checks = torch.cuda.current_device(), []
+    try:
+        for cur in range(cards):
+            torch.cuda.set_device(cur)
+            for target in range(cards):
+                names = launch_every_kernel(torch.device("cuda", target))
+                if torch.cuda.current_device() != cur:
+                    raise AssertionError(f"a launcher on cuda:{target} left cuda:{torch.cuda.current_device()} "
+                                         f"current, not cuda:{cur} ({names})")
+                checks.append({"current": cur, "launched_on": target, "launchers": len(names)})
+    finally:
+        torch.cuda.set_device(start)
+    return checks
+
+
+def timed_drain(make, reqs) -> dict:
+    """One drain of ``reqs`` on a fresh server (set-up outside the clock):
+    wall ms (host clock, synchronised), and busy ms from a profile of a
+    second drain on another fresh server."""
+    import torch
+
+    srv = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(srv, reqs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof_srv = make()
+    by_kernel = profile_device(lambda: serve(prof_srv, reqs))
+    busy = sum(g["ms"] for g in by_kernel.values())
+    return {"wall_ms": wall, "busy_ms": busy, "device_ms_by_kernel": by_kernel}
+
+
+def run_sharded_path(cfg, params, dev, ctx) -> dict:
+    """Lane-sharded serving at full width: the serving phase's config,
+    weights, requests, threshold and controller set-up (``ctx``) through a
+    ClassifierServer of 2 replicas x 4 lanes (cuda:0 and cuda:1 with two
+    cards, else both named on cuda:0), one controller expanded to one
+    arbiter per replica, against the unsharded 8-lane server.  The counted
+    run serves the 32 requests and then 2R contracts, each admitted at its
+    own quote by an AdmissionController with LeastLoadedPlacement: every
+    SHARDED_SERVING_KERNELS kernel launched, zero accepted-SLO misses, one
+    build per (bucket, 2), each domain's clock, energy and switches.  The
+    32 requests' exits equal the unsharded drain's, their logits within
+    FULL_WIDTH_ATOL, and at each bucket ``shard_flips`` holds the slabs'
+    layer steps to the flat step's with every AF flip one grid step.  The
+    current device is unchanged after every launcher on every card.
+    Drain wall and busy ms, idle share and requests/s beside the unsharded
+    drain's (in turns: flat, sharded, sharded, flat)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.admission import AdmissionController, LeastLoadedPlacement
+    from repro_torch.serving.engine import Request
+
+    devices, cards = sharded_devices()
+    R, L = SHARDED_REPLICAS, 8 // SHARDED_REPLICAS
+    reqs, fresh = ctx["requests"], ctx["fresh"]
+    n = len(reqs)
+    start_dev = torch.cuda.current_device()
+
+    def sharded():
+        return fresh(lanes=L, replicas=R, devices=devices)
+
+    flat = serve(fresh(), reqs)
+    srv = sharded()
+    if srv.replicas != R or [str(d) for d in srv.devices] != [str(torch.device(d)) for d in devices]:
+        raise AssertionError(f"sharded server on {srv.devices}, want {devices}")
+    ac = AdmissionController(srv, placement=LeastLoadedPlacement())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for i, t in enumerate(reqs):
+        srv.submit(Request(uid=i, tokens=t))
+    placement = []
+    for j in range(2 * R):
+        toks = reqs[j][:32]
+        q = ac.quote(Request(uid=n + j, tokens=toks, deadline_s=1e9))
+        d = ac.submit(Request(uid=n + j, tokens=toks, deadline_s=q.min_deadline_s))
+        if not d.admitted:
+            raise AssertionError(f"sharded: contract {n + j} rejected at its own quote {q}")
+        placement.append([n + j, q.replica])
+    srv.run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    tel = srv.telemetry()
+    if torch.cuda.current_device() != start_dev:
+        raise AssertionError(f"sharded drain moved the current device to {torch.cuda.current_device()}")
+    missing = [k for k in ops.SHARDED_SERVING_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sharded path: {missing}")
+    if tel["accepted"] != 2 * R or tel["accepted_slo_misses"] != 0:
+        raise AssertionError(f"sharded: accepted {tel['accepted']}, accepted-SLO misses {tel['accepted_slo_misses']}")
+    builds = tel["step_traces_per_bucket_replica"]
+    if not builds or set(builds.values()) != {1} or not all(k.endswith(f"x{R}") for k in builds):
+        raise AssertionError(f"sharded: builds per (bucket, replicas) {builds}")
+    exits = [srv.done[i].exit_layer for i in range(n)]
+    flat_exits = [flat.done[i].exit_layer for i in range(n)]
+    err = max(float(np.abs(srv.done[i].result - flat.done[i].result).max()) for i in range(n))
+    if exits != flat_exits or not err <= FULL_WIDTH_ATOL:
+        raise AssertionError(f"sharded drain against the unsharded one: exits {exits} / {flat_exits}, "
+                             f"logits max abs err {err} (tolerance {FULL_WIDTH_ATOL})")
+    results = np.stack([srv.done[i].result for i in range(n + 2 * R)])
+    if not np.isfinite(results).all():
+        raise AssertionError("sharded logits are not finite")
+    flip_reqs = serving_requests(cfg, 8, 128, seed=2)
+    flips = [shard_flips(cfg, ctx["params"], [t[:S] for t in flip_reqs], dev, S, devices) for S in BUCKETS]
+    domains = [{"replica": r, "device": str(srv.devices[r]), "clock_s": a.now_s, "energy_j": a.compute_energy_j,
+                "op_switches": a.op_switches, "switch_time_s": a.switch_time_s}
+               for r, a in enumerate(srv.arbiters)]
+    current = check_current_device(cards)
+    runs = {"flat": [], "sharded": []}
+    for which in ("flat", "sharded", "sharded", "flat"):
+        runs[which].append(timed_drain(fresh if which == "flat" else sharded, reqs))
+    drains = {}
+    for which, rs in runs.items():
+        wall = float(np.median([r["wall_ms"] for r in rs]))
+        busy = float(np.median([r["busy_ms"] for r in rs]))
+        drains[which] = {"wall_ms": [r["wall_ms"] for r in rs], "busy_ms": [r["busy_ms"] for r in rs],
+                         "wall_ms_median": wall, "busy_ms_median": busy, "device_idle_share": 1.0 - busy / wall,
+                         "requests_per_s": n / (wall / 1e3), "device_ms_by_kernel": rs[0]["device_ms_by_kernel"]}
+    result = {
+        "phase": "sharded", "config": cfg.name, "devices": devices, "cards": cards,
+        "note": None if cards >= R else f"one card: both replicas on cuda:0 ({cards} card present)",
+        "replicas": R, "lanes_per_replica": L, "requests": n, "contracts": 2 * R, "placement": placement,
+        "buckets": list(BUCKETS), "threshold": ctx["threshold"], "exit_layers": exits,
+        "exits_equal_unsharded": True, "logits_max_abs_err_vs_unsharded": err, "tolerance": FULL_WIDTH_ATOL,
+        "shard_flips": flips, "builds_per_bucket_replica": builds, "launches": launches,
+        "accepted": tel["accepted"], "accepted_slo_misses": tel["accepted_slo_misses"],
+        "deadline_misses": tel["deadline_misses"], "fused_steps": tel["dense_steps"],
+        "avg_exit_layer": tel["avg_exit_layer"], "domains": domains, "op_switches": tel["op_switches"],
+        "modeled_energy_j": tel["energy_j"], "current_device_checks": current, "drains": drains,
     }
     emit(result)
     return result
@@ -1919,11 +2198,11 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     stats.n_layers = cfg.n_layers
     target = no_early_exit_baseline(stats)["latency_s"] * 2.0
 
-    def fresh(W):
+    def fresh(W, lanes=DECODE_LANES, **kw):
         arb = BatchedDVFSArbiter(LatencyAwareDVFSController(stats, target))
-        return DecoderServer(model, params, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET, eos_id=-1,
+        return DecoderServer(model, params, batch_lanes=lanes, max_seq=DECODE_BUCKET, eos_id=-1,
                              buckets=(DECODE_BUCKET,), arbiter=arb, exit_threshold=thr, spec_window=W,
-                             threshold_schedule=ExitThresholdSchedule(thr) if W > 1 else None, device=dev)
+                             threshold_schedule=ExitThresholdSchedule(thr) if W > 1 else None, device=dev, **kw)
 
     drains, servers = {}, {}
     for W in (1, W4):
@@ -1979,6 +2258,8 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
                 or a.done[i].token_exit_layers != b.done[i].token_exit_layers
                 or not np.array_equal(a.done[i].result, b.done[i].result)):
             raise AssertionError(f"{phase} request {i}: spec_window {W4} differs from spec_window 1")
+    sharded = (sharded_decode(fresh, servers, {W: d["drain_ms"] for W, d in drains.items()}, prompts, cfg, phase)
+               if arch == "deepseek_7b" else None)
 
     # where one drain's time goes: the prefill (lane loads) and the fused
     # steps, each waited for on the device
@@ -2044,12 +2325,85 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
         "fused_step_hbm_bound_ms": step_bound_ms, "launches": drains[1]["launches"],
         "reference": {k: ref[k] for k in ("offramp_logits_max_abs_err", "offramp_entropy_max_abs_err",
                                            "boundary_tokens_excused", "compared_tokens")},
+        "sharded": sharded,
     }
     emit(result)
     del params, servers, a, b, srv, cache, layers
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+def sharded_decode(fresh, flat, flat_ms, prompts, cfg, phase) -> dict:
+    """The decode phase's traffic through a DecoderServer of 2 replicas x
+    2 lanes (``sharded_devices``) at the probe's threshold, spec windows 1
+    and 4, against the phase's unsharded 4-lane drains (``flat``: {W:
+    server}, their drain ms ``flat_ms``): every request's generated tokens and exit depths equal to the
+    unsharded drain's, W = 4 equal to W = 1 bit for bit (tokens, exits,
+    final logits), softmax_entropy's wide-row entry launched R x n_layers x
+    W times per fused step (each slab runs its own LM-head entropies) and
+    no kernel off SHARDED_DECODE_KERNELS, one decode build per (bucket, 2),
+    the current device unchanged.  Drain wall ms and tokens/s beside the
+    unsharded drain's; the final logits' largest difference from the
+    unsharded drain's is reported (a slab's GEMVs run at half the rows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    devices, cards = sharded_devices()
+    R = SHARDED_REPLICAS
+    n, W4 = DECODE_REQUESTS, DECODE_SPEC_WINDOW
+    start_dev = torch.cuda.current_device()
+    out, servers = {"devices": devices, "cards": cards, "replicas": R, "lanes_per_replica": DECODE_LANES // R,
+                    "drains": {}}, {}
+    for W in (1, W4):
+        srv = fresh(W, lanes=DECODE_LANES // R, replicas=R, devices=devices)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        serve(srv, prompts, max_new_tokens=DECODE_NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        tel = srv.telemetry()
+        steps = tel["decode_steps"]
+        want = R * cfg.n_layers * W * steps
+        if launches["softmax_entropy"] != want or any(launches[k] for k in launches
+                                                      if k not in ops.SHARDED_DECODE_KERNELS):
+            raise AssertionError(f"{phase} sharded W={W}: launches {launches}, want softmax_entropy "
+                                 f"R x n_layers x W x fused steps = {want} and nothing else")
+        if tel["step_traces_per_bucket_replica"] != {f"{DECODE_BUCKET}x{R}": 1}:
+            raise AssertionError(f"{phase} sharded W={W}: builds {tel['step_traces_per_bucket_replica']}")
+        if torch.cuda.current_device() != start_dev:
+            raise AssertionError(f"{phase} sharded W={W}: the current device moved")
+        ref = flat[W]
+        for i in range(n):
+            if (srv.done[i].generated != ref.done[i].generated
+                    or srv.done[i].token_exit_layers != ref.done[i].token_exit_layers):
+                raise AssertionError(f"{phase} sharded W={W} request {i}: tokens {srv.done[i].generated} / exits "
+                                     f"{srv.done[i].token_exit_layers} differ from the unsharded drain's "
+                                     f"{ref.done[i].generated} / {ref.done[i].token_exit_layers}")
+        servers[W] = srv
+        out["drains"][f"W={W}"] = {
+            "drain_ms": wall, "tokens": tel["tokens"], "tokens_per_s": tel["tokens"] / (wall / 1e3),
+            "fused_steps": steps, "launches": launches,
+            "softmax_entropy_launches_per_fused_step": launches["softmax_entropy"] / steps,
+            "unsharded_drain_ms": flat_ms[W], "tokens_equal_unsharded": True,
+            "logits_max_abs_err_vs_unsharded": max(float(np.abs(srv.done[i].result - ref.done[i].result).max())
+                                                   for i in range(n)),
+            "modeled_energy_j": tel["energy_j"], "accepted_slo_misses": tel["accepted_slo_misses"],
+            "domains": [{"replica": r, "clock_s": a.now_s, "energy_j": a.compute_energy_j,
+                         "op_switches": a.op_switches} for r, a in enumerate(srv.arbiters)],
+        }
+    a, b = servers[1], servers[W4]
+    for i in range(n):
+        if (a.done[i].generated != b.done[i].generated or a.done[i].token_exit_layers != b.done[i].token_exit_layers
+                or not np.array_equal(a.done[i].result, b.done[i].result)):
+            raise AssertionError(f"{phase} sharded request {i}: spec_window {W4} differs from spec_window 1")
+    out["spec_equals_per_token"] = True
+    out["launches"] = out["drains"]["W=1"]["launches"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2322,8 +2676,14 @@ def plain_drains(phase, cfg, model, params, prompts, dev, want) -> tuple:
     return drains, fresh
 
 
+# rwkv6-7b's first 16 of 32 layers, for the script's time (with the
+# sharded phase and the decode phase's sharded drains the phases took 631 s
+# of their 600 s aim; ssm_decode took 64.8 s at full depth)
+SSM_DEPTH = 16
+
+
 def run_ssm_decode_path(dev) -> dict:
-    """rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 WKV
+    """rwkv6-7b at full width, its first SSM_DEPTH of 32 layers (d_model 4096, 64 WKV
     heads of 64, d_ff 14336, vocab 65536), float32 weights drawn on the
     card from seed 0, through the DecoderServer: plain decode (the family
     has no per-token exit) of DECODE_REQUESTS SyntheticLM requests in
@@ -2347,7 +2707,8 @@ def run_ssm_decode_path(dev) -> dict:
     from repro_torch.serving import step_math
 
     phase = "ssm_decode"
-    cfg = dataclasses.replace(get_config("rwkv6_7b"), dtype="float32", remat_policy="none")
+    full_depth = get_config("rwkv6_7b").n_layers
+    cfg = dataclasses.replace(get_config("rwkv6_7b"), dtype="float32", remat_policy="none", n_layers=SSM_DEPTH)
     model = build_model(cfg)
     params, drawn = draw_decoder(cfg, phase, dev)
     prompts = SyntheticLM(cfg.vocab_size, DECODE_PROMPT, DECODE_REQUESTS, seed=0).batch(0)["tokens"]
@@ -2384,8 +2745,8 @@ def run_ssm_decode_path(dev) -> dict:
     step_bound_ms = sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3
     ref = check_ssm_reference(cfg, params, prompts, dev)
     result = {
-        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "wkv_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "depth_cut_from": full_depth,
+        "d_model": cfg.d_model, "wkv_heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
         "dtype": cfg.dtype, "params": drawn["params"], "init_s": drawn["init_s"],
         "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
         "mem_free_gb_after_draw": drawn["mem_free_gb_after_draw"],
@@ -3634,6 +3995,7 @@ def main() -> int:
     timed("serving_reference", check_serving_reference, scfg, sparams, dev)
     main_path = timed("main", run_main_path, dep, cfg, dev)
     serving = timed("serving", run_serving_path, scfg, sparams, dev)
+    sharded = timed("sharded", run_sharded_path, scfg, sparams, dev, serving.pop("ctx"))
     replay = timed("replay", run_replay_path, scfg, dev)
     decode = timed("decode", run_decode_path, dev)
     moe_decode = timed("moe_decode", run_decode_path, dev, "qwen2_moe_a2p7b")
@@ -3653,7 +4015,10 @@ def main() -> int:
                    "hybrid_decode": hybrid_decode["launches"][r["name"]],
                    "encdec_decode": encdec_decode["launches"][r["name"]],
                    "vlm_decode": vlm_decode["launches"][r["name"]], "lm_train": lm_train["launches"][r["name"]],
-                   "train": train["launches"][r["name"]]}
+                   "train": train["launches"][r["name"]],
+                   # the sharded classifier drain and the sharded deepseek-7b
+                   # W = 1 drain of the decode phase
+                   "sharded": sharded["launches"][r["name"]] + decode["sharded"]["launches"][r["name"]]}
         # the launches of the path whose shapes the row was timed at: the
         # replay's, the deployed path's for af_matmul, which only that path
         # runs, or a decoder path's for the wide-row entropy and the

@@ -231,7 +231,8 @@ REPRO_EXPORT int repro_smem_bytes() { return SMEM_BYTES; }
 REPRO_EXPORT int repro_af_matmul(float* out, const float* x, const uint8_t* codes, int M, int K,
                                  int N, int e_min, int n_bits, int n_exp, int split, void* stream,
                                  int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_mant = n_bits - 1 - n_exp;
   if (n_bits > 8 || n_exp < 1 || n_mant < 0 || split < 1 || split > 8 || e_min + 127 < 1 ||

@@ -319,7 +319,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 REPRO_EXPORT int repro_af_quantize(float* out, const float* x, const int* e_min, int rows,
                                    int d, int rows_per_group, int n_bits, int n_exp,
                                    void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long n = static_cast<long>(rows) * d;
   if (n == 0) return 0;
@@ -337,7 +338,8 @@ REPRO_EXPORT int repro_af_quantize(float* out, const float* x, const int* e_min,
 REPRO_EXPORT int repro_af_quantize_groups(float* out, int* e_min_out, const float* x, int rows,
                                           int d, int rows_per_group, int n_bits, int n_exp,
                                           void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= 64 || rows_per_group <= 0 || d <= 0 || rows % rows_per_group)
     return static_cast<int>(cudaErrorInvalidValue);

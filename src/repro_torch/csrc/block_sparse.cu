@@ -199,7 +199,8 @@ REPRO_EXPORT int repro_block_sparse_matmul(float* out, const float* x, const uin
                                            const int* offsets, int M, int K, int N, int bk,
                                            int bn, int max_nnz, int plane_tiles, int split,
                                            void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bk < 1 || bk > TILE || bn < 1 || bn > TILE || K % bk != 0 || N % bn != 0 || split < 1 ||
       split > 8 || M < 0)

@@ -98,7 +98,8 @@ REPRO_EXPORT int repro_layernorm(float* out, const float* x, const float* gamma,
                                  const float* beta, int rows, int d, float eps,
                                  void* stream, int device) {
   if (device < 0 || device >= 64 || rows < 0 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows == 0) return 0;
   if (g_sms[device] == 0) {

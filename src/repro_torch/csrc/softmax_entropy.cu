@@ -583,7 +583,8 @@ bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n =
 REPRO_EXPORT int repro_softmax_entropy(float* probs, float* ent, const float* x,
                                        const float* mask, int rows, int n,
                                        void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows == 0) return 0;
   const dim3 grid((rows + kWarps - 1) / kWarps);
@@ -596,7 +597,8 @@ REPRO_EXPORT int repro_softmax_entropy(float* probs, float* ent, const float* x,
 // fp32, clamped at 0.
 REPRO_EXPORT int repro_entropy_rows(float* ent, const float* x, int rows, int n, void* stream,
                                     int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= 64 || rows < 0 || rows > 65535 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -620,7 +622,8 @@ REPRO_EXPORT int repro_offramp_head(float* out, float* partial, unsigned* counte
                                     const uint8_t* active, float threshold, int af,
                                     int pooler_e_min, int cls_e_min, int n_bits, int n_exp,
                                     void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= 64 || D <= 0 || C <= 0 || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -373,7 +373,8 @@ REPRO_EXPORT int repro_span_attention(
     long long sp_sb, long long sp_sh, long long kv_sb, long long kv_sh, void* stream, int device) {
   if (device < 0 || device >= 64 || B < 0 || H < 1 || Sq < 0 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  const cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || Sq == 0) return 0;
   Args a = {out, q, k, v, spans, kv_lens,

@@ -85,6 +85,12 @@ ENCDEC_DECODE_KERNELS = ("layernorm",)
 # the DecoderServer): none.  Its norms are RMS (no kernel in either
 # package), and cache and cross attention stay on the reference ops
 VLM_DECODE_KERNELS = ()
+# lane-sharded serving (ClassifierServer / DecoderServer with replicas):
+# every replica's slab runs the unsharded fused step, so the sharded
+# classifier launches the serving path's kernels and the sharded decoder
+# the decoder's
+SHARDED_SERVING_KERNELS = SERVING_KERNELS
+SHARDED_DECODE_KERNELS = DECODE_KERNELS
 
 
 def reset_launch_counts() -> None:

@@ -74,8 +74,10 @@ This is a copy of the JAX package's ``serving/admission.py`` (numpy and
 Python only), so the port's engines, the ``ClassifierServer`` and the
 ``DecoderServer``, sit behind the same gate, with the decoder's pricing
 (token-level predicted depth, cross-engine backlog on a shared arbiter)
-unchanged.  The sharded replicas it prices are not ported yet: in the port
-every server has one replica and the placement policies see one quote.
+unchanged.  A server with replicas (``replicas > 1``: both engines) is
+quoted per replica, each against its own lane slab, pinned queue share and
+clock domain, and an accepted contract is pinned to the replica its
+``PlacementPolicy`` chose, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -31,14 +31,22 @@
   self-speculative decode.  ``probe_exit_threshold`` picks a threshold from
   observed traffic.
 
-One device, one replica.  The sharded mesh path is not ported yet.
+* Replicas (``replicas=`` / ``devices=``, both servers): ``replicas x
+  batch_lanes`` lanes in contiguous slabs, lane ``i`` on replica ``i //
+  lanes_per_replica``, each replica's lane state (and the decoder's cache
+  rows) on its device, one params copy per distinct device, and one DVFS
+  clock domain (``BatchedDVFSArbiter``) per replica with barrier-aware
+  pacing.  A device list plays the part of the JAX package's mesh
+  (``_resolve_devices``); the fused step runs each slab on its device
+  (``step_math.sharded_*``), and admission quotes each replica and pins an
+  accepted contract to one (``serving/admission.py``).
 """
 from __future__ import annotations
 
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, TYPE_CHECKING
+from typing import Any, Dict, List, Optional, Sequence, Tuple, TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -100,6 +108,79 @@ class Request:
     op_freq_hz: Optional[float] = None
 
 
+def _expand_arbiters(arbiter, replicas: int) -> list:
+    """The ``arbiter=`` argument as one arbiter per replica.
+
+    Each replica is its own LDO/ADPLL clock domain: a single arbiter is kept
+    for replica 0 and siblings sharing its controller (cycle model, DVFS
+    table, online calibrator) are built for the rest, so every replica makes
+    its own (V, f) decisions while pricing work identically.  A sequence is
+    taken as it is (one arbiter per replica)."""
+    if arbiter is None:
+        return []
+    if isinstance(arbiter, (list, tuple)):
+        if len(arbiter) != replicas:
+            raise ValueError(f"need one arbiter per replica: got {len(arbiter)} for {replicas}")
+        return list(arbiter)
+    if replicas == 1:
+        return [arbiter]
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter
+
+    return [arbiter] + [BatchedDVFSArbiter(arbiter.c) for _ in range(replicas - 1)]
+
+
+def _resolve_devices(replicas: int, devices: Optional[Sequence[DeviceLike]],
+                     device: DeviceLike) -> Tuple[int, List[torch.device]]:
+    """The (replicas, devices) constructor pair as (replicas, one device per
+    replica), the port of the JAX package's ``_resolve_mesh``: a device list
+    plays the mesh's part.  ``devices`` alone sets the replica count, and
+    both must agree when given.  Without a list, one replica runs on
+    ``device``; ``replicas > 1`` on ``"cuda"`` takes ``cuda:0 .. cuda:R-1``
+    and raises if fewer cards exist (it never stacks replicas on one card
+    unasked), and on ``"cpu"`` takes R CPU replicas.  A list may name one
+    device more than once (replicas sharing a card, as the JAX package's
+    forced host devices share one CPU)."""
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if devices is None:
+        dev = resolve_device(device)
+        if replicas == 1 or dev.type == "cpu":
+            devices = [dev] * replicas
+        else:
+            n = torch.cuda.device_count()
+            if n < replicas:
+                raise RuntimeError(f"replicas={replicas} needs {replicas} CUDA devices and {n} "
+                                   "are present; pass devices= to name each replica's device "
+                                   "(one card may be named more than once)")
+            devices = [f"cuda:{i}" for i in range(replicas)]
+    devs = []
+    for d in devices:
+        d = resolve_device(d)
+        if d.type == "cuda":
+            if d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            if d.index >= torch.cuda.device_count():
+                raise RuntimeError(f"{d} named, but {torch.cuda.device_count()} CUDA devices are present")
+        devs.append(d)
+    if not devs:
+        raise ValueError("devices= names no device")
+    if replicas == 1:
+        replicas = len(devs)
+    if len(devs) != replicas:
+        raise ValueError(f"{len(devs)} devices named but replicas={replicas}")
+    return replicas, devs
+
+
+def _per_device(devices: Sequence[torch.device], make) -> list:
+    """``make(device)`` once per distinct device, one entry per replica:
+    replicas on one device share the result."""
+    made: Dict[torch.device, Any] = {}
+    for d in devices:
+        if d not in made:
+            made[d] = make(d)
+    return [made[d] for d in devices]
+
+
 # unique per-server prefix for arbiter lane keys: several buckets (and, via a
 # shared arbiter, several servers) can hold lanes in flight at once
 _SERVER_IDS = itertools.count()
@@ -110,6 +191,34 @@ _LIFECYCLE_KEYS = (
     "accepted", "rejected", "requoted", "shed",
     "preemptions", "restored_steps_saved", "accepted_slo_misses",
 )
+
+
+def _arbitrate(srv, bucket: int, active: np.ndarray, step_slab) -> list:
+    """One (V, f) per clock domain for a server's fused step: each replica's
+    arbiter steps its own active slab (``step_slab(arbiter, replica,
+    keys, floor_hz)``), at no point below the fleet's tightest lane
+    requirement (the fleet's step lasts as long as its slowest domain),
+    then every clock moves to the fleet's max: the replicas leave the
+    step together, and waiting burns time, not operating-point state.
+    Telemetry deltas accrue here, so hand-stepped and run()-driven
+    drains are accounted alike, and the scheduler clock moves TO the
+    arbiters'.  With one replica this is the single shared-clock
+    arbitration.  Returns the decisions."""
+    before = [a.telemetry() for a in srv.arbiters]
+    L = srv.lanes_per_replica
+    slabs = [(arb, [srv._arb_key(bucket, i) for i in range(r * L, (r + 1) * L) if active[i]])
+             for r, arb in enumerate(srv.arbiters)]
+    floor = max((arb.required_hz(k) for arb, keys in slabs for k in keys), default=0.0)
+    decisions = [step_slab(arb, r, keys, floor) for r, (arb, keys) in enumerate(slabs) if keys]
+    t = max(a.now_s for a in srv.arbiters)
+    for a in srv.arbiters:
+        a.advance_to(t)
+    for b4, a in zip(before, srv.arbiters):
+        after = a.telemetry()
+        for k in srv._arb_acc:
+            srv._arb_acc[k] += after[k] - b4[k]
+    srv._bstate[bucket]["dt"] = max(t - srv.sched.now_s, 0.0)
+    return decisions
 
 
 def _fold_miss(acc: Dict[str, Any], req: Request, latency_s: float, target_s: float) -> None:
@@ -148,6 +257,11 @@ class ClassifierServer:
     takes).  On the CPU either route runs plain PyTorch.
     ``device`` — where params and lane state live: the card unless the
     caller asks for ``"cpu"``.
+    ``replicas`` / ``devices`` — ``batch_lanes`` lanes per replica, each
+    replica's slab ``[batch_lanes, S_bucket, D]`` on its device, one params
+    copy and one set of block masks (with their CSR index and packed tiles)
+    per distinct device, one clock domain per replica (``_resolve_devices``,
+    ``_expand_arbiters``); lane ``i`` belongs to replica ``lane_domain(i)``.
     ``task`` / ``residency`` / ``deployment`` — the task this server serves,
     the shared SRAM-over-eNVM working set (a refill of a non-resident task
     stalls the shared clock for its swap) and the task's compression
@@ -157,7 +271,8 @@ class ClassifierServer:
     ``layer_calls`` telemetry counts *active* lane-layer executions.  The
     ``*_traces`` keys keep the JAX package's names for its one jit trace
     per bucket: here each counts the buckets whose step, embed or insert
-    has run, one per bucket used however many requests it serves.
+    has run, one per bucket used however many requests it serves, and
+    ``step_traces_per_bucket_replica`` one per (bucket, replicas).
     """
 
     def __init__(
@@ -175,6 +290,8 @@ class ClassifierServer:
         task: Optional[str] = None,
         residency: Optional["TaskResidencyManager"] = None,
         deployment: Optional["TaskDeployment"] = None,
+        replicas: int = 1,
+        devices: Optional[Sequence[DeviceLike]] = None,
     ):
         if model.cfg.family != "albert":
             raise ValueError("the classifier server drives the albert family")
@@ -182,25 +299,29 @@ class ClassifierServer:
             raise ValueError("pass either a per-sentence controller (dvfs=) or a shared-clock "
                              "arbiter (arbiter=), not both: they model different hardware")
         self.model = model
-        self.device = resolve_device(device)
-        self.params = tree_to(params, self.device)
-        self.replicas = 1
-        self.lanes = batch_lanes
+        self.replicas, self.devices = _resolve_devices(replicas, devices, device)
+        self.device = self.devices[0]
+        # one params copy per distinct device, shared by its replicas
+        self._rparams = _per_device(self.devices, lambda d: tree_to(params, d))
+        self.params = self._rparams[0]
         self.lanes_per_replica = batch_lanes
+        self.lanes = batch_lanes * self.replicas
         self.cfg = model.cfg
         self.threshold = model.cfg.edgebert.early_exit.entropy_threshold
         self.dvfs = dvfs
-        self.arbiter = arbiter
         # one clock domain per replica, as the admission and workload layers
-        # read it: [arbiter] or []
-        self.arbiters = [arbiter] if arbiter is not None else []
+        # read it
+        self.arbiters = _expand_arbiters(arbiter, self.replicas)
+        self.arbiter = self.arbiters[0] if self.arbiters else None
         self.use_kernels = use_kernels
-        # static block-occupancy masks (and their CSR indices on the device)
-        # for the shared encoder MLP, from the concrete post-pruning weights;
-        # None entries keep a matmul dense
-        self._block_masks = None
+        # static block-occupancy masks (and their CSR indices and packed
+        # tiles) for the shared encoder MLP, from the concrete post-pruning
+        # weights, per replica (one set per distinct device); None entries
+        # keep a matmul dense
+        self._block_masks = [None] * self.replicas
         if use_kernels and "mlp" in self.params.get("layer", {}):
-            self._block_masks = dispatch.mlp_block_masks(self.params["layer"]["mlp"])
+            masks = {id(p): dispatch.mlp_block_masks(p["layer"]["mlp"]) for p in self._rparams}
+            self._block_masks = [masks[id(p)] for p in self._rparams]
         self._sid = next(_SERVER_IDS)
         ctrl = self._ctrl
         # multi-task residency: a deployment reprices the hw model (cycles
@@ -282,11 +403,20 @@ class ClassifierServer:
 
     def clock_s(self) -> Optional[float]:
         """The shared timeline: the arbiter's clock, which other servers on
-        the same arbiter also advance."""
-        return None if self.arbiter is None else self.arbiter.now_s
+        the same arbiter also advance; with replicated clock domains the
+        fleet's (the max: ``lanes_step``'s barrier keeps them together)."""
+        return max(a.now_s for a in self.arbiters) if self.arbiters else None
 
     def _arb_key(self, bucket: int, lane: int):
         return (self._sid, bucket, lane)
+
+    def lane_domain(self, lane: int) -> int:
+        """Scheduler routing hook: the replica (clock domain) a lane belongs
+        to; slab r is the lanes replica r computes."""
+        return lane // self.lanes_per_replica
+
+    def _arb_of(self, lane: int) -> "BatchedDVFSArbiter":
+        return self.arbiters[self.lane_domain(lane)]
 
     def _explicit_budget_remaining(self, req: Request) -> Optional[float]:
         """What is left of an explicit, submission-anchored SLO after the
@@ -328,35 +458,38 @@ class ClassifierServer:
         return len(req.tokens)
 
     def bucket_begin(self, bucket: int) -> None:
-        D = self.cfg.d_model
+        D, L = self.cfg.d_model, self.lanes_per_replica
+        dtype = self.params["embed"]["tok"].dtype
         self._bstate[bucket] = {
-            "h": torch.zeros((self.lanes, bucket, D), dtype=self.params["embed"]["tok"].dtype,
-                             device=self.device),
+            # one [lanes_per_replica, S, D] slab per replica, on its device
+            "h": [torch.zeros((L, bucket, D), dtype=dtype, device=d) for d in self.devices],
             "len": np.full(self.lanes, bucket, np.int32),
             "out": None,
         }
 
     def lane_load(self, bucket: int, lane: int, req: Request) -> None:
         st = self._bstate[bucket]
+        r, i = divmod(lane, self.lanes_per_replica)
         toks = np.zeros(bucket, np.int64)
         toks[: len(req.tokens)] = req.tokens     # pad up to the bucket shape
         self._built("embed", bucket)
         self._built("insert", bucket)
         with torch.no_grad():
-            h_new = step_math.classifier_embed(self.model, self.params,
-                                               torch.from_numpy(toks[None]).to(self.device))
-            step_math.lane_insert(st["h"], lane, h_new)
+            h_new = step_math.classifier_embed(self.model, self._rparams[r],
+                                               torch.from_numpy(toks[None]).to(self.devices[r]))
+            step_math.lane_insert(st["h"][r], i, h_new)
         st["len"][lane] = len(req.tokens)
         if self.residency is not None:
             # refilling a lane touches this task's weights: a miss swaps them
             # in from eNVM, and the stall burns time on the shared clock
             # before the lane's budget is computed
             stall = self.residency.acquire(self.task)
-            if stall > 0.0 and self.arbiter is not None:
-                self.arbiter.advance_to(self.arbiter.now_s + stall)
+            if stall > 0.0 and self.arbiters:
+                arb = self._arb_of(lane)
+                arb.advance_to(arb.now_s + stall)
                 self.sched.sync_clock()
-        if self.arbiter is not None:
-            self.arbiter.admit(
+        if self.arbiters:
+            self._arb_of(lane).admit(
                 self._arb_key(bucket, lane),
                 deadline_s=self._explicit_budget_remaining(req),
                 cycles_per_layer=self._cycles_for(bucket),
@@ -366,32 +499,22 @@ class ClassifierServer:
     def lanes_step(self, bucket: int, active: np.ndarray):
         st = self._bstate[bucket]
         decision = None
-        if self.arbiter is not None:
-            # ONE (V, f) for this fused step over the active lanes; telemetry
-            # deltas accrue here, so hand-stepped and run()-driven drains are
-            # accounted alike, and the scheduler clock moves TO the arbiter's
-            arb = self.arbiter
-            before = arb.telemetry()
-            keys = [self._arb_key(bucket, i) for i in range(self.lanes) if active[i]]
-            floor = max((arb.required_hz(k) for k in keys), default=0.0)
-            if keys:
-                decision = arb.step(keys, floor_hz=floor)
-            after = arb.telemetry()
-            for k in self._arb_acc:
-                self._arb_acc[k] += after[k] - before[k]
-            st["dt"] = max(arb.now_s - self.sched.now_s, 0.0)
+        if self.arbiters:
+            decisions = _arbitrate(self, bucket, active,
+                                   lambda arb, r, keys, floor: arb.step(keys, floor_hz=floor))
+            decision = decisions[0] if len(decisions) == 1 else (tuple(decisions) or None)
         self._built("step", bucket)
-        args = (self.model, self.params, st["h"],
-                torch.from_numpy(np.asarray(active, bool)).to(self.device),
-                torch.from_numpy(st["len"]).to(self.device), float(self.threshold))
+        args = (self.model, self._rparams, st["h"], np.asarray(active, bool), st["len"],
+                float(self.threshold))
         with torch.no_grad():
             if self.use_kernels:
-                # one device-to-host copy: the off-ramp head's packed rows
-                h, packed = step_math.classifier_head_step(*args, block_masks=self._block_masks)
+                # one device-to-host copy: the off-ramp heads' packed rows
+                h, packed = step_math.sharded_classifier_head_step(*args, block_masks=self._block_masks)
                 lg, ent, retire = step_math.unpack_head(packed.cpu().numpy())
                 retire = retire != 0
             else:
-                h, lg, ent, retire = step_math.classifier_fused_step(*args, block_masks=self._block_masks)
+                h, lg, ent, retire = step_math.sharded_classifier_fused_step(
+                    *args, block_masks=self._block_masks)
                 lg, ent, retire = lg.cpu().numpy(), ent.cpu().numpy(), retire.cpu().numpy()
         st["h"] = h
         st["out"] = (lg, ent, retire, decision)
@@ -400,9 +523,9 @@ class ClassifierServer:
     def lane_advance(self, bucket: int, lane: int, req: Request, out, depth: int) -> bool:
         _, ent, retire, _ = out
         req.entropy_trace.append(float(ent[lane]))
-        if self.arbiter is not None and depth == 1:
+        if self.arbiters and depth == 1:
             # first off-ramp evaluated: Alg. 1 line 2 prediction goes live
-            self.arbiter.observe_entropy(self._arb_key(bucket, lane), float(ent[lane]))
+            self._arb_of(lane).observe_entropy(self._arb_key(bucket, lane), float(ent[lane]))
         return bool(retire[lane]) or depth >= self.cfg.n_layers
 
     def lane_finish(self, bucket: int, lane: int, req: Request, depth: int) -> None:
@@ -410,8 +533,8 @@ class ClassifierServer:
         req.result = lg[lane]
         req.exit_layer = depth
         req.finish_time = time.time()
-        if self.arbiter is not None:
-            rep = self.arbiter.retire(self._arb_key(bucket, lane), depth)
+        if self.arbiters:
+            rep = self._arb_of(lane).retire(self._arb_key(bucket, lane), depth)
             req.energy_j = rep.energy_j
             req.latency_s = rep.latency_s
             req.op_vdd = rep.slowest_op.vdd
@@ -451,21 +574,26 @@ class ClassifierServer:
     def lane_checkpoint(self, bucket: int, lane: int, req: Request):
         """Snapshot ``(h, kv_len)`` at the layer boundary (the scheduler
         keeps the depth) plus the arbiter's lane clock, so an evicted
-        sentence resumes without re-running completed layers."""
+        sentence resumes without re-running completed layers.  The clock
+        payload is relative (remaining budget and elapsed run time), so it
+        restores onto any replica's arbiter."""
         st = self._bstate[bucket]
-        payload = {"h": st["h"][lane].clone(), "len": int(st["len"][lane])}
-        if self.arbiter is not None:
-            payload["clock"] = self.arbiter.checkpoint_lane(self._arb_key(bucket, lane))
+        r, i = divmod(lane, self.lanes_per_replica)
+        payload = {"h": st["h"][r][i].clone(), "len": int(st["len"][lane])}
+        if self.arbiters:
+            payload["clock"] = self._arb_of(lane).checkpoint_lane(self._arb_key(bucket, lane))
         return payload
 
     def lane_restore(self, bucket: int, lane: int, req: Request, payload) -> None:
         """Reload a checkpointed sentence into a (possibly different) free
-        lane through the bucket's insert: bit-exact."""
+        lane, on any replica, through the bucket's insert: bit-exact (a copy
+        between devices moves the bits unchanged)."""
         st = self._bstate[bucket]
-        step_math.lane_insert(st["h"], lane, payload["h"][None])
+        r, i = divmod(lane, self.lanes_per_replica)
+        step_math.lane_insert(st["h"][r], i, payload["h"].to(self.devices[r])[None])
         st["len"][lane] = payload["len"]
-        if self.arbiter is not None:
-            self.arbiter.restore_lane(self._arb_key(bucket, lane), payload["clock"])
+        if self.arbiters:
+            self._arb_of(lane).restore_lane(self._arb_key(bucket, lane), payload["clock"])
 
     def predict_remaining_steps(self, bucket: int, req: Request, depth: int) -> float:
         """EDF slack input: entropy-LUT predicted exit depth minus progress,
@@ -588,6 +716,11 @@ class DecoderServer:
     ``ClassifierServer``.  ``device`` — the card
     unless the caller asks for ``"cpu"``.  ``task`` / ``residency`` —
     multi-task residency, as in ``ClassifierServer``.
+    ``replicas`` / ``devices`` — ``batch_lanes`` lanes per replica, each
+    replica's cache rows (axis 1 of every cache leaf) and params copy on
+    its device, one clock domain per replica, as in ``ClassifierServer``;
+    the prefill routes an MoE lane with the whole fleet's lanes, as the
+    JAX package's sharded server's prefill does.
 
     The ``decode`` / ``prefill`` traces count the buckets whose decode step
     and prefill have run (one each per bucket used), under the JAX
@@ -609,7 +742,7 @@ class DecoderServer:
         exit_calibrator: Optional[Any] = None,
         use_kernels: bool = True,
         replicas: int = 1,
-        mesh=None,
+        devices: Optional[Sequence[DeviceLike]] = None,
         task: Optional[str] = None,
         residency: Optional["TaskResidencyManager"] = None,
         spec_window: int = 1,
@@ -623,25 +756,21 @@ class DecoderServer:
                                                 or spec_window != 1):
             raise ValueError(f"the {family} family has no per-token exit: no exit_threshold, threshold_schedule "
                              "or spec_window > 1")
-        if replicas != 1 or mesh is not None:
-            raise ValueError("one device, one replica: the sharded decoder server is not ported")
-        if isinstance(arbiter, (list, tuple)):
-            if len(arbiter) != 1:
-                raise ValueError(f"need one arbiter per replica: got {len(arbiter)} for 1")
-            arbiter = arbiter[0]
         self.model = model
-        self.device = resolve_device(device)
-        self.params = tree_to(params, self.device)
+        self.replicas, self.devices = _resolve_devices(replicas, devices, device)
+        self.device = self.devices[0]
+        # one params copy per distinct device, shared by its replicas
+        self._rparams = _per_device(self.devices, lambda d: tree_to(params, d))
+        self.params = self._rparams[0]
         self.task = task
         self.residency = residency
-        self.replicas = 1
         self.lanes_per_replica = batch_lanes
-        self.lanes = batch_lanes
+        self.lanes = batch_lanes * self.replicas
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.n_layers = model.cfg.n_layers
-        self.arbiters = [arbiter] if arbiter is not None else []
-        self.arbiter = arbiter
+        self.arbiters = _expand_arbiters(arbiter, self.replicas)
+        self.arbiter = self.arbiters[0] if self.arbiters else None
         self.use_kernels = use_kernels
         self.spec_window = int(spec_window)
         if self.spec_window < 1:
@@ -731,8 +860,9 @@ class DecoderServer:
         return None if st is None else st.get("dt")
 
     def clock_s(self) -> Optional[float]:
-        """The shared timeline: the arbiter's clock."""
-        return None if self.arbiter is None else self.arbiter.now_s
+        """The shared timeline: the arbiter's clock (the fleet's max with
+        replicated clock domains)."""
+        return max(a.now_s for a in self.arbiters) if self.arbiters else None
 
     def _arb_key(self, bucket: int, lane: int):
         return (self._sid, bucket, lane)
@@ -740,6 +870,9 @@ class DecoderServer:
     def lane_domain(self, lane: int) -> int:
         """Scheduler routing hook: the replica (clock domain) of a lane."""
         return lane // self.lanes_per_replica
+
+    def _arb_of(self, lane: int) -> "BatchedDVFSArbiter":
+        return self.arbiters[self.lane_domain(lane)]
 
     def _explicit_budget_remaining(self, req: Request) -> Optional[float]:
         """What is left of an explicit, submission-anchored SLO after the
@@ -814,7 +947,8 @@ class DecoderServer:
 
     def bucket_begin(self, bucket: int) -> None:
         self._bstate[bucket] = {
-            "cache": self.model.init_cache(self.lanes, bucket, device=self.device),
+            # one cache per replica, its slab's rows on its device
+            "cache": [self.model.init_cache(self.lanes_per_replica, bucket, device=d) for d in self.devices],
             "pos": np.zeros(self.lanes, np.int64),
             "cur": np.zeros((self.lanes, 1), np.int64),
             "reqs": [None] * self.lanes,
@@ -823,19 +957,22 @@ class DecoderServer:
 
     def lane_load(self, bucket: int, lane: int, req: Request) -> None:
         st = self._bstate[bucket]
+        r, i = divmod(lane, self.lanes_per_replica)
+        cache = st["cache"][r]
         toks = np.zeros(bucket, np.int64)
         toks[: len(req.tokens)] = req.tokens
         self._built("prefill", bucket)
         with torch.no_grad():
             if self.model.cfg.family in RECURRENT_FAMILIES:
-                # a fresh recurrent state: the request before it in this lane
-                # leaves its state behind (see the class docstring); the
-                # hybrid family's KV rows go too, which changes nothing (rows
-                # past the lane's position are masked)
-                for v in st["cache"].values():
-                    v[:, lane].zero_()
-            step_math.decoder_prefill(self.model, self.params, st["cache"], toks, lane, len(req.tokens),
-                                      use_kernels=self.use_kernels)
+                # a fresh recurrent state, on the replica's device: the
+                # request before it in this lane leaves its state behind
+                # (see the class docstring); the hybrid family's KV rows go
+                # too, which changes nothing (rows past the lane's position
+                # are masked)
+                for v in cache.values():
+                    v[:, i].zero_()
+            step_math.decoder_prefill(self.model, self._rparams[r], cache, toks, i, len(req.tokens),
+                                      use_kernels=self.use_kernels, group=(self.lanes, lane))
         st["pos"][lane] = len(req.tokens) - 1
         st["cur"][lane, 0] = req.tokens[-1]
         st["reqs"][lane] = req
@@ -843,36 +980,34 @@ class DecoderServer:
             # a miss swaps the task's weights in from eNVM: the stall burns
             # time on the shared clock before the lane's budget is computed
             stall = self.residency.acquire(self.task)
-            if stall > 0.0 and self.arbiter is not None:
-                self.arbiter.advance_to(self.arbiter.now_s + stall)
+            if stall > 0.0 and self.arbiters:
+                arb = self._arb_of(lane)
+                arb.advance_to(arb.now_s + stall)
                 self.sched.sync_clock()
-        if self.arbiter is not None:
-            key = self._arb_key(bucket, lane)
-            self.arbiter.admit(key, deadline_s=self._explicit_budget_remaining(req),
-                               cycles_per_layer=self._cycles_token_layer(bucket))
-            self.arbiter.set_remaining_layers(key, self._predicted_layers_remaining(req))
+        if self.arbiters:
+            key, arb = self._arb_key(bucket, lane), self._arb_of(lane)
+            arb.admit(key, deadline_s=self._explicit_budget_remaining(req),
+                      cycles_per_layer=self._cycles_token_layer(bucket))
+            arb.set_remaining_layers(key, self._predicted_layers_remaining(req))
 
     def lanes_step(self, bucket: int, active: np.ndarray):
         st = self._bstate[bucket]
-        arb = self.arbiter
-        if arb is not None:
+        if self.arbiters:
             # every active lane's predicted remaining layers BEFORE the
             # shared-clock decision
             for i in range(self.lanes):
                 if active[i] and st["reqs"][i] is not None:
-                    arb.set_remaining_layers(self._arb_key(bucket, i),
-                                             self._predicted_layers_remaining(st["reqs"][i]))
+                    self._arb_of(i).set_remaining_layers(self._arb_key(bucket, i),
+                                                         self._predicted_layers_remaining(st["reqs"][i]))
         self._built("decode", bucket)
-        cur = torch.from_numpy(st["cur"]).to(self.device)
-        pos = torch.from_numpy(st["pos"]).to(self.device)
+        args = (self.model, self._rparams, st["cache"], st["cur"], st["pos"])
         with torch.no_grad():
             if self._spec:
                 # every lane drafts and verifies up to spec_window tokens; the
                 # host cuts each lane's accepted prefix to what the request
                 # and the cache have room for BEFORE the arbiter charges it
-                thr = torch.from_numpy(self._lane_thresholds(bucket)).to(self.device)
-                toks_d, logits, st["cache"], xl, fe, acc_m = step_math.decoder_decode_spec(
-                    self.model, self.params, st["cache"], cur, pos, thr, self.spec_window,
+                toks_d, logits, st["cache"], xl, fe, acc_m = step_math.sharded_decoder_decode_spec(
+                    *args, self._lane_thresholds(bucket), self.spec_window,
                     eos_id=self.eos_id, use_kernels=self.use_kernels)
                 spec_toks = toks_d.cpu().numpy()          # [lanes, W]
                 exit_layers = xl.cpu().numpy()
@@ -889,38 +1024,33 @@ class DecoderServer:
                     keep[i] = max(1, min(a, room_req, room_cache))
                 st["keep"] = keep
             elif self.threshold is not None:
-                logits, st["cache"], xl, fe = step_math.decoder_decode_ee(
-                    self.model, self.params, st["cache"], cur, pos, self.threshold,
-                    use_kernels=self.use_kernels)
+                logits, st["cache"], xl, fe = step_math.sharded_decoder_decode_ee(
+                    *args, self.threshold, use_kernels=self.use_kernels)
                 exit_layers = xl.cpu().numpy()
                 first_ent = fe.cpu().numpy()
             else:
-                logits, st["cache"] = step_math.decoder_decode(
-                    self.model, self.params, st["cache"], cur, pos, use_kernels=self.use_kernels)
+                logits, st["cache"] = step_math.sharded_decoder_decode(*args, use_kernels=self.use_kernels)
                 exit_layers = np.full(self.lanes, self.n_layers, np.int32)
                 first_ent = None
-        if arb is not None:
-            # one (V, f) across the stepped lanes, each token (or accepted
-            # block) charged at its REALIZED exit depth; the deltas accrue
-            # per server and the actual dt feeds the scheduler clock
-            before = arb.telemetry()
-            keys = [self._arb_key(bucket, i) for i in range(self.lanes) if active[i]]
-            floor = max((arb.required_hz(k) for k in keys), default=0.0)
-            if keys:
+        if self.arbiters:
+            # one (V, f) per clock domain across its stepped lanes, each
+            # token (or accepted block) charged at its REALIZED exit depth
+            # (the decision was made from the predictions above), the
+            # clocks barrier-synced as in ClassifierServer.lanes_step
+            L = self.lanes_per_replica
+
+            def step_slab(arb, r, keys, floor):
+                lanes = [i for i in range(r * L, (r + 1) * L) if active[i]]
                 if self._spec:
                     layers = {self._arb_key(bucket, i): int(exit_layers[i, : st["keep"][i]].sum())
-                              for i in range(self.lanes) if active[i]}
-                    tokens = {self._arb_key(bucket, i): int(st["keep"][i])
-                              for i in range(self.lanes) if active[i]}
+                              for i in lanes}
+                    tokens = {self._arb_key(bucket, i): int(st["keep"][i]) for i in lanes}
                 else:
-                    layers = {self._arb_key(bucket, i): int(exit_layers[i])
-                              for i in range(self.lanes) if active[i]}
-                    tokens = {self._arb_key(bucket, i): 1 for i in range(self.lanes) if active[i]}
-                arb.step(keys, layers=layers, floor_hz=floor, tokens=tokens)
-            after = arb.telemetry()
-            for k in self._arb_acc:
-                self._arb_acc[k] += after[k] - before[k]
-            st["dt"] = max(arb.now_s - self.sched.now_s, 0.0)
+                    layers = {self._arb_key(bucket, i): int(exit_layers[i]) for i in lanes}
+                    tokens = {self._arb_key(bucket, i): 1 for i in lanes}
+                return arb.step(keys, layers=layers, floor_hz=floor, tokens=tokens)
+
+            _arbitrate(self, bucket, active, step_slab)
         if self._spec:
             # tokens, depths and entropies on the host (needed to advance);
             # the block's logits stay on the device: only a retiring lane's
@@ -996,10 +1126,10 @@ class DecoderServer:
         acc["retired"] += 1
         acc["tokens"] += len(req.token_exit_layers)
         acc["token_layers"] += float(sum(req.token_exit_layers))
-        if self.arbiter is not None:
+        if self.arbiters:
             # the lane's arbiter depth is the summed realized exit depth of
             # every token it generated (across preemption stints)
-            rep = self.arbiter.retire(self._arb_key(bucket, lane), int(sum(req.token_exit_layers)))
+            rep = self._arb_of(lane).retire(self._arb_key(bucket, lane), int(sum(req.token_exit_layers)))
             req.energy_j = rep.energy_j
             req.latency_s = rep.latency_s
             req.op_vdd = rep.slowest_op.vdd
@@ -1017,27 +1147,30 @@ class DecoderServer:
         where it stopped (its tokens and exit depths live on the request);
         with an arbiter, the lane clock is frozen alongside."""
         st = self._bstate[bucket]
+        r, i = divmod(lane, self.lanes_per_replica)
         payload = {
-            "cache": {k: v[:, lane].clone() for k, v in st["cache"].items()},
+            "cache": {k: v[:, i].clone() for k, v in st["cache"][r].items()},
             "pos": int(st["pos"][lane]),
             "cur": int(st["cur"][lane, 0]),
         }
         st["reqs"][lane] = None
-        if self.arbiter is not None:
-            payload["clock"] = self.arbiter.checkpoint_lane(self._arb_key(bucket, lane))
+        if self.arbiters:
+            payload["clock"] = self._arb_of(lane).checkpoint_lane(self._arb_key(bucket, lane))
         return payload
 
     def lane_restore(self, bucket: int, lane: int, req: Request, payload) -> None:
         """Write the checkpointed cache row back into a (possibly different)
-        free lane of the bucket's cache, in place."""
+        free lane of the bucket's cache, on any replica, in place (a copy
+        between devices moves the bits unchanged)."""
         st = self._bstate[bucket]
+        r, i = divmod(lane, self.lanes_per_replica)
         for k, row in payload["cache"].items():
-            st["cache"][k][:, lane] = row
+            st["cache"][r][k][:, i] = row.to(self.devices[r])
         st["pos"][lane] = payload["pos"]
         st["cur"][lane, 0] = payload["cur"]
         st["reqs"][lane] = req
-        if self.arbiter is not None:
-            self.arbiter.restore_lane(self._arb_key(bucket, lane), payload["clock"])
+        if self.arbiters:
+            self._arb_of(lane).restore_lane(self._arb_key(bucket, lane), payload["clock"])
 
     def predict_remaining_steps(self, bucket: int, req: Request, depth: int) -> float:
         """EDF slack input in FRACTIONAL full-depth fused steps: the

@@ -1,7 +1,7 @@
-"""The math of one fused serving step, apart from scheduling (the
-single-device part of ``repro/serving/step_math.py``): the classifier's
-step and the decoder's decode, early-exit decode, speculative decode and
-prefill.
+"""The math of one fused serving step, apart from scheduling (the port of
+``repro/serving/step_math.py``): the classifier's step and the decoder's
+decode, early-exit decode, speculative decode and prefill, each also over
+replica slabs (``sharded_*``).
 
 Every function here is tensor math only: no scheduler, no telemetry, no
 host state.  ``use_kernels`` routes the eligible inner ops (attention,
@@ -17,10 +17,26 @@ a ``[lanes]`` tensor of cache positions, and each lane reads and writes its
 own cache row at its own position (the ssm and hybrid families: its own
 recurrent state too), so each lane computes what the one-lane body does.  The decoder's
 cache is updated in place.
+
+Replicas: the ``sharded_*`` functions split the lanes into ``replicas``
+contiguous slabs (lane ``i`` lives on replica ``i // lanes_per_replica``), as
+the JAX package's ``shard_map`` over a 1-D mesh does.  A device list plays
+the mesh's part: each slab, its params (one copy per distinct device,
+shared by the replicas on it) and the decoder's cache rows live on the
+slab's device, and each slab runs the unsharded function on its own, with
+the same kernels, and no tensor crosses replicas but the gathered
+per-lane outputs.  Every slab's inputs go to its device first, then every
+slab's launches are issued, and only then are the outputs gathered onto
+the first slab's device, so the host waits once per fused step and two
+cards overlap.  Lanes are independent, so one slab computes what the
+unsharded function computes on its lanes; at equal shapes (one replica, or
+one slab against the unsharded function on ``lanes_per_replica`` lanes) bit
+for bit, and across shapes within the rounding of sums whose order the
+shape decides (split-K, the grouped quantize's clusters).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +116,78 @@ def unpack_head(packed):
     return packed[:, :C], packed[:, C], packed[:, C + 1]
 
 
+def slab_inputs(x, slabs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A per-lane host array ``x`` [lanes, ...] cut into one slab per
+    replica, each on its replica's device (``slabs``: one tensor per
+    replica whose device and leading axis give the replica's device and
+    lane count): one copy per distinct device, then views."""
+    x = torch.as_tensor(np.asarray(x))
+    on: Dict[torch.device, torch.Tensor] = {}
+    out, start = [], 0
+    for s in slabs:
+        dev, n = s.device, s.shape[0]
+        if dev not in on:
+            on[dev] = x.to(dev)
+        out.append(on[dev][start:start + n])
+        start += n
+    return out
+
+
+def gather(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-replica outputs concatenated on the lane axis, on the first
+    replica's device (a copy between cards is queued, not waited for)."""
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts]) if len(parts) > 1 else parts[0]
+
+
+def sharded_classifier_fused_step(
+    model: Model,
+    params: Sequence[Any],         # one per replica (replicas on a device share it)
+    h: Sequence[torch.Tensor],     # one [lanes_per_replica, S_bucket, D] slab per replica
+    active,                        # [lanes] bool, host
+    lengths,                       # [lanes] int32, host
+    threshold: float,
+    *,
+    use_kernels: bool = False,
+    block_masks: Optional[Sequence[Optional[Dict[str, Any]]]] = None,
+):
+    """``classifier_fused_step`` over replica slabs: each slab on its
+    device under its replica's params -> ``(h slabs, logits, entropy,
+    retire)``, the last three gathered [lanes, ...] on the first slab's
+    device (on the kernel route, views of ``sharded_classifier_head_step``'s
+    packed rows)."""
+    if use_kernels:
+        h, packed = sharded_classifier_head_step(model, params, h, active, lengths, threshold,
+                                                 block_masks=block_masks)
+        return (h, *unpack_head(packed))
+    masks = block_masks or [None] * len(h)
+    act, lens = slab_inputs(np.asarray(active, bool), h), slab_inputs(lengths, h)
+    outs = [classifier_fused_step(model, p, hh, a, n, threshold, block_masks=m)
+            for p, hh, a, n, m in zip(params, h, act, lens, masks)]
+    return [o[0] for o in outs], *(gather([o[k] for o in outs]) for k in (1, 2, 3))
+
+
+def sharded_classifier_head_step(
+    model: Model,
+    params: Sequence[Any],
+    h: Sequence[torch.Tensor],
+    active,
+    lengths,
+    threshold: float,
+    *,
+    block_masks: Optional[Sequence[Optional[Dict[str, Any]]]] = None,
+):
+    """The kernel route of ``sharded_classifier_fused_step``: each slab's
+    ``classifier_head_step`` -> ``(h slabs, packed)``, packed [lanes, C + 2]
+    gathered on the first slab's device (one copy back to the host for the
+    whole fused step)."""
+    masks = block_masks or [None] * len(h)
+    act, lens = slab_inputs(np.asarray(active, bool), h), slab_inputs(lengths, h)
+    outs = [classifier_head_step(model, p, hh, a, n, threshold, block_masks=m)
+            for p, hh, a, n, m in zip(params, h, act, lens, masks)]
+    return [o[0] for o in outs], gather([o[1] for o in outs])
+
+
 def lane_insert(h: torch.Tensor, lane: int, h_new: torch.Tensor) -> None:
     """Overwrite one lane row of ``h`` in place with ``h_new`` [1, S, D]
     (load and restore share it, so a preempted lane round-trips through the
@@ -163,6 +251,72 @@ def decoder_decode_spec(
                                   eos_id=eos_id, use_kernels=use_kernels)
 
 
+def _cache_slabs(caches: Sequence[Any]) -> List[torch.Tensor]:
+    """One tensor per replica carrying its device and lane count (axis 1 of
+    every cache leaf), for ``slab_inputs``."""
+    return [next(iter(c.values()))[0] for c in caches]
+
+
+def sharded_decoder_decode(
+    model: Model,
+    params: Sequence[Any],
+    caches: Sequence[Any],     # one cache per replica, lanes on axis 1 of every leaf
+    tokens,                    # [lanes, 1] host
+    pos,                       # [lanes] host
+    *,
+    use_kernels: bool = False,
+):
+    """``decoder_decode`` over replica slabs -> (logits [lanes, 1, V]
+    gathered on the first replica's device, caches updated in place)."""
+    toks, ps = slab_inputs(tokens, _cache_slabs(caches)), slab_inputs(pos, _cache_slabs(caches))
+    outs = [decoder_decode(model, p, c, t, q, use_kernels=use_kernels)
+            for p, c, t, q in zip(params, caches, toks, ps)]
+    return gather([o[0] for o in outs]), [o[1] for o in outs]
+
+
+def sharded_decoder_decode_ee(
+    model: Model,
+    params: Sequence[Any],
+    caches: Sequence[Any],
+    tokens,
+    pos,
+    threshold: float,
+    *,
+    use_kernels: bool = False,
+):
+    """``decoder_decode_ee`` over replica slabs -> (logits, caches,
+    exit_layer, first_ent), the per-lane outputs gathered on the first
+    replica's device."""
+    toks, ps = slab_inputs(tokens, _cache_slabs(caches)), slab_inputs(pos, _cache_slabs(caches))
+    outs = [decoder_decode_ee(model, p, c, t, q, threshold, use_kernels=use_kernels)
+            for p, c, t, q in zip(params, caches, toks, ps)]
+    return (gather([o[0] for o in outs]), [o[1] for o in outs],
+            gather([o[2] for o in outs]), gather([o[3] for o in outs]))
+
+
+def sharded_decoder_decode_spec(
+    model: Model,
+    params: Sequence[Any],
+    caches: Sequence[Any],
+    tokens,
+    pos,
+    thresholds,                # [lanes, spec_window] host
+    spec_window: int,
+    *,
+    eos_id: int = -1,
+    use_kernels: bool = False,
+):
+    """``decoder_decode_spec`` over replica slabs -> (tokens, logits,
+    caches, exit_layers, first_ent, accepted), the per-lane outputs
+    gathered on the first replica's device."""
+    slabs = _cache_slabs(caches)
+    toks, ps, thr = slab_inputs(tokens, slabs), slab_inputs(pos, slabs), slab_inputs(thresholds, slabs)
+    outs = [decoder_decode_spec(model, p, c, t, q, th, spec_window, eos_id=eos_id, use_kernels=use_kernels)
+            for p, c, t, q, th in zip(params, caches, toks, ps, thr)]
+    return (gather([o[0] for o in outs]), gather([o[1] for o in outs]), [o[2] for o in outs],
+            *(gather([o[k] for o in outs]) for k in (3, 4, 5)))
+
+
 def decoder_prefill(
     model: Model,
     params: Any,
@@ -172,6 +326,7 @@ def decoder_prefill(
     length: int,              # prompt length
     *,
     use_kernels: bool = False,
+    group: Optional[Tuple[int, int]] = None,
 ):
     """Write one lane's prompt[:length - 1] into its cache row (the KV rows,
     or the recurrent state): full-depth ``decode_step``s, one token at a
@@ -199,18 +354,31 @@ def decoder_prefill(
     family's recurrent state (token-shift inputs and WKV state) or the
     hybrid family's (conv and SSM state, beside the shared block's KV
     rows), which this prefill carries on from whatever the lane's row holds
-    (the server zeroes it first).  Returns the cache."""
+    (the server zeroes it first).
+
+    ``group`` = (lanes, index): the lanes the JAX package's prefill steps
+    together and the lane's index among them, when they are not the
+    cache's (a replica's cache holds its slab, while the JAX package's
+    sharded server runs the prefill over the whole fleet's lanes; default:
+    the cache's lanes and ``lane``).  Only the MoE family's routing reads
+    it: the dummy lanes' rows hold what this loop wrote into them (token 0
+    at every position), whatever they held before, so a scratch of the
+    group's lanes with the lane's row at its index routes as the JAX
+    package's fleet-wide prefill does.  Returns the cache."""
     leaf = next(iter(cache.values()))
     dev, lanes = leaf.device, leaf.shape[1]
+    g_lanes, g_index = group if group is not None else (lanes, lane)
     toks = torch.as_tensor(np.asarray(tokens[: max(length - 1, 0)], np.int64), device=dev)
-    if model.cfg.family == "moe" and lanes > moe.capacity(lanes, model.cfg):
-        scratch = {k: v.clone() for k, v in cache.items()}
-        is_lane = torch.arange(lanes, device=dev)[:, None] == lane
+    if model.cfg.family == "moe" and g_lanes > moe.capacity(g_lanes, model.cfg):
+        scratch = {k: v.new_zeros((v.shape[0], g_lanes) + tuple(v.shape[2:])) for k, v in cache.items()}
+        for k, v in cache.items():
+            scratch[k][:, g_index] = v[:, lane]
+        is_lane = torch.arange(g_lanes, device=dev)[:, None] == g_index
         for t in range(length - 1):
             tok = torch.where(is_lane, toks[t], 0)
             model.decode_step(params, scratch, tok, t, use_kernels=use_kernels, moe_per_lane=False)
         for k in cache:
-            cache[k][:, lane] = scratch[k][:, lane]
+            cache[k][:, lane] = scratch[k][:, g_index]
         return cache
     row = {k: v[:, lane:lane + 1] for k, v in cache.items()}
     for t in range(length - 1):

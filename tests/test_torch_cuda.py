@@ -950,3 +950,115 @@ def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
         assert leaf.device.type == "cpu" and torch.equal(leaf, want.cpu()), path
     on_card, _ = mgr.restore_latest({"params": params}, device=cuda)
     assert all(t.is_cuda for t in _flat(on_card).values())
+
+
+# ---------------------------------------------------------------------------
+# lane-sharded serving and the launchers' current device
+# ---------------------------------------------------------------------------
+
+
+def _launch_every_kernel(dev):
+    """Every launcher once, on inputs on ``dev``; returns the wrappers'
+    names.  The inputs are small: the point is where the launch leaves the
+    calling thread's current device."""
+    x = _t((8, 64), 60).to(dev)
+    layernorm(x, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    softmax_entropy(x)
+    entropy(_t((2, 4096), 61).to(dev))
+    for af in (False, True):
+        h, pw, pb, cw, cb, active, e_min = _head_inputs(4, 8, 64, 3, af, 62)
+        offramp_head(h.to(dev), pw.to(dev), pb.to(dev), cw.to(dev), cb.to(dev), active=active.to(dev),
+                     threshold=0.5, e_min=e_min)
+    codes, e_min = af_encode(_t((64, 32), 63, 0.125))
+    af_matmul(x, codes.to(dev), int(e_min))
+    quantize(x, torch.zeros(2, dtype=torch.int32, device=dev) - 4, 4)
+    quantize_groups(x, 4)
+    w = _t((64, 64), 64, 0.125)
+    mask = np.ones((2, 2), bool)
+    mask[1, 0] = False
+    wc = w.to(dev)
+    block_sparse.block_sparse_matmul(x, wc, block_sparse.BlockIndex.build(mask, 32, 32, dev, w=wc))
+    q = _t((4, 32, 16), 65).to(dev)
+    span_attention(q, q, q, torch.full((4,), 32, dtype=torch.int32, device=dev), 32, causal=False)
+    torch.cuda.synchronize(dev)
+    return ("layernorm", "softmax_entropy", "entropy", "offramp_head", "af_matmul", "quantize",
+            "quantize_groups", "block_sparse_matmul", "span_attention")
+
+
+def test_launchers_leave_the_current_device(cuda):
+    """Each launcher sets its tensors' device for the launch and sets back
+    the device it found: from every card as the current one, a launch on
+    every card leaves the current device unchanged.  With one card only
+    cuda:0 -> cuda:0 runs."""
+    n = torch.cuda.device_count()
+    start = torch.cuda.current_device()
+    try:
+        for cur in range(n):
+            torch.cuda.set_device(cur)
+            for target in range(n):
+                names = _launch_every_kernel(torch.device("cuda", target))
+                assert torch.cuda.current_device() == cur, (cur, target, names)
+    finally:
+        torch.cuda.set_device(start)
+
+
+def _sharded_smoke():
+    cfg = get_smoke_config("albert_edgebert")
+    cfg = dataclasses.replace(cfg, dtype="float32").with_edgebert(
+        span=dataclasses.replace(cfg.edgebert.span, enabled=False),
+        early_exit=dataclasses.replace(cfg.edgebert.early_exit, entropy_threshold=0.0))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name in ("w_up", "w_down"):
+        w = params["layer"]["mlp"][name]
+        params["layer"]["mlp"][name] = w * magnitude_mask(w, 0.5, block_size=32)
+    toks = SyntheticCLS(cfg.vocab_size, 32, 8, num_classes=3, seed=0).batch(0)["tokens"]
+    return cfg, build_model(cfg), params, [toks[i][:n] for i, n in enumerate((12, 32, 9, 24, 16, 5, 30, 20))]
+
+
+def _sharded_drain(model, params, reqs, **kw):
+    srv = ClassifierServer(model, params, batch_lanes=kw.pop("lanes"), buckets=(16, 32), **kw)
+    for i, t in enumerate(reqs):
+        srv.submit(Request(uid=i, tokens=t))
+    ops.reset_launch_counts()
+    tel = srv.run()
+    return srv, tel, ops.launch_counts()
+
+
+def _check_sharded_against_flat(cuda, devices):
+    """R = 2 x 2 lanes on ``devices`` against the unsharded 4-lane server
+    on the card: exits equal (threshold 0: every exit the full depth),
+    logits within 1e-4 (a slab's shapes are half the flat step's, so
+    float32 sums run in another order; the card-vs-CPU tolerance), every
+    serving kernel launched, one build per (bucket, 2), and the current
+    device unchanged."""
+    cfg, model, params, reqs = _sharded_smoke()
+    start = torch.cuda.current_device()
+    flat, _, _ = _sharded_drain(model, params, reqs, lanes=4, device=cuda)
+    shd, tel, launches = _sharded_drain(model, params, reqs, lanes=2, devices=devices)
+    assert torch.cuda.current_device() == start
+    assert all(launches[k] > 0 for k in ops.SHARDED_SERVING_KERNELS), launches
+    assert tel["step_traces_per_bucket_replica"] == {"16x2": 1, "32x2": 1}
+    for i in range(len(reqs)):
+        assert shd.done[i].exit_layer == flat.done[i].exit_layer == cfg.n_layers
+        np.testing.assert_allclose(shd.done[i].result, flat.done[i].result, atol=1e-4)
+    return shd
+
+
+def test_sharded_classifier_drain_on_one_card(cuda):
+    """Two replicas named on cuda:0 share one params copy and one set of
+    block masks (the same tensors)."""
+    shd = _check_sharded_against_flat(cuda, ["cuda:0", "cuda:0"])
+    assert shd._rparams[0] is shd._rparams[1] and shd._block_masks[0] is shd._block_masks[1]
+
+
+def test_sharded_classifier_drain_across_two_cards(cuda):
+    """Replicas on cuda:0 and cuda:1: each replica's params, block masks,
+    CSR index and packed tiles on its own card, and the drain equal to the
+    unsharded one on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices; this machine shows {torch.cuda.device_count()}")
+    shd = _check_sharded_against_flat(cuda, ["cuda:0", "cuda:1"])
+    for r in range(2):
+        assert shd._rparams[r]["layer"]["mlp"]["w_up"].device == torch.device("cuda", r)
+        index = shd._block_masks[r]["w_up"]
+        assert index.indices.device == index.tiles.device == torch.device("cuda", r)

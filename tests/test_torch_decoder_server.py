@@ -504,8 +504,10 @@ def test_seeded_sweep_quoted_contracts_all_met():
 
 def test_decoder_server_refuses_what_is_not_ported():
     model, params, cfg = _model(TORCH, n_layers=4)
+    # replicas are served (test_torch_sharded_serving.py); a replica count
+    # that disagrees with the device list is refused
     with pytest.raises(ValueError, match="replica"):
-        TDecoder(model, params, replicas=2, device="cpu")
+        TDecoder(model, params, replicas=3, devices=["cpu", "cpu"], device="cpu")
     with pytest.raises(ValueError, match="spec_window"):
         TDecoder(model, params, spec_window=2, device="cpu")
     cmodel, cparams, _ = _model(TORCH, "albert_edgebert", seed=0)

@@ -93,6 +93,25 @@ def test_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch):
     assert {srv.device.type for srv in router.tasks.values()} == {"cpu"}
     assert MultiTaskRouter(model, params["embed"], tasks, device="cpu").device.type == "cpu"
 
+    # lane-sharded serving: both servers with replicas, and its launcher
+    import dataclasses
+
+    from repro_torch.launch import serve_sharded
+    from repro_torch.serving.engine import ClassifierServer, DecoderServer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClassifierServer(model, params, replicas=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClassifierServer(model, params, devices=["cuda:0", "cuda:0"], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_sharded.main([])
+    assert [d.type for d in ClassifierServer(model, params, replicas=2, device="cpu").devices] == ["cpu"] * 2
+    dcfg = dataclasses.replace(get_smoke_config("deepseek_7b"), dtype="float32")
+    dparams = init_params(dcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderServer(build_model(dcfg), dparams, replicas=2)
+    assert DecoderServer(build_model(dcfg), dparams, replicas=2, device="cpu").lanes == 8
+
 
 def test_scan_covers_the_replay_slice():
     """The module scan above walks the package, so it covers this slice's
@@ -224,6 +243,15 @@ def test_vlm_and_decoder_training_entry_points_raise_without_gpu(monkeypatch, tm
     for arch in ("zamba2_1p2b", "deepseek_7b"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--arch", arch, "--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+def test_scan_covers_the_sharded_slice():
+    """The module scan walks the package, so it covers the lane-sharded
+    slice's new launcher and the modules it changed: the servers, their
+    step math, the admission layer and the kernel lists."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.launch.serve_sharded", "repro_torch.serving.engine", "repro_torch.serving.step_math",
+            "repro_torch.serving.admission", "repro_torch.kernels.ops"} <= names
 
 
 def test_scan_covers_the_decoder_slice():

@@ -32,7 +32,10 @@ Phases, each printing one JSON line:
                 102400], [4 and 1, 151936] and [4 and 1, 256000] logits
                 beside the warp-per-row entry, and layernorm at the
                 decoders' [4 and 1, 4096] rows (its generic path) and at
-                whisper-medium's [4 and 1, 1024] (its register path);
+                whisper-medium's [4 and 1, 1024] (its register path), and
+                quantize_groups at the eb_decode shapes ([4, 4096] in 4
+                groups and in 1, [2, 4096] in 1), bit for bit on a
+                second launch;
   4. reference — the deployed model, and the classifier serving drain, on
                 the card against the same on the CPU (plain versions), at
                 smoke size and at full width;
@@ -98,14 +101,28 @@ Phases, each printing one JSON line:
                 unsharded drains', W = 4 equal to W = 1 bit for bit,
                 softmax_entropy launched 2 x n_layers x W per fused step
                 and nothing else.
+ 8a. eb_decode — the decode phase's weights (before they are released)
+                with EdgeBERT's features on: AF(8,3) activation
+                quantization after every layer and adaptive spans, span_z
+                drawn from seed 1 in [0, 8]; the decode recipe's probe and
+                drains at W = 1 and 4: af_quantize (quantize_groups, one
+                group per lane) launched n_layers x W times per fused step
+                and n_layers times per prefill token (one group over the
+                prefill's batched step), softmax_entropy n_layers x W per
+                fused step, nothing else (ops.EB_DECODE_KERNELS); W = 4
+                equal to W = 1 bit for bit, one decode and one prefill
+                build per bucket; drains, a fused step and a prefill timed
+                beside the decode phase's; the first 2 layers against the
+                CPU, teacher-forced, every AF flip one grid step at a
+                rounding boundary.
  8b. moe_decode — the same recipe on the MoE decoder at full width
-                (qwen2-moe-a2.7b: its first 12 of 24 layers, cut for the
+                (qwen2-moe-a2.7b: its first 8 of 24 layers, cut for the
                 script's time, d_model 2048, 16 x 128 heads with qkv biases
                 drawn nonzero, 60 experts of d_ff 1408 top-4 and a shared
                 expert of 5632, vocab 151936; the float32 weights drawn on
                 the card after the decode phase's are released, the free
                 memory checked and reported before and after the draw):
-                softmax_entropy's wide-row entry launched 12 x W times per
+                softmax_entropy's wide-row entry launched 8 x W times per
                 fused step, W = 4
                 equal to W = 1 bit for bit, the step's bytes by part
                 (experts, LM head, shared expert, attention) beside its
@@ -222,7 +239,9 @@ entry at the decode shape [4, 102400] with the decode phase's launches,
 at the moe_decode shape [4, 151936] with that phase's and at the ln_decode
 shape [4, 256000] with that phase's; layernorm three more, at [4, 4096] with
 the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
-encdec_decode phase's served drain's; `launches_by_path` gives every path's,
+encdec_decode phase's served drain's; af_quantize one more, at the
+eb_decode shape [4, 4096] in 4 groups with that phase's launches;
+`launches_by_path` gives every path's, eb_decode,
 hybrid_decode, encdec_decode, vlm_decode, lm_train and sharded (the
 sharded classifier drain's and the sharded W = 1 decode drain's) included;
 every kernel row also checks that the launch left the current device as it
@@ -776,6 +795,33 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
             copy_device_ms=time_ms(lambda: copy_to.copy_(xa), queued=True),
             summary=summary_of(path, S_b), label=f"{path}@S={S_b}")
 
+    # ... and at the eb_decode path's shapes: deepseek-7b's hidden state
+    # after a decoder layer, [4 lanes, 4096], one group per lane (the fused
+    # steps: the JAX package vmaps each lane's call) and one group over the
+    # rows (the serving prefill's batched step, [2, 4096]: the lane and one
+    # dummy row; and [4, 4096], the JAX package's 4-lane call); one row at
+    # 1e-2 of the others' scale, so the groups take different biases.  atol
+    # 0 and equal biases against the plain version on the CPU, and the same
+    # bits on a second launch.
+    d_eb = get_config("deepseek_7b").d_model
+    for rows_, groups in ((DECODE_LANES, DECODE_LANES), (DECODE_LANES, 1), (2, 1)):
+        xq = torch.randn(rows_, d_eb, generator=g, device=dev) * 4.0
+        xq[0] *= 1e-2
+        rpg = rows_ // groups
+        e_cpu = group_exp_bias(xq.cpu(), rpg)
+        q1, e1 = quantize_groups(xq, rpg)
+        q2, e2 = quantize_groups(xq, rpg)
+        err = (q1.cpu() - ref.quantize(xq.cpu(), e_cpu, rpg)).abs().max().item()
+        same = torch.equal(q1, q2) and torch.equal(e1, e2)
+        n = xq.numel()
+        row("af_quantize", "src/repro_torch/csrc/af_quantize.cu", "src/repro/kernels/adaptivfloat_k.py:41",
+            f"eb_decode: [{rows_}, {d_eb}] fp32, {groups} row group{'s' if groups > 1 else ''} of {rpg}", err,
+            "atol 0 and equal biases (against the CPU plain version); the same bits on a second launch",
+            torch.equal(e1.cpu(), e_cpu) and err == 0.0 and same, 2 * n * 4 + groups * 4, 20.0 * n,
+            **kernel_times(lambda: quantize_groups(xq, rpg), lambda: ref.quantize(xq, e1, rpg), enqueue=True),
+            launch_floor_device_ms=launch_floor, second_launch_equal=same,
+            summary="eb_decode" if groups > 1 else None, label=f"eb_decode[{rows_}]/{groups}")
+
     # block_sparse_matmul: the pruned MLP weights at M = lanes x S for each
     # path's buckets S
     # the weights on the card, and their indices with the tiles packed from
@@ -1120,16 +1166,43 @@ def layer_steps(cfg, params, dev, kv_lens, bucket: int, slabs=None):
     return step, fmt
 
 
+def flip_check(ref, test, fmt, valid=None) -> dict:
+    """One layer's two sides, each (pre-quantization output [groups, ...],
+    its AF quantization, the biases [groups]): the largest difference
+    before quantization, whether the biases are equal, and the quantized
+    elements that differ (flips), each of which must be one step between
+    neighbouring grid points whose midpoint lies within the
+    pre-quantization difference of the reference's value, so the two values
+    straddle an AF rounding boundary.  ``valid`` [groups, S] masks padding
+    rows out."""
+    import torch
+
+    (pre_c, q_c, e_c), (pre_g, q_g, e_g) = ref, test
+    pre_err = (pre_g - pre_c).abs()
+    flip = q_g != q_c
+    if valid is not None:
+        flip = flip & valid[..., None]
+    lo = torch.minimum(q_g.abs(), q_c.abs())
+    step = af_next_step(lo, e_c.float().reshape((-1,) + (1,) * (q_c.ndim - 1)), fmt)
+    one_step = ((q_g * q_c >= 0) & (lo + step == torch.maximum(q_g.abs(), q_c.abs()))) | ~flip
+    mid = (q_g + q_c) / 2
+    at_boundary = ((pre_c - mid).abs() <= pre_err + 1e-7 * pre_c.abs()) | ~flip
+    counted = pre_err if valid is None else pre_err[valid]
+    return {"flips": int(flip.sum()), "elements": int(flip.numel() if valid is None else valid.sum() * q_c.shape[-1]),
+            "pre_quant_max_abs_err": float(counted.max()),
+            "flip_max_abs": float((q_g - q_c)[flip].abs().max()) if flip.any() else 0.0,
+            "biases_equal": bool(torch.equal(e_c, e_g)),
+            "all_one_step": bool(one_step.all()), "all_at_boundary": bool(at_boundary.all())}
+
+
 def layer_flips(cfg, params, requests, bucket: int, ref_side, test_side) -> dict:
     """Layer by layer on the reference side's state (teacher forcing), the
     serving layer step before activation quantization on two sides
     (``layer_steps``) at one ``bucket``, then the per-lane AF quantization
     of each.  The two pre-quantization tensors must agree within
-    PRE_QUANT_ATOL and give every lane the same bias.  A quantized element
-    that differs is a flip: it must be one step between neighbouring grid
-    points whose midpoint lies within the pre-quantization difference of
-    the reference's value, so the two values straddle an AF rounding
-    boundary.  Every other element must be equal."""
+    PRE_QUANT_ATOL and give every lane the same bias; every quantized
+    element that differs must be a flip at an AF rounding boundary
+    (``flip_check``), every other element equal."""
     import numpy as np
     import torch
 
@@ -1137,7 +1210,7 @@ def layer_flips(cfg, params, requests, bucket: int, ref_side, test_side) -> dict
     from repro_torch.models.model import build_model
 
     (ref_step, fmt), (test_step, _) = ref_side, test_side
-    lanes, D = len(requests), cfg.d_model
+    lanes = len(requests)
     toks = np.zeros((lanes, bucket), np.int64)
     lens = np.array([len(t) for t in requests], np.int32)
     for i, t in enumerate(requests):
@@ -1146,19 +1219,8 @@ def layer_flips(cfg, params, requests, bucket: int, ref_side, test_side) -> dict
     h = build_model(cfg).embed(tree_to(params, torch.device("cpu")), torch.as_tensor(toks)).float()
     per_layer = []
     for layer in range(cfg.n_layers):
-        (pre_c, q_c, e_c), (pre_g, q_g, e_g) = ref_step(h), test_step(h)
-        pre_err = (pre_g - pre_c).abs()
-        flip = (q_g != q_c) & valid[..., None]
-        lo = torch.minimum(q_g.abs(), q_c.abs())
-        step = af_next_step(lo, e_c.float()[:, None, None], fmt)
-        one_step = ((q_g * q_c >= 0) & (lo + step == torch.maximum(q_g.abs(), q_c.abs()))) | ~flip
-        mid = (q_g + q_c) / 2
-        at_boundary = ((pre_c - mid).abs() <= pre_err + 1e-7 * pre_c.abs()) | ~flip
-        r = {"layer": layer + 1, "flips": int(flip.sum()), "elements": int(valid.sum()) * D,
-             "pre_quant_max_abs_err": float(pre_err[valid].max()),
-             "flip_max_abs": float((q_g - q_c)[flip].abs().max()) if flip.any() else 0.0,
-             "biases_equal": bool(torch.equal(e_c, e_g)),
-             "all_one_step": bool(one_step.all()), "all_at_boundary": bool(at_boundary.all())}
+        pre_c, q_c, e_c = ref_step(h)
+        r = {"layer": layer + 1, **flip_check((pre_c, q_c, e_c), test_step(h), fmt, valid)}
         per_layer.append(r)
         if not (r["pre_quant_max_abs_err"] <= PRE_QUANT_ATOL and r["biases_equal"]):
             raise AssertionError(f"bucket {bucket}, layer {layer + 1}: the layer step before "
@@ -2093,10 +2155,12 @@ DECODE_PHASES = {"deepseek_7b": "decode", "qwen2_moe_a2p7b": "moe_decode", "mini
 # phase runs its first 10 of 30 layers (ln_decode drives the same pre-LN
 # decoder path at full width and depth; with the hybrid and encdec phases
 # the whole script took 544 s of its 600 s aim at full depth), and
-# qwen2-moe-a2.7b's moe_decode its first 12 of 24 (the vlm_decode and
-# lm_train phases and the served whisper drains add ~89 s to the 521 s
-# the script took with the first cut; moe_decode took 108 s at full depth)
-DECODE_DEPTH = {"deepseek_7b": 10, "qwen2_moe_a2p7b": 12}
+# qwen2-moe-a2.7b's moe_decode its first 8 of 24 (the vlm_decode and
+# lm_train phases and the served whisper drains added ~89 s to the 521 s
+# the script took with the first cut, and the decode phase's eb_decode
+# ~27 s: the phases summed to 597 s with 12 layers; moe_decode took 108 s
+# at full depth, 70 s at 12)
+DECODE_DEPTH = {"deepseek_7b": 10, "qwen2_moe_a2p7b": 8}
 
 
 def draw_decoder(cfg, phase, dev):
@@ -2139,7 +2203,7 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     float32 weights drawn on the card from seed 0, through the
     DecoderServer: deepseek-7b (the ``decode`` phase: its first 10 of 30
     layers, d_model 4096, 32 x 128 heads, d_ff 11008, vocab 102400),
-    qwen2-moe-a2.7b (``moe_decode``: its first 12 of 24 layers, d_model 2048,
+    qwen2-moe-a2.7b (``moe_decode``: its first 8 of 24 layers, d_model 2048,
     16 x 128 heads, 60 experts of d_ff 1408 top-4 and a shared expert of
     5632, qkv biases drawn nonzero from the same generator, vocab 151936)
     or minitron-8b (``ln_decode``: 32 layers, d_model 4096, 32 x 128 query
@@ -2307,6 +2371,7 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     step_bytes["kv_cache"] = n_bytes(cache)
     step_bound_ms = sum(step_bytes.values()) / HBM_BYTES_PER_S * 1e3
     ref = check_decode_reference(cfg, params, prompts, thr, dev)
+    eb = run_eb_decode_path(dev, cfg, params, prompts, drains, parts) if arch == "deepseek_7b" else None
     result = {
         "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "depth_cut_from": full_depth,
         "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
@@ -2328,6 +2393,7 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
         "sharded": sharded,
     }
     emit(result)
+    result["eb_decode"] = eb
     del params, servers, a, b, srv, cache, layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -2404,6 +2470,218 @@ def sharded_decode(fresh, flat, flat_ms, prompts, cfg, phase) -> dict:
     out["spec_equals_per_token"] = True
     out["launches"] = out["drains"]["W=1"]["launches"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8a (continued): EdgeBERT's features on the dense decoder (eb_decode)
+# ---------------------------------------------------------------------------
+
+# span_z drawn from the seed in [0, EB_SPAN_MAX]: at the init's 64 with a
+# 32-token ramp no head's mask would fall below 1 within a 24-token request
+EB_SPAN_MAX = 8.0
+EB_REF_LAYERS = 2
+
+
+def check_eb_decode_reference(cfg, params, seq, dev) -> dict:
+    """The card against the CPU on the first EB_REF_LAYERS layers of the
+    eb_decode model, teacher-forced: one lane through ``seq`` one token at
+    a time; at every (token, layer) both sides run the layer before its
+    activation quantization (the spans on, cache attention on the
+    reference ops) from the CPU's hidden state and the CPU's KV rows, then
+    ``quantize_groups`` (the kernel on the card, its plain version on the
+    CPU), and the CPU's quantized output goes on.  The pre-quantization
+    outputs must agree within DECODE_ATOL with equal biases, and every
+    quantized element that differs must be one AF grid step at a rounding
+    boundary (``flip_check``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.core.adaptivfloat import AFFormat
+    from repro_torch.kernels.adaptivfloat_k import quantize_groups
+    from repro_torch.models.model import build_model
+
+    L_ = EB_REF_LAYERS
+    q = cfg.edgebert.quant
+    fmt = AFFormat(q.n_bits, q.n_exp)
+    model = build_model(dataclasses.replace(cfg, n_layers=L_).with_edgebert(
+        quant=dataclasses.replace(q, quantize_activations=False)))
+    cpu = torch.device("cpu")
+    card = {"layers": cut_layers(params["layers"], L_), "span_z": params["span_z"][:L_]}
+    host = tree_to(card, cpu)
+    caches = {"card": model.init_cache(1, DECODE_BUCKET, device=dev),
+              "cpu": model.init_cache(1, DECODE_BUCKET, device=cpu)}
+    t0 = time.perf_counter()
+    per_layer = [{"layer": i + 1, "flips": 0, "elements": 0, "pre_quant_max_abs_err": 0.0, "flip_max_abs": 0.0,
+                  "biases_equal": True, "all_one_step": True, "all_at_boundary": True} for i in range(L_)]
+    with torch.no_grad():
+        for t, tok in enumerate(seq):
+            h = model.embed(params, torch.tensor([[tok]], device=dev)).cpu()
+            for i in range(L_):
+                for name in ("k", "v"):
+                    caches["card"][name][i].copy_(caches["cpu"][name][i])
+                sides = []
+                for side, p, d in (("cpu", host, cpu), ("card", card, dev)):
+                    c = caches[side]
+                    pos = torch.tensor([t], device=d)
+                    pre = model._dense_layer_step(model._layer(p, i)[0], h.to(d), causal=True,
+                                                  positions=pos[:, None], span_z=p["span_z"][i],
+                                                  cache=(c["k"][i], c["v"][i]), cache_pos=pos, use_kernels=True,
+                                                  per_lane=True)
+                    qd, ed = quantize_groups(pre.reshape(1, -1).contiguous(), 1, fmt=fmt)
+                    sides.append((pre.cpu(), qd.reshape(pre.shape).cpu(), ed.cpu()))
+                r, acc = flip_check(sides[0], sides[1], fmt), per_layer[i]
+                for k in ("flips", "elements"):
+                    acc[k] += r[k]
+                for k in ("pre_quant_max_abs_err", "flip_max_abs"):
+                    acc[k] = max(acc[k], r[k])
+                for k in ("biases_equal", "all_one_step", "all_at_boundary"):
+                    acc[k] = acc[k] and r[k]
+                h = sides[0][1]
+    result = {"phase": "eb_reference", "config": f"{cfg.name} first {L_} layers (cut from {cfg.n_layers}), "
+              "AF(8,3) activations, spans", "teacher_forced_tokens": len(seq),
+              "pre_quant_atol": DECODE_ATOL, "flips": sum(r["flips"] for r in per_layer),
+              "elements": sum(r["elements"] for r in per_layer),
+              "pre_quant_max_abs_err": max(r["pre_quant_max_abs_err"] for r in per_layer),
+              "flip_max_abs": max(r["flip_max_abs"] for r in per_layer), "per_layer": per_layer,
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    for r in per_layer:
+        if not (r["pre_quant_max_abs_err"] <= DECODE_ATOL and r["biases_equal"]):
+            raise AssertionError(f"eb_decode reference, layer {r['layer']}: the layer before quantization differs "
+                                 f"beyond {DECODE_ATOL} or moves the bias: {r}")
+        if not (r["all_one_step"] and r["all_at_boundary"]):
+            raise AssertionError(f"eb_decode reference, layer {r['layer']}: a quantized element differs by more "
+                                 f"than one grid step or away from an AF boundary: {r}")
+    return result
+
+
+def run_eb_decode_path(dev, cfg, params, prompts, decode_drains, decode_parts) -> dict:
+    """The ``decode`` phase's deepseek-7b weights (its depth, drawn on the
+    card) with EdgeBERT's features on: AF(8,3) activation quantization
+    after every layer and adaptive spans, ``span_z`` [n_layers, n_heads]
+    drawn from seed 1 in [0, EB_SPAN_MAX] (every head's soft mask falls
+    below 1 within a request).  The decode recipe: probe_exit_threshold,
+    then the 8 SyntheticLM requests through 4 lanes with per-token exit and
+    an arbiter at spec windows 1 and 4.  Checks the launches
+    (``ops.EB_DECODE_KERNELS`` only: af_quantize n_layers x W per fused step
+    and n_layers per prefill token, softmax_entropy n_layers x W per fused
+    step), W = 4 equal to W = 1 bit for bit, one decode and one prefill
+    build per bucket, finite outputs; times the drains, a fused step and a
+    prefill beside the decode phase's; then the first 2 layers against the
+    CPU (``check_eb_decode_reference``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import QuantConfig, SpanConfig
+    from repro_torch.core.early_exit import ExitThresholdSchedule
+    from repro_torch.hwmodel.edgebert_accel import albert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import step_math
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter, LatencyAwareDVFSController, no_early_exit_baseline
+    from repro_torch.serving.engine import DecoderServer, probe_exit_threshold
+
+    phase = "eb_decode"
+    t_start = time.perf_counter()
+    cfg = cfg.with_edgebert(quant=QuantConfig(enabled=True), span=SpanConfig(enabled=True))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = dict(params, span_z=torch.rand((cfg.n_layers, cfg.n_heads), generator=gen, device=dev) * EB_SPAN_MAX)
+    model = build_model(cfg)
+    n, W4, L_ = DECODE_REQUESTS, DECODE_SPEC_WINDOW, cfg.n_layers
+    prefill_tokens = n * (DECODE_PROMPT - 1)
+    t0 = time.perf_counter()
+    thr = probe_exit_threshold(model, params, prompts, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET,
+                               buckets=(DECODE_BUCKET,), max_new_tokens=DECODE_NEW, device=dev)
+    probe_s = time.perf_counter() - t0
+    stats = albert_layer_stats(seq_len=DECODE_BUCKET)
+    stats.n_layers = L_
+    target = no_early_exit_baseline(stats)["latency_s"] * 2.0
+
+    def fresh(W):
+        arb = BatchedDVFSArbiter(LatencyAwareDVFSController(stats, target))
+        return DecoderServer(model, params, batch_lanes=DECODE_LANES, max_seq=DECODE_BUCKET, eos_id=-1,
+                             buckets=(DECODE_BUCKET,), arbiter=arb, exit_threshold=thr, spec_window=W,
+                             threshold_schedule=ExitThresholdSchedule(thr) if W > 1 else None, device=dev)
+
+    drains, servers = {}, {}
+    for W in (1, W4):
+        srv = fresh(W)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        serve(srv, prompts, max_new_tokens=DECODE_NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        tel = srv.telemetry()
+        steps = tel["decode_steps"]
+        want = {"softmax_entropy": L_ * W * steps, "af_quantize": L_ * W * steps + L_ * prefill_tokens}
+        if {k: launches[k] for k in want} != want or any(launches[k] for k in launches if k not in want):
+            raise AssertionError(f"{phase} W={W}: launches {launches}, want {want} (n_layers x W per fused step, "
+                                 f"af_quantize also n_layers per prefill token) and nothing else")
+        if tuple(sorted(want)) != tuple(sorted(ops.EB_DECODE_KERNELS)):
+            raise AssertionError(f"{phase}: the path lists {ops.EB_DECODE_KERNELS}")
+        if tel["decode_traces_per_bucket"] != {DECODE_BUCKET: 1} or tel["prefill_traces"] != 1:
+            raise AssertionError(f"{phase} W={W}: builds per bucket: {tel}")
+        results = np.stack([srv.done[i].result for i in range(n)])
+        gen_toks = [srv.done[i].generated for i in range(n)]
+        exits = [srv.done[i].token_exit_layers for i in range(n)]
+        if not (np.isfinite(results).all() and results.shape == (n, cfg.vocab_size)):
+            raise AssertionError(f"{phase} W={W}: decode logits are not finite or of the wrong shape")
+        if any(len(g_) != DECODE_NEW or not all(0 <= t < cfg.vocab_size for t in g_) for g_ in gen_toks):
+            raise AssertionError(f"{phase} W={W}: generated tokens off: {gen_toks}")
+        if not all(1 <= x <= L_ for e in exits for x in e):
+            raise AssertionError(f"{phase} W={W}: exit layers out of range: {exits}")
+        servers[W] = srv
+        drains[W] = {"spec_window": W, "drain_ms": wall, "decode_phase_drain_ms": decode_drains[W]["drain_ms"],
+                     "tokens": tel["tokens"], "tokens_per_s": tel["tokens"] / (wall / 1e3), "fused_steps": steps,
+                     "launches": launches, "af_quantize_launches_per_fused_step": L_ * W,
+                     "af_quantize_launches_per_prefill_token": L_,
+                     "avg_token_exit_layer": tel["avg_token_exit_layer"],
+                     "tokens_per_fused_step": tel["tokens_per_fused_step"],
+                     "modeled_energy_per_token_j": tel["energy_j"] / tel["tokens"],
+                     "deadline_misses": tel["deadline_misses"], "generated": gen_toks, "token_exit_layers": exits}
+    a, b = servers[1], servers[W4]
+    for i in range(n):
+        if (a.done[i].generated != b.done[i].generated
+                or a.done[i].token_exit_layers != b.done[i].token_exit_layers
+                or not np.array_equal(a.done[i].result, b.done[i].result)):
+            raise AssertionError(f"{phase} request {i}: spec_window {W4} differs from spec_window 1")
+    # a fused W = 1 step of the 4 lanes and one request's prefill, timed and
+    # profiled alone as the decode phase's parts are
+    cache = model.init_cache(DECODE_LANES, DECODE_BUCKET, device=dev)
+    cur = torch.as_tensor(np.asarray(prompts[:DECODE_LANES, -1:], np.int64), device=dev)
+    pos = torch.full((DECODE_LANES,), DECODE_PROMPT - 1, dtype=torch.int64, device=dev)
+
+    def fused_steps():
+        with torch.no_grad():
+            for _ in range(DECODE_STEPS):
+                step_math.decoder_decode_ee(model, params, cache, cur, pos, thr, use_kernels=True)
+
+    def prefill():
+        with torch.no_grad():
+            step_math.decoder_prefill(model, params, cache, prompts[0], 0, DECODE_PROMPT, use_kernels=True)
+
+    parts = profile_parts((("fused_step", fused_steps, DECODE_STEPS), ("prefill", prefill, 1)))
+    for name, part in parts.items():
+        part["decode_phase_wall_ms"] = decode_parts[name]["wall_ms"]
+        part["decode_phase_device_busy_ms"] = decode_parts[name]["device_busy_ms"]
+    seq = [int(t) for t in prompts[0]] + [int(t) for t in prompts[1][:DECODE_NEW]]
+    ref = check_eb_decode_reference(cfg, params, seq, dev)
+    result = {
+        "phase": phase, "config": f"{cfg.name}, AF({cfg.edgebert.quant.n_bits},{cfg.edgebert.quant.n_exp}) "
+        f"activations, adaptive spans (span_z from seed 1 in [0, {EB_SPAN_MAX}], ramp {cfg.edgebert.span.ramp})",
+        "n_layers": L_, "span_z_min_per_layer": [float(x) for x in params["span_z"].min(dim=1).values], "threshold": thr,
+        "probe_s": probe_s, "requests": n, "lanes": DECODE_LANES, "bucket": DECODE_BUCKET,
+        "drains": {f"W={W}": d for W, d in drains.items()}, "spec_equals_per_token": True, "parts": parts,
+        "launches": drains[1]["launches"], "kernels": list(ops.EB_DECODE_KERNELS),
+        "reference": {k: ref[k] for k in ("flips", "elements", "pre_quant_max_abs_err", "flip_max_abs")},
+        "seconds": time.perf_counter() - t_start,
+    }
+    emit(result)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -4006,10 +4284,12 @@ def main() -> int:
     vlm_decode = timed("vlm_decode", run_vlm_decode_path, dev)
     lm_train = timed("lm_train", run_lm_train_path, dev)
     train = timed("train", run_train_path, dev)
+    seconds["eb_decode"] = decode["eb_decode"]["seconds"]        # within "decode"
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
                    "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]],
+                   "eb_decode": decode["eb_decode"]["launches"][r["name"]],
                    "moe_decode": moe_decode["launches"][r["name"]], "ln_decode": ln_decode["launches"][r["name"]],
                    "ssm_decode": ssm_decode["launches"][r["name"]],
                    "hybrid_decode": hybrid_decode["launches"][r["name"]],

@@ -85,6 +85,13 @@ ENCDEC_DECODE_KERNELS = ("layernorm",)
 # the DecoderServer): none.  Its norms are RMS (no kernel in either
 # package), and cache and cross attention stay on the reference ops
 VLM_DECODE_KERNELS = ()
+# the dense decoder with EdgeBERT's activation quantization and adaptive
+# spans (deepseek-7b, DecoderServer with an exit threshold): the off-ramp's
+# entropy as on DECODE_KERNELS, and the AdaptivFloat quantize after every
+# layer (quantize_groups: one group per lane in the fused steps, one over
+# the prefill's batched step), where the JAX package passes use_pallas to
+# _maybe_actquant; soft spans keep cache attention on the reference ops
+EB_DECODE_KERNELS = ("softmax_entropy", "af_quantize")
 # lane-sharded serving (ClassifierServer / DecoderServer with replicas):
 # every replica's slab runs the unsharded fused step, so the sharded
 # classifier launches the serving path's kernels and the sharded decoder

@@ -84,12 +84,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def _soft_span_block_mask(z: torch.Tensor, ramp: int, q_pos: torch.Tensor,
                           k_pos: torch.Tensor, causal: bool) -> torch.Tensor:
-    """[H, qb, kb] soft span mask for one (q block, kv block) pair (clipped
-    with ``jnp.clip``'s gradient at the bounds: ``clip01``)."""
-    d = q_pos[:, None] - k_pos[None, :]
+    """[B or 1, H, qb, kb] soft span mask for one (q block, kv block) pair,
+    the query positions ``q_pos`` [B or 1, qb] one row per lane (the JAX
+    package's mask at each ``vmap``ped lane's own offset), clipped with
+    ``jnp.clip``'s gradient at the bounds (``clip01``)."""
+    d = q_pos[:, :, None] - k_pos[None, None, :]
     if not causal:
         d = d.abs()
-    return clip01((ramp + z.float()[:, None, None] - d[None].float()) / float(ramp))
+    return clip01((ramp + z.float()[None, :, None, None] - d[:, None].float()) / float(ramp))
 
 
 def _key_mask(k_pos: torch.Tensor, kv_len: Optional[torch.Tensor], Sk: int) -> torch.Tensor:
@@ -116,7 +118,8 @@ def attention(
     kernel).  Returns [B, Sq, H, hd].  ``kv_len`` and ``q_offset`` (the
     decode step's cache position) are per batch row: the JAX package
     ``vmap``s a one-lane body with scalars, the port writes the lane axis
-    out."""
+    out, soft spans' ramps included (each lane's mask at its own query
+    positions)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -124,8 +127,6 @@ def attention(
     dev = q.device
     kvl = None if kv_len is None else torch.as_tensor(kv_len, device=dev).reshape(-1)
     q_off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)      # [B or 1, 1]
-    if span_z is not None and q_off.shape[0] > 1:
-        raise NotImplementedError("soft spans with a query offset per lane are not ported")
     qf = (q.float() * scale).reshape(B, Sq, KV, G, hd)
     kf, vf = k.float(), v.float()
 
@@ -140,9 +141,9 @@ def attention(
         valid = valid.expand(B, Sq, Sk)
         s = torch.where(valid[:, :, None, None, :], s, float("-inf"))
         if span_z is not None:
-            sm = _soft_span_block_mask(span_z, span_ramp, q_pos[0], k_pos, causal)
-            sm = sm.reshape(KV, G, Sq, Sk).permute(2, 0, 1, 3)
-            s = s + torch.log(sm.clamp_min(1e-20))[None]
+            sm = _soft_span_block_mask(span_z, span_ramp, q_pos, k_pos, causal)
+            sm = sm.reshape(-1, KV, G, Sq, Sk).permute(0, 3, 1, 2, 4)
+            s = s + torch.log(sm.clamp_min(1e-20))
         m = s.amax(dim=-1, keepdim=True)
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         p = torch.exp(s - m)
@@ -175,10 +176,10 @@ def attention(
             mask = mask.expand(B, q_block, kv_block)
             s = torch.where(mask[:, :, None, None, :], s, float("-inf"))
             if span_z is not None:
-                sm = _soft_span_block_mask(span_z, span_ramp, q_pos[0], k_pos, causal)
-                sm = sm.reshape(KV, G, q_block, kv_block).permute(2, 0, 1, 3)
+                sm = _soft_span_block_mask(span_z, span_ramp, q_pos, k_pos, causal)
+                sm = sm.reshape(-1, KV, G, q_block, kv_block).permute(0, 3, 1, 2, 4)
                 # the span modulates probabilities: log(mask) before the softmax
-                s = s + torch.log(sm.clamp_min(1e-20))[None]
+                s = s + torch.log(sm.clamp_min(1e-20))
             m_new = torch.maximum(m_run, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
             p = torch.exp(s - m_safe[..., None])

@@ -30,6 +30,10 @@ block on concat(h, x0) with its own KV cache; the encoder over stubbed
 frames and the decoder's cross-attention to the encoder's cached K/V; the
 gated cross layer over stubbed image embeddings, or over their K/V cached
 at prefill.
+Every family takes EdgeBERT's features where the JAX package takes them:
+AdaptivFloat activation quantization after every layer, adaptive spans
+(``span_z``) on the self-attention of each caller that passes one, the
+off-ramp parameters and a classifier head.
 Only the dense, MoE and albert families have early exit in the JAX
 package.  Its methods take a tree of tensors on one device and compute
 there; the decode methods take each lane's cache position as a ``[B]``
@@ -39,9 +43,12 @@ the cache in place.
 MoE routing couples the tokens of one routing through expert capacity, so
 each method keeps the JAX package's grouping: the decode methods route each
 lane on its own (the serving step's per-lane ``vmap``; ``decode_step`` with
-``moe_per_lane=False`` routes the lanes together, as the serving prefill
+``per_lane=False`` routes the lanes together, as the serving prefill
 needs), ``prefill`` and ``forward_token_exit`` route the whole batch
-together (the JAX model's batched calls).
+together (the JAX model's batched calls).  The activation quantization's
+AdaptivFloat bias follows the same grouping: one per lane where the JAX
+server ``vmap``s a one-lane call (``per_lane``), one over the whole batch
+where the JAX package makes the batched call.
 """
 from __future__ import annotations
 
@@ -156,6 +163,40 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
         p["dec_cross"] = {"norm": norm(L_), "xattn": attention((L_,))}
     p["final_norm"] = norm()
     p["lm_head"] = _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype)
+    p.update(_edgebert_params(cfg, gen, dev, dtype))
+    return p
+
+
+def _edgebert_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device, dtype) -> Params:
+    """The EdgeBERT leaves the JAX package's ``init_params`` draws on every
+    family: the classifier head with ``num_classes``, the off-ramp (float32)
+    with early exit, and ``span_z`` [1 or n_layers, n_heads] at
+    ``init_span`` with spans on, except on the attention-free ssm
+    family."""
+    d, f32 = cfg.d_model, torch.float32
+
+    def dense(shape, dt=dtype):
+        return _normal(gen, shape, 1.0 / math.sqrt(shape[0])).to(dev, dt)
+
+    p: Params = {}
+    if cfg.num_classes:
+        p["classifier"] = {
+            "pooler_w": dense((d, d)),
+            "pooler_b": torch.zeros(d, dtype=dtype, device=dev),
+            "cls_w": dense((d, cfg.num_classes)),
+            "cls_b": torch.zeros(cfg.num_classes, dtype=dtype, device=dev),
+        }
+    if cfg.edgebert.early_exit.enabled:
+        C = cfg.edgebert.early_exit.num_classes
+        p["offramp"] = {
+            "offramp_pooler_w": dense((d, d), dt=f32),
+            "offramp_pooler_b": torch.zeros(d, dtype=f32, device=dev),
+            "offramp_cls_w": dense((d, C), dt=f32),
+            "offramp_cls_b": torch.zeros(C, dtype=f32, device=dev),
+        }
+    if cfg.edgebert.span.enabled and not cfg.attention_free:
+        n_span_layers = 1 if cfg.shared_layers else cfg.n_layers
+        p["span_z"] = torch.full((n_span_layers, cfg.n_heads), cfg.edgebert.span.init_span, dtype=f32, device=dev)
     return p
 
 
@@ -164,46 +205,46 @@ def _check_dense(cfg: ModelConfig) -> None:
     and the qwen MoE configs have them: pre-LN with RMS norm or (dense
     only) LayerNorm, rotary positions, SwiGLU (in every expert too) or
     (dense only) the squared ReLU, with or without qkv biases, an untied LM
-    head, none of the EdgeBERT encoder features (spans, activation
-    quantization, off-ramps); the MoE family with its experts and top-k.
-    The ssm family as rwkv6-7b has it: RWKV6 layers, an untied LM head, no
-    EdgeBERT encoder features.  The hybrid family as zamba2-1.2b has it:
-    Mamba2 blocks with RMS pre-norms and the shared attention block (rotary
-    positions, its GELU MLP) every ``attn_every`` blocks, an untied head.
-    The encdec family as whisper-medium has it: pre-LN LayerNorm layers with
-    the GELU MLP in the encoder and the decoder, learned positions, an
-    untied head.  The vlm family as llama-3.2-vision has it: RMS pre-norms,
-    rotary positions, SwiGLU, no qkv bias, a gated cross layer closing
-    every group of ``cross_attn_every`` layers (so ``n_layers`` a multiple
-    of it), an untied head."""
-    eb = cfg.edgebert
-    encoder_features = eb.span.enabled or eb.quant.enabled or eb.early_exit.enabled or cfg.num_classes
-    plain = not (cfg.tie_embeddings or cfg.shared_layers or encoder_features)
+    head; the MoE family with its experts and top-k.  The ssm family as
+    rwkv6-7b has it: RWKV6 layers, an untied LM head.  The hybrid family as
+    zamba2-1.2b has it: Mamba2 blocks with RMS pre-norms and the shared
+    attention block (rotary positions, its GELU MLP) every ``attn_every``
+    blocks, an untied head.  The encdec family as whisper-medium has it:
+    pre-LN LayerNorm layers with the GELU MLP in the encoder and the
+    decoder, learned positions, an untied head.  The vlm family as
+    llama-3.2-vision has it: RMS pre-norms, rotary positions, SwiGLU, no
+    qkv bias, a gated cross layer closing every group of
+    ``cross_attn_every`` layers (so ``n_layers`` a multiple of it), an
+    untied head.  Every family takes the EdgeBERT features as the JAX
+    package does: activation quantization, adaptive spans (not the
+    attention-free ssm family, which has no ``span_z``), the off-ramp
+    parameters and a classifier head (``num_classes``); a tied head and
+    shared layers stay refused."""
+    plain = not (cfg.tie_embeddings or cfg.shared_layers)
     if cfg.family == "ssm":
         if not plain or cfg.d_model != cfg.n_heads * cfg.head_dim:
-            raise ValueError("only the ssm decoder of rwkv6-7b's kind (RWKV6 layers, untied head, no EdgeBERT "
-                             "encoder features) is ported")
+            raise ValueError("only the ssm decoder of rwkv6-7b's kind (RWKV6 layers, untied head, no shared "
+                             "layers) is ported")
         return
     if cfg.family == "hybrid":
         if (not plain or (cfg.norm, cfg.pos) != ("rms", "rope") or not cfg.ssm_state
                 or (2 * cfg.d_model) % cfg.ssm_head_dim
                 or (cfg.attn_every and 2 * cfg.d_model != cfg.n_heads * cfg.head_dim)):
             raise ValueError("only the hybrid decoder of zamba2-1.2b's kind (Mamba2 blocks, rms, a shared "
-                             "rope attention block at width 2 d_model, untied head, no EdgeBERT encoder "
-                             "features) is ported")
+                             "rope attention block at width 2 d_model, untied head, no shared layers) is ported")
         return
     if cfg.family == "encdec":
         if (not plain or (cfg.act, cfg.norm, cfg.pos) != ("gelu", "layernorm", "learned")
                 or not cfg.n_enc_layers):
             raise ValueError("only the encoder-decoder of whisper-medium's kind (gelu, layernorm, learned "
-                             "positions, an encoder, untied head, no EdgeBERT encoder features) is ported")
+                             "positions, an encoder, untied head, no shared layers) is ported")
         return
     if cfg.family == "vlm":
         if (not plain or (cfg.act, cfg.norm, cfg.pos) != ("swiglu", "rms", "rope") or cfg.qkv_bias
                 or cfg.cross_attn_every < 2 or cfg.n_layers % cfg.cross_attn_every):
             raise ValueError("only the vision decoder of llama-3.2-vision's kind (swiglu, rms, rope, no qkv bias, "
                              "a gated cross layer closing every group of cross_attn_every layers, untied head, "
-                             "no EdgeBERT encoder features) is ported")
+                             "no shared layers) is ported")
         return
     # the squared ReLU and LayerNorm as minitron-8b has them: the dense family only
     dense = cfg.family == "dense"
@@ -211,11 +252,10 @@ def _check_dense(cfg: ModelConfig) -> None:
             or (cfg.family == "moe" and not (cfg.n_experts and cfg.top_k))
             or cfg.act not in (("swiglu", "relu2") if dense else ("swiglu",))
             or cfg.norm not in (("rms", "layernorm") if dense else ("rms",))
-            or (cfg.pos, cfg.tie_embeddings, cfg.shared_layers) != ("rope", False, False)
-            or encoder_features):
+            or (cfg.pos, cfg.tie_embeddings, cfg.shared_layers) != ("rope", False, False)):
         raise ValueError("only the dense decoder of deepseek-7b's and minitron-8b's kinds (swiglu or relu2, "
                          "rms or layernorm) and the MoE decoder of qwen-moe's (swiglu, rms), each with rope, an "
-                         "untied head and no EdgeBERT encoder features, are ported")
+                         "untied head and no shared layers, are ported")
 
 
 DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -272,27 +312,7 @@ def init_params(
     p["layer"] = {"norm1": norm(), "attn": attn, "norm2": norm(), "mlp": mlp}
 
     p["final_norm"] = norm()
-    if cfg.num_classes:
-        p["classifier"] = {
-            "pooler_w": dense((d, d)),
-            "pooler_b": torch.zeros(d, dtype=dtype, device=dev),
-            "cls_w": dense((d, cfg.num_classes)),
-            "cls_b": torch.zeros(cfg.num_classes, dtype=dtype, device=dev),
-        }
-    if cfg.edgebert.early_exit.enabled:
-        C = cfg.edgebert.early_exit.num_classes
-        f32 = torch.float32
-        p["offramp"] = {
-            "offramp_pooler_w": dense((d, d), dt=f32),
-            "offramp_pooler_b": torch.zeros(d, dtype=f32, device=dev),
-            "offramp_cls_w": dense((d, C), dt=f32),
-            "offramp_cls_b": torch.zeros(C, dtype=f32, device=dev),
-        }
-    if cfg.edgebert.span.enabled:
-        n_span_layers = 1 if cfg.shared_layers else cfg.n_layers
-        p["span_z"] = torch.full(
-            (n_span_layers, H), cfg.edgebert.span.init_span, dtype=torch.float32, device=dev
-        )
+    p.update(_edgebert_params(cfg, gen, dev, dtype))
     return p
 
 
@@ -396,7 +416,10 @@ class Model:
         with ``moe_grouped``, all rows together without it (None: the
         config's ``moe_grouped_dispatch``).  The decoder's two pre-norms
         take ``use_kernels`` as the JAX package's take ``use_pallas``: a
-        LayerNorm goes to the layernorm kernel, an RMS norm has none."""
+        LayerNorm goes to the layernorm kernel, an RMS norm has none.  Every
+        family's layer ends in the activation quantization, which takes
+        ``use_kernels`` too (the quantize kernel) and one bias per batch row
+        with ``per_lane``."""
         cfg = self.cfg
         attn = dict(causal=causal, positions=positions, span_z=span_z, span_ramp=cfg.edgebert.span.ramp,
                     kv_len=kv_len, cache=cache, cache_pos=cache_pos, use_kernels=use_kernels)
@@ -414,33 +437,37 @@ class Model:
         else:
             mo = L.apply_mlp(lp["mlp"], hn, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
             aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
-        return (h + mo, aux) if with_aux else h + mo
+        h = self._maybe_actquant(h + mo, use_kernels=use_kernels, per_lane=per_lane)
+        return (h, aux) if with_aux else h
 
     def _rwkv_layer_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
-                         decode: bool = False):
+                         decode: bool = False, per_lane: bool = False):
         """One RWKV6 layer (the JAX package's ``_rwkv_layer_step``) -> (h,
-        new states {"last_tm", "wkv", "last_cm"}).  Its two LayerNorms take
-        no kernel flag in the JAX package, so they stay on the reference
-        ops here too."""
+        new states {"last_tm", "wkv", "last_cm"}).  Its two LayerNorms and
+        its activation quantization (one bias per batch row with
+        ``per_lane``) take no kernel flag in the JAX package, so they stay
+        on the reference ops here too."""
         st = states or {}
         tout, (last_tm, wkv) = rwkv6.apply_rwkv6(lp["tmix"], L.apply_norm(lp["norm1"], h), self.cfg,
                                                  last_x=st.get("last_tm"), wkv_state=st.get("wkv"),
                                                  decode=decode)
         h = h + tout
         cout, last_cm = rwkv6.apply_channel_mix(lp["cmix"], L.apply_norm(lp["norm2"], h), last_x=st.get("last_cm"))
-        return h + cout, {"last_tm": last_tm, "wkv": wkv, "last_cm": last_cm}
+        return (self._maybe_actquant(h + cout, per_lane=per_lane),
+                {"last_tm": last_tm, "wkv": wkv, "last_cm": last_cm})
 
     def _mamba_block_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
-                          decode: bool = False):
+                          decode: bool = False, per_lane: bool = False):
         """One Mamba2 block (the JAX package's ``_mamba_block_step``): RMS
-        pre-norm, the mixer, the residual -> (h, new states {"conv",
-        "ssm"}).  Its norm takes no kernel flag in the JAX package (and an
-        RMS norm has no kernel)."""
+        pre-norm, the mixer, the residual, the activation quantization (one
+        bias per batch row with ``per_lane``) -> (h, new states {"conv",
+        "ssm"}).  Its norm and its quantization take no kernel flag in the
+        JAX package (and an RMS norm has no kernel)."""
         st = states or {}
         out, (conv, ssm) = mamba2.apply_mamba2(lp["mixer"], L.apply_norm(lp["norm"], h, kind=self.cfg.norm),
                                                self.cfg, conv_state=st.get("conv"), ssm_state=st.get("ssm"),
                                                decode=decode)
-        return h + out, {"conv": conv, "ssm": ssm}
+        return self._maybe_actquant(h + out, per_lane=per_lane), {"conv": conv, "ssm": ssm}
 
     def _shared_attn_step(self, sp: Params, h: torch.Tensor, x0: torch.Tensor, *, span_z=None, cache=None,
                           cache_pos=None, positions=None, use_kernels: bool = False) -> torch.Tensor:
@@ -483,13 +510,14 @@ class Model:
         ``_cross_layer_step``): attention from the normed h to the image
         embeddings [B, n_img, d] (keys and values projected from them, no
         positions, no mask), then the SwiGLU MLP, each added through
-        tanh of its gate; on the reference ops, as in the JAX package."""
+        tanh of its gate, then the activation quantization; on the
+        reference ops, as in the JAX package."""
         cfg = self.cfg
         x = L.attention_layer(lp["xattn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm), cfg, causal=False,
                               kv_source=img)
         h = h + torch.tanh(lp["gate_attn"]).to(h.dtype) * x
         m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], h, kind=cfg.norm), act=cfg.act)
-        return h + torch.tanh(lp["gate_mlp"]).to(h.dtype) * m
+        return self._maybe_actquant(h + torch.tanh(lp["gate_mlp"]).to(h.dtype) * m)
 
     def _cross_decode(self, lp: Params, h: torch.Tensor, ik: torch.Tensor, iv: torch.Tensor) -> torch.Tensor:
         """The gated cross layer against the image K/V in the cache [B,
@@ -563,13 +591,19 @@ class Model:
     def _forward_dense(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
         """The dense and MoE decoders (the JAX package's ``_forward_dense``):
         each MoE layer routes the whole batch as the config groups it, and
-        the router aux losses are summed over the layers."""
+        the router aux losses are summed over the layers; layer i takes
+        ``span_z[i]`` (row 0 for every layer when ``span_z`` has one row),
+        and the classifier head, where the tree has one, gives
+        ``cls_logits`` from the final-normed first position."""
         h = self.embed(p, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(self.cfg.n_layers):
-            h, a = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, with_aux=True)
+            h, a = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, span_z=self._span_for_layer(p, i),
+                                          with_aux=True)
             aux = aux + a
-        return self._lm_output(p, h, aux)
+        h = L.apply_norm(p["final_norm"], h, kind=self.cfg.norm)
+        cls = self.cls_logits(p, h) if "classifier" in p else None
+        return ModelOutput(logits=self.lm_logits(p, h), cls_logits=cls, aux_loss=aux)
 
     def _forward_ssm(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
         """RWKV6 (the JAX package's ``_forward_ssm``): every layer's chunked
@@ -597,14 +631,15 @@ class Model:
 
     def _forward_encdec(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
         """whisper (the JAX package's ``_forward_encdec``): the encoder over
-        ``batch["enc_input"]`` once, then each decoder layer followed by its
+        ``batch["enc_input"]`` once, then each decoder layer (its self
+        attention taking ``span_z[i]``, the encoder none) followed by its
         cross-attention to the encoder's output."""
         cfg = self.cfg
         enc = self._encode(p, self._aux_input(batch, "enc_input", "the encoder frames [B, enc_seq_len, d_model]",
                                               tokens.device))
         h = self.embed(p, tokens)
         for i in range(cfg.n_layers):
-            h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True)
+            h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, span_z=self._span_for_layer(p, i))
             xp = self._layer(p, i, "dec_cross")[0]
             h = h + L.attention_layer(xp["xattn"], L.apply_norm(xp["norm"], h, kind=cfg.norm), cfg, causal=False,
                                       kv_source=enc)
@@ -613,13 +648,21 @@ class Model:
     def _forward_vlm(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
         """llama-3.2-vision (the JAX package's ``_forward_vlm``): each group's
         self layers, then its gated cross layer over
-        ``batch["image_embeds"]``."""
+        ``batch["image_embeds"]``.  The self layers' spans repeat the JAX
+        package's form: self layer i takes ``span_z[i]`` only when
+        ``span_z`` has a row per self layer (n_layers - n_layers /
+        cross_attn_every), and ``span_z[0]`` otherwise, which is every
+        self layer under ``init_params``' [n_layers, n_heads]."""
         img = self._aux_input(batch, "image_embeds", "the image embeddings [B, n_image_tokens, d_model]",
                               tokens.device)
         h = self.embed(p, tokens)
-        for g, selfs in self._vlm_groups():
+        span = p.get("span_z")
+        groups = self._vlm_groups()
+        per_self = span is not None and span.shape[0] == sum(len(selfs) for _, selfs in groups)
+        for g, selfs in groups:
             for i in selfs:
-                h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True)
+                span_z = None if span is None else span[i if per_self else 0]
+                h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, span_z=span_z)
             h = self._cross_layer_step(self._layer(p, g, "cross_layers")[0], h, img)
         return self._lm_output(p, h)
 
@@ -740,30 +783,31 @@ class Model:
             cache.update(enc_k=zeros(*enc), enc_v=zeros(*enc))
         return cache
 
-    def _rwkv_layers(self, p: Params, h: torch.Tensor, cache: Params, *, decode: bool):
+    def _rwkv_layers(self, p: Params, h: torch.Tensor, cache: Params, *, decode: bool, per_lane: bool = False):
         """Every RWKV6 layer over h, writing each layer's new state into
         ``cache`` in place: a decode step from the cache's state, or a
         prefill from a zero state (the chunked WKV)."""
         for i in range(self.cfg.n_layers):
             states = {k: cache[k][i] for k in ("last_tm", "last_cm", "wkv")} if decode else None
-            h, new = self._rwkv_layer_step(self._layer(p, i)[0], h, states=states, decode=decode)
+            h, new = self._rwkv_layer_step(self._layer(p, i)[0], h, states=states, decode=decode, per_lane=per_lane)
             for k, v in new.items():
                 cache[k][i].copy_(v)
         return h
 
-    def _hybrid_layers(self, p: Params, h: torch.Tensor, cache: Params, *, positions, cache_pos, decode: bool):
+    def _hybrid_layers(self, p: Params, h: torch.Tensor, cache: Params, *, positions, cache_pos, decode: bool,
+                       per_lane: bool = False):
         """Every Mamba2 block over h, writing each block's conv and SSM state
         into ``cache`` in place (a decode step from the cache's state, or a
         prefill from a zero state, the chunked SSD), and the shared block
         after blocks i with (i + 1) % attn_every == 0, on concat(h, x0) with
-        its own KV cache row per call."""
+        its own KV cache row per call and ``span_z[0]``."""
         cfg = self.cfg
         x0 = h
         n_attn = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         attn_idx = 0
         for i in range(cfg.n_layers):
             states = {k: cache[k][i] for k in ("conv", "ssm")} if decode else None
-            h, new = self._mamba_block_step(self._layer(p, i)[0], h, states=states, decode=decode)
+            h, new = self._mamba_block_step(self._layer(p, i)[0], h, states=states, decode=decode, per_lane=per_lane)
             for k, v in new.items():
                 cache[k][i].copy_(v)
             if cfg.attn_every and (i + 1) % cfg.attn_every == 0 and attn_idx < n_attn:
@@ -773,15 +817,17 @@ class Model:
                 attn_idx += 1
         return h
 
-    def _vlm_layers(self, p: Params, h: torch.Tensor, cache: Params, *, positions, cache_pos):
+    def _vlm_layers(self, p: Params, h: torch.Tensor, cache: Params, *, positions, cache_pos, per_lane: bool = False):
         """Every group of the vlm stack over h: its self layers with their
         KV written into ``cache`` in place, then its cross layer against
-        the cache's image K/V (no kernel flag reaches them in the JAX
-        package)."""
+        the cache's image K/V (no kernel flag and no span reaches them in
+        the JAX package's decode and prefill, and the cross layer adds no
+        activation quantization there)."""
         for g, selfs in self._vlm_groups():
             for i in selfs:
                 h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, positions=positions,
-                                           cache=(cache["k"][i], cache["v"][i]), cache_pos=cache_pos)
+                                           cache=(cache["k"][i], cache["v"][i]), cache_pos=cache_pos,
+                                           per_lane=per_lane)
             h = h + self._cross_decode(self._layer(p, g, "cross_layers")[0], h, cache["img_k"][g], cache["img_v"][g])
         return h
 
@@ -792,48 +838,54 @@ class Model:
         return pos_t, pos_t[:, None] + torch.arange(S, device=device)
 
     def decode_step(self, p: Params, cache: Params, tokens: torch.Tensor, pos: Any, aux: Optional[Params] = None,
-                    use_kernels: bool = False, moe_per_lane: bool = True):
+                    use_kernels: bool = False, per_lane: bool = True):
         """One decode step: tokens [B, S] at cache position ``pos`` ([B] or
         scalar) through every layer, writing their K/V into ``cache`` in
-        place.  MoE layers route each lane's tokens on their own
-        (``moe_per_lane``, the JAX serving step's per-lane ``vmap``), or
-        with ``moe_per_lane=False`` as the config groups them, all lanes
-        together by default (the JAX model's batched call, which its
-        serving prefill makes).  The ssm family steps its recurrent state
-        instead (``pos`` unused), in place too; only its final LayerNorm
-        takes ``use_kernels``, as in the JAX package.  The hybrid family
-        steps its blocks' conv and SSM state and the shared block's KV
-        cache; its norms are RMS, which has no kernel, so ``use_kernels``
-        changes nothing for it, as in the JAX package.  The encdec family
-        attends each layer's encoder K/V in the cache (``prefill`` writes
-        them); only its final LayerNorm takes ``use_kernels``, as in the JAX
-        package.  The vlm family runs each group's self layers, then the
-        group's gated cross layer against the image K/V in the cache; its
-        layers take no kernel flag in the JAX package, and its final norm is
-        RMS.  ``aux`` is the JAX signature's and unused.  Returns
-        (logits [B, S, V], cache)."""
+        place.  ``per_lane`` computes each lane as the JAX serving step's
+        per-lane ``vmap`` does: an MoE layer routes each lane's tokens on
+        their own, and the activation quantization takes one bias per lane;
+        ``per_lane=False`` is the JAX model's batched call, which its
+        serving prefill makes: MoE layers route as the config groups them
+        (all lanes together by default) and one bias covers the batch.  The
+        dense and MoE layers take ``span_z[i]`` and ``use_kernels`` (the
+        quantize kernel after each layer).  The ssm family steps its
+        recurrent state instead (``pos`` unused), in place too; only its
+        final LayerNorm takes ``use_kernels``, as in the JAX package.  The
+        hybrid family steps its blocks' conv and SSM state and the shared
+        block's KV cache (with ``span_z[0]``); its norms are RMS, which has
+        no kernel, so ``use_kernels`` changes nothing for it, as in the JAX
+        package.  The encdec family attends each layer's encoder K/V in the
+        cache (``prefill`` writes them); only its final LayerNorm takes
+        ``use_kernels``, and its layers take no span, as in the JAX
+        package.  The vlm family runs each group's self layers (no span),
+        then the group's gated cross layer against the image K/V in the
+        cache; its layers take no kernel flag in the JAX package, and its
+        final norm is RMS.  The activation quantization of every family but
+        the dense and MoE ones stays on the reference ops, as the JAX
+        package passes them no ``use_pallas``.  ``aux`` is the JAX
+        signature's and unused.  Returns (logits [B, S, V], cache)."""
         self._check_decoder()
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)
         if cfg.family == "ssm":
-            h = self._rwkv_layers(p, self.embed(p, tokens), cache, decode=True)
+            h = self._rwkv_layers(p, self.embed(p, tokens), cache, decode=True, per_lane=per_lane)
             h = L.apply_norm(p["final_norm"], h, use_kernels=use_kernels)
             return self.lm_logits(p, h), cache
         pos_t, positions = self._positions(pos, tokens.shape[1], tokens.device)
         h = self.embed(p, tokens, positions=positions)
         if cfg.family == "hybrid":
-            h = self._hybrid_layers(p, h, cache, positions=positions, cache_pos=pos_t, decode=True)
+            h = self._hybrid_layers(p, h, cache, positions=positions, cache_pos=pos_t, decode=True, per_lane=per_lane)
         elif cfg.family == "vlm":
-            h = self._vlm_layers(p, h, cache, positions=positions, cache_pos=pos_t)
+            h = self._vlm_layers(p, h, cache, positions=positions, cache_pos=pos_t, per_lane=per_lane)
         else:
             encdec = cfg.family == "encdec"
             for i in range(cfg.n_layers):
-                lp, span_z = self._layer(p, i)
-                # the encdec family's layers pass no kernel flag in the JAX package
-                h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
+                # the encdec family's layers pass no kernel flag and no span in the JAX package
+                h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, positions=positions,
+                                           span_z=None if encdec else self._span_for_layer(p, i),
                                            cache=(cache["k"][i], cache["v"][i]), cache_pos=pos_t,
                                            use_kernels=use_kernels and not encdec,
-                                           moe_grouped=moe_per_lane or None)
+                                           per_lane=per_lane, moe_grouped=per_lane or None)
                 if encdec:
                     h = h + self._precomputed_cross(self._layer(p, i, "dec_cross")[0], h, cache["enc_k"][i],
                                                     cache["enc_v"][i])
@@ -854,8 +906,10 @@ class Model:
         the returned exit depth is what the modeled hardware executes.  The
         computation is masked, so the step keeps its shapes.
 
-        MoE layers route each lane on its own (the JAX serving step's lane
-        ``vmap``).  Returns ``(logits [B, 1, V], cache, exit_layer [B]
+        Layer i takes ``span_z[i]``.  Each lane is computed as the JAX
+        serving step's lane ``vmap`` computes it: MoE layers route each
+        lane on its own and the activation quantization takes one bias per
+        lane.  Returns ``(logits [B, 1, V], cache, exit_layer [B]
         (1-based), first_entropy [B])``, the last the entropy after layer
         1."""
         self._check_decoder(early_exit=True)
@@ -871,10 +925,10 @@ class Model:
         exit_layer = torch.zeros(B, dtype=torch.int32, device=dev)
         first_ent = torch.zeros(B, dtype=torch.float32, device=dev)
         for i in range(n):
-            lp, span_z = self._layer(p, i)
-            h_new = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,
+            lp = self._layer(p, i)[0]
+            h_new = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=self._span_for_layer(p, i),
                                            cache=(cache["k"][i], cache["v"][i]), cache_pos=pos_t,
-                                           use_kernels=use_kernels, moe_grouped=True)
+                                           use_kernels=use_kernels, per_lane=True, moe_grouped=True)
             # frozen tokens keep their exited representation; the layer's KV
             # write above came from that frozen input (state propagation)
             h = torch.where(done[..., None], h, h_new)
@@ -908,7 +962,8 @@ class Model:
         The JAX package runs one lane per call and ``vmap``s lanes; here the
         lanes are the batch: ``tokens`` [B, 1], ``pos`` [B] (or scalar),
         ``thresholds`` scalar, [W] or [B, W] (slot j gates the token at
-        ``pos + j``); MoE layers route each lane on its own.  Returns
+        ``pos + j``); MoE layers route each lane on its own and the
+        activation quantization takes one bias per lane.  Returns
         ``(tokens [B, W], logits [B, W, V], cache, exit_layers [B, W],
         first_ent [B, W], accepted [B, W])``."""
         self._check_decoder(early_exit=True)
@@ -947,9 +1002,12 @@ class Model:
         ``aux["enc_input"]`` (frames [B, enc_seq_len, d_model]) once and
         writes every layer's cross K/V into the cache; the vlm family
         projects ``aux["image_embeds"]`` ([B, n_image_tokens, d_model]) to
-        every cross layer's image K/V and writes them into the cache.  Every norm stays on
-        the reference ops, as in the JAX package.  Returns (last-token
-        logits [B, 1, V], cache)."""
+        every cross layer's image K/V and writes them into the cache.  Every norm and every
+        activation quantization stays on the reference ops, one bias over the
+        whole batch, as in the JAX package; the dense, MoE, encdec and vlm
+        layers take no span there (the JAX package passes none), the hybrid
+        family's shared block ``span_z[0]``.  Returns (last-token logits
+        [B, 1, V], cache)."""
         self._check_decoder()
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=p["embed"]["tok"].device)

@@ -720,7 +720,12 @@ class DecoderServer:
     replica's cache rows (axis 1 of every cache leaf) and params copy on
     its device, one clock domain per replica, as in ``ClassifierServer``;
     the prefill routes an MoE lane with the whole fleet's lanes, as the
-    JAX package's sharded server's prefill does.
+    JAX package's sharded server's prefill does, and with activation
+    quantization on takes one AF bias over them (an ssm or hybrid lane's
+    prefill reads every replica's live rows: ``step_math.decoder_prefill``).
+    EdgeBERT's activation quantization and spans are served as the JAX
+    server serves them, on every family; the dense and MoE layers'
+    quantization takes the quantize kernel with ``use_kernels``.
 
     The ``decode`` / ``prefill`` traces count the buckets whose decode step
     and prefill have run (one each per bucket used), under the JAX
@@ -972,7 +977,7 @@ class DecoderServer:
                 for v in cache.values():
                     v[:, i].zero_()
             step_math.decoder_prefill(self.model, self._rparams[r], cache, toks, i, len(req.tokens),
-                                      use_kernels=self.use_kernels, group=(self.lanes, lane))
+                                      use_kernels=self.use_kernels, group=(self.lanes, lane), fleet=st["cache"])
         st["pos"][lane] = len(req.tokens) - 1
         st["cur"][lane, 0] = req.tokens[-1]
         st["reqs"][lane] = req

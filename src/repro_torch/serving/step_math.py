@@ -327,6 +327,7 @@ def decoder_prefill(
     *,
     use_kernels: bool = False,
     group: Optional[Tuple[int, int]] = None,
+    fleet: Optional[Sequence[Any]] = None,
 ):
     """Write one lane's prompt[:length - 1] into its cache row (the KV rows,
     or the recurrent state): full-depth ``decode_step``s, one token at a
@@ -334,21 +335,40 @@ def decoder_prefill(
 
     The JAX package steps every lane in one batched call per token (token 0
     on the other lanes) on a scratch copy of the cache, and merges the lane
-    back under a one-hot.  Where no other lane can change the lane's result,
-    the port steps a view of the lane's row alone and writes it in place:
-    the same values without the copy.  That holds for the dense family, and
-    for the MoE family while ``lanes <= C``, the capacity of one step's
-    routing over the lanes: the lane's assignment to an expert is dropped
-    only when C lanes of lower index took that expert before it in the
-    stable sort, and it has at most ``lanes - 1`` of them.  With more lanes
-    the dummy lanes can take the lane's expert slots, so the port steps all
-    lanes on a scratch copy as the JAX package does.  The ssm family's
-    recurrent state couples no lanes either, so its lane steps alone too;
-    so does the hybrid family's: its causal conv, its SSD step and its
-    shared block's attention to the lane's own KV rows each read the lane's
-    row alone; and so do the encdec and vlm families', whose cross layers
-    read the lane's own cross or image K/V rows (zeros: the server never
-    writes them, as the JAX server does not).
+    back under a one-hot.  Two things couple the lane to the other lanes in
+    that call: an MoE layer's expert capacity, and the activation
+    quantization's one AdaptivFloat bias over the batch (the call is not
+    ``vmap``ped), whose amax takes in the other lanes' rows.  The port
+    steps as few lanes as give the same values:
+
+    * the lane's row alone, a view written in place, where nothing couples:
+      quantization off, and for the MoE family ``lanes <= C``, the capacity
+      of one step's routing over the lanes (the lane's assignment to an
+      expert is dropped only when C lanes of lower index took that expert
+      before it in the stable sort, and it has at most ``lanes - 1`` of
+      them).  The ssm and hybrid families' recurrent state, the hybrid
+      family's causal conv, SSD step and shared block's attention to the
+      lane's own KV rows, and the encdec and vlm cross layers' reads of the
+      lane's own (zero: the server never writes them, as the JAX server does
+      not) cross or image K/V each read the lane's row alone;
+    * every lane of the group on a scratch, the other rows zero, for the
+      MoE family with ``lanes > C``: the dummy lanes can take the lane's
+      expert slots.  A dummy row holds what this loop writes into it (token
+      0 at every position) whatever it held before, so zero rows route as
+      the JAX package's do;
+    * the lane and ONE zero dummy row on a scratch, with quantization on,
+      for the dense, MoE (``lanes <= C``; the two rows' routing drops
+      nothing, capacity being at least 4), encdec and vlm families: every
+      dummy lane of the JAX call computes the same row (token 0 at every
+      position over rows this loop wrote), so one of them gives the same
+      amax;
+    * every lane of the group on a scratch copied from their live rows,
+      with quantization on, for the ssm and hybrid families: there a dummy
+      lane steps its own live recurrent state, so every row counts in the
+      amax.  ``fleet`` gives every replica's cache in lane order when the
+      group spans replicas (the JAX package's sharded server runs the
+      prefill over the whole fleet's lanes); their rows are copied to the
+      lane's device once per prefill.
 
     Every cache leaf is [n, lanes, ...]: the KV cache's rows, the ssm
     family's recurrent state (token-shift inputs and WKV state) or the
@@ -358,29 +378,35 @@ def decoder_prefill(
 
     ``group`` = (lanes, index): the lanes the JAX package's prefill steps
     together and the lane's index among them, when they are not the
-    cache's (a replica's cache holds its slab, while the JAX package's
-    sharded server runs the prefill over the whole fleet's lanes; default:
-    the cache's lanes and ``lane``).  Only the MoE family's routing reads
-    it: the dummy lanes' rows hold what this loop wrote into them (token 0
-    at every position), whatever they held before, so a scratch of the
-    group's lanes with the lane's row at its index routes as the JAX
-    package's fleet-wide prefill does.  Returns the cache."""
+    cache's (a replica's cache holds its slab; default: the cache's lanes
+    and ``lane``).  Returns the cache."""
     leaf = next(iter(cache.values()))
     dev, lanes = leaf.device, leaf.shape[1]
     g_lanes, g_index = group if group is not None else (lanes, lane)
     toks = torch.as_tensor(np.asarray(tokens[: max(length - 1, 0)], np.int64), device=dev)
-    if model.cfg.family == "moe" and g_lanes > moe.capacity(g_lanes, model.cfg):
+    cfg = model.cfg
+    quant = cfg.edgebert.quant.enabled and cfg.edgebert.quant.quantize_activations and g_lanes > 1
+    if cfg.family in ("ssm", "hybrid") and quant:
+        caches = fleet if fleet is not None else [cache]
+        scratch = {k: torch.cat([c[k].to(dev) for c in caches], dim=1) for k in cache}
+        index = g_index
+    elif cfg.family == "moe" and g_lanes > moe.capacity(g_lanes, cfg):
         scratch = {k: v.new_zeros((v.shape[0], g_lanes) + tuple(v.shape[2:])) for k, v in cache.items()}
-        for k, v in cache.items():
-            scratch[k][:, g_index] = v[:, lane]
-        is_lane = torch.arange(g_lanes, device=dev)[:, None] == g_index
+        index = g_index
+    elif quant:
+        scratch = {k: v.new_zeros((v.shape[0], 2) + tuple(v.shape[2:])) for k, v in cache.items()}
+        index = 0
+    else:
+        row = {k: v[:, lane:lane + 1] for k, v in cache.items()}
         for t in range(length - 1):
-            tok = torch.where(is_lane, toks[t], 0)
-            model.decode_step(params, scratch, tok, t, use_kernels=use_kernels, moe_per_lane=False)
-        for k in cache:
-            cache[k][:, lane] = scratch[k][:, g_index]
+            model.decode_step(params, row, toks[t].reshape(1, 1), t, use_kernels=use_kernels)
         return cache
-    row = {k: v[:, lane:lane + 1] for k, v in cache.items()}
+    for k, v in cache.items():
+        scratch[k][:, index] = v[:, lane]
+    is_lane = torch.arange(next(iter(scratch.values())).shape[1], device=dev)[:, None] == index
     for t in range(length - 1):
-        model.decode_step(params, row, toks[t].reshape(1, 1), t, use_kernels=use_kernels)
+        tok = torch.where(is_lane, toks[t], 0)
+        model.decode_step(params, scratch, tok, t, use_kernels=use_kernels, per_lane=False)
+    for k in cache:
+        cache[k][:, lane] = scratch[k][:, index]
     return cache

@@ -1062,3 +1062,65 @@ def test_sharded_classifier_drain_across_two_cards(cuda):
         assert shd._rparams[r]["layer"]["mlp"]["w_up"].device == torch.device("cuda", r)
         index = shd._block_masks[r]["w_up"]
         assert index.indices.device == index.tiles.device == torch.device("cuda", r)
+
+
+@pytest.mark.parametrize("rows,groups", [(4, 4), (4, 1), (2, 1)])
+def test_af_quantize_groups_decoder_rows(cuda, rows, groups):
+    """The decoder's activation quantization: deepseek-7b's [lanes, 4096]
+    hidden state after a layer, one group per lane (the fused steps) or one
+    over the rows (the serving prefill's batched step: the lane and one
+    dummy row), so a group is one or a few rows of 4096.  Row 0 at 1e-2 of
+    the others' scale, so the lanes' biases differ.  Biases equal and the
+    output bit-exact (atol 0) to the plain version on the CPU, and the
+    same bits on a second launch."""
+    x = _t((rows, 4096), 41, 4.0)
+    x[0] *= 1e-2
+    rpg = rows // groups
+    got, e_min = quantize_groups(x.to(cuda), rpg)
+    want_e = group_exp_bias(x, rpg)
+    assert torch.equal(e_min.cpu(), want_e)
+    assert torch.equal(got.cpu(), ref.quantize(x, want_e, rpg))
+    again, e_again = quantize_groups(x.to(cuda), rpg)
+    assert torch.equal(again, got) and torch.equal(e_again, e_min)
+
+
+def test_quantized_decode_step_matches_its_plain_quantize(cuda, monkeypatch):
+    """A dense decoder's ``decode_step`` with activation quantization and
+    spans on (deepseek-7b at smoke size), on the kernel route: every layer
+    ends in ``dispatch.act_quantize`` -> ``quantize_groups`` (one group per
+    lane), launched n_layers times a step.  The same step with that one
+    call replaced by its plain version on the CPU (the rest on the card)
+    gives the same logits and KV cache bit for bit, at per-lane positions
+    (``per_lane``) and as one batch (the serving prefill's call)."""
+    from repro_torch.configs.base import QuantConfig, SpanConfig
+    from repro_torch.kernels import adaptivfloat_k
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek_7b"), dtype="float32").with_edgebert(
+        quant=QuantConfig(enabled=True), span=SpanConfig(enabled=True))
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    params["span_z"] = torch.rand(params["span_z"].shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                                  device=cuda) * 8.0
+    toks = torch.tensor([[5], [17], [230], [41]], device=cuda)
+    pos = torch.tensor([3, 9, 0, 14], device=cuda)
+    real = adaptivfloat_k.quantize_groups
+    for per_lane in (True, False):
+        outs = []
+        for plain in (False, True):
+            if plain:
+                monkeypatch.setattr(adaptivfloat_k, "quantize_groups",
+                                    lambda x, rpg, fmt: tuple(t.to(x.device) for t in real(x.cpu(), rpg, fmt=fmt)))
+            cache = model.init_cache(4, 32, device=cuda)
+            for k in ("k", "v"):
+                cache[k].copy_(torch.randn(cache[k].shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                                           device=cuda))
+            before = quantize.launches
+            with torch.no_grad():
+                lg, cache = model.decode_step(params, cache, toks, pos, use_kernels=True, per_lane=per_lane)
+            assert quantize.launches == before + (0 if plain else cfg.n_layers)
+            outs.append((lg, cache))
+            monkeypatch.setattr(adaptivfloat_k, "quantize_groups", real)
+        (lg_k, c_k), (lg_p, c_p) = outs
+        assert torch.isfinite(lg_k).all()
+        assert torch.equal(lg_k, lg_p)
+        assert all(torch.equal(c_k[k], c_p[k]) for k in ("k", "v"))

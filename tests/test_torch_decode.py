@@ -486,16 +486,22 @@ def test_batched_lanes_match_one_lane_calls(dec):
 
 
 def test_dense_family_refuses_what_is_not_ported():
-    """The activations, norms and EdgeBERT features the decoders do not
-    have (gelu stays refused for the dense family: only the encdec family
-    takes it), the albert family without its one shared layer, and what the hybrid, encdec and vlm families do not have in
-    the JAX package (per-token exit).  Every decoder family's training
-    forward is ported: ``tests/test_torch_train_forwards.py``."""
+    """The activations and the tied head and shared layers the decoders do
+    not have (gelu stays refused for the dense family: only the encdec
+    family takes it), the albert family without its one shared layer, and
+    what the hybrid, encdec and vlm families do not have in the JAX package
+    (per-token exit).  EdgeBERT's activation quantization is accepted (the
+    features on every family: ``tests/test_torch_eb_decoders.py``).  Every
+    decoder family's training forward is ported:
+    ``tests/test_torch_train_forwards.py``."""
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="dense decoder"):
         t_build(dataclasses.replace(tcfg, act="gelu"))
-    with pytest.raises(ValueError, match="dense decoder"):
-        t_build(tcfg.with_edgebert(quant=dataclasses.replace(tcfg.edgebert.quant, enabled=True)))
+    qcfg = tcfg.with_edgebert(quant=dataclasses.replace(tcfg.edgebert.quant, enabled=True))
+    assert t_build(qcfg).cfg.edgebert.quant.enabled and "layers" in t_init(qcfg, device="cpu")
+    for bad in (dict(tie_embeddings=True), dict(shared_layers=True)):
+        with pytest.raises(ValueError, match="dense decoder"):
+            t_build(dataclasses.replace(tcfg, **bad))
     assert t_build(tcfg).apply_train(t_init(tcfg, device="cpu"),
                                      {"tokens": np.zeros((1, 4), np.int32)}).logits.shape == (1, 4, tcfg.vocab_size)
     with pytest.raises(ValueError, match="families are ported"):
@@ -513,7 +519,9 @@ def test_dense_family_refuses_what_is_not_ported():
 def test_albert_family_prefill_and_decode_step():
     """The albert branch of prefill and decode_step (one shared post-LN
     layer, learned positions, soft spans, activation quantization over the
-    whole batch), scalar positions as the JAX package runs it.  atol 2e-4,
+    whole batch: ``per_lane=False``, the JAX model's batched call; the
+    default is the serving step's per-lane bias), scalar positions as the
+    JAX package runs it.  atol 2e-4,
     the bound test_torch_serving.py holds the albert layer to: activation
     quantization turns a last-ulp difference at an AF rounding boundary
     into a quantum, and these inputs (seed 21) put no element on one."""
@@ -530,7 +538,7 @@ def test_albert_family_prefill_and_decode_step():
     _close(lg_t, lg_j, atol=2e-4)
     nxt = np.array([[5], [7]])
     lg_j, jc = jm.decode_step(jp, jc, jnp.asarray(nxt), 9)
-    lg_t, tc = tm.decode_step(tp, tc, _t(nxt), 9)
+    lg_t, tc = tm.decode_step(tp, tc, _t(nxt), 9, per_lane=False)
     _close(lg_t, lg_j, atol=2e-4)
     for k in ("k", "v"):
         _close(tc[k], jc[k], atol=2e-4)

@@ -254,6 +254,17 @@ def test_scan_covers_the_sharded_slice():
             "repro_torch.serving.admission", "repro_torch.kernels.ops"} <= names
 
 
+def test_scan_covers_the_edgebert_decoder_slice():
+    """The module scan walks the package, so it covers every module the
+    slice of EdgeBERT's features on the decoder families changed: the
+    model and its layers, the serving prefill and server, the kernel
+    lists; chip_smoke.py (its eb_decode phase) is scanned beside them."""
+    names = {name for _, name in _modules()}
+    assert {"repro_torch.models.model", "repro_torch.models.layers", "repro_torch.serving.step_math",
+            "repro_torch.serving.engine", "repro_torch.kernels.ops"} <= names
+    assert "def run_eb_decode_path" in (ROOT / "chip_smoke.py").read_text()
+
+
 def test_scan_covers_the_decoder_slice():
     """The module scan walks the package, so it covers the decoder slice's
     new module too."""

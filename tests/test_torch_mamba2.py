@@ -445,5 +445,8 @@ def test_hybrid_refuses_exit_and_spec(hyb):
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="hybrid decoder"):
         t_build(dataclasses.replace(tcfg, norm="layernorm"))
+    # adaptive spans are accepted (on the shared block: tests/test_torch_eb_decoders.py); a tied head is not
+    scfg = tcfg.with_edgebert(span=dataclasses.replace(tcfg.edgebert.span, enabled=True))
+    assert t_build(scfg).cfg.edgebert.span.enabled and "span_z" in t_init(scfg, device="cpu")
     with pytest.raises(ValueError, match="hybrid decoder"):
-        t_build(tcfg.with_edgebert(span=dataclasses.replace(tcfg.edgebert.span, enabled=True)))
+        t_build(dataclasses.replace(tcfg, tie_embeddings=True))

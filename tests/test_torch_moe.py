@@ -17,7 +17,7 @@ test_torch_decode.py; tokens, exit layers, accept masks and the dropped
 Capacity couples the tokens of one routing, so each comparison keeps the
 JAX package's grouping: the port's decode methods route each lane alone
 (against the JAX serving step's lane ``vmap``), or all lanes together with
-``moe_per_lane=False`` (against the JAX model's batched call); prefill and
+``per_lane=False`` (against the JAX model's batched call); prefill and
 token exit route the whole batch together in both packages.  The lane
 counts here (8 lanes at top-2 of 6 experts, capacity 4) are large enough
 that routing the lanes together would drop assignments the reference
@@ -316,7 +316,7 @@ def test_forward_token_exit(dec):
 
 
 def test_decode_step_batched_and_per_lane(dec):
-    """``moe_per_lane=False`` against the JAX model's batched call (8 lanes
+    """``per_lane=False`` against the JAX model's batched call (8 lanes
     route together, scalar position); the default against the JAX serving
     step's lane vmap at per-lane positions."""
     jm, tm, jp, tp, cfg = dec
@@ -324,7 +324,7 @@ def test_decode_step_batched_and_per_lane(dec):
     toks = _rng(7).integers(4, cfg.vocab_size, (8, 1))
     lg_j, jc2 = jm.decode_step(jp, jc, jnp.asarray(toks), 5)
     tc = _tcache(jc)
-    lg_t, tc = tm.decode_step(tp, tc, _t(toks), 5, moe_per_lane=False)
+    lg_t, tc = tm.decode_step(tp, tc, _t(toks), 5, per_lane=False)
     _close(lg_t, lg_j)
     for k in ("k", "v"):
         _close(tc[k], jc2[k])
@@ -443,7 +443,7 @@ def test_per_lane_routing_keeps_what_joint_routing_drops():
     toks = np.full((8, 1), 77)
     pos = np.full(8, 5, np.int32)
     lg_t, _ = tm.decode_step(tp, _tcache(jc), _t(toks), _t(pos))
-    lg_joint, _ = tm.decode_step(tp, _tcache(jc), _t(toks), _t(pos), moe_per_lane=False)
+    lg_joint, _ = tm.decode_step(tp, _tcache(jc), _t(toks), _t(pos), per_lane=False)
     lg_j, _ = jsm.decoder_decode(jm, jp, jc, jnp.asarray(toks), jnp.asarray(pos))
     _close(lg_t, lg_j)
     assert np.abs(lg_joint.numpy() - np.asarray(lg_j)).max() > 1e-3

@@ -378,5 +378,8 @@ def test_ssm_refuses_exit_and_spec(ssm):
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="ssm decoder"):
         t_build(dataclasses.replace(tcfg, tie_embeddings=True))
+    # activation quantization is accepted (tests/test_torch_eb_decoders.py); shared layers are not
+    qcfg = tcfg.with_edgebert(quant=dataclasses.replace(tcfg.edgebert.quant, enabled=True))
+    assert t_build(qcfg).cfg.edgebert.quant.enabled and "layers" in t_init(qcfg, device="cpu")
     with pytest.raises(ValueError, match="ssm decoder"):
-        t_build(tcfg.with_edgebert(quant=dataclasses.replace(tcfg.edgebert.quant, enabled=True)))
+        t_build(dataclasses.replace(tcfg, shared_layers=True))

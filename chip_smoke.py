@@ -30,7 +30,8 @@ Phases, each printing one JSON line:
                 replaces (`replaced_device_ms`, `replaced_enqueue_us`), and
                 softmax_entropy's wide-row entry at the decoders' [4 and 1,
                 102400], [4 and 1, 151936] and [4 and 1, 256000] logits
-                beside the warp-per-row entry, and layernorm at the
+                beside the warp-per-row entry, at [4 and 1, 102400] in
+                bf16 (the decoders' own dtype), and layernorm at the
                 decoders' [4 and 1, 4096] rows (its generic path) and at
                 whisper-medium's [4 and 1, 1024] (its register path), and
                 quantize_groups at the eb_decode shapes ([4, 4096] in 4
@@ -77,8 +78,7 @@ Phases, each printing one JSON line:
                 within 5e-2 as served, within 1e-4 with activation
                 quantization off) and the whole smoke-size replay.
   8. decode   — the dense decoder at full width (deepseek-7b: its first
-                10 of 30 layers, cut for the script's time, since ln_decode
-                drives the same decoder path at full depth; d_model 4096,
+                10 of 30 layers, cut for the script's time; d_model 4096,
                 32 x 128 heads, d_ff 11008, vocab 102400, float32 weights
                 drawn on the card from seed 0):
                 probe_exit_threshold, then a DecoderServer drain of 8
@@ -128,14 +128,15 @@ Phases, each printing one JSON line:
                 (experts, LM head, shared expert, attention) beside its
                 HBM bound, and the first 2 layers against the CPU.
  8c. ln_decode — the same recipe on the LayerNorm decoder at full width
-                and depth (minitron-8b: 32 layers, d_model 4096, 32 x 128
-                query heads over 8 KV heads, squared-ReLU MLP of d_ff
-                16384, vocab 256000; 30.9 GB drawn on the card after the
-                MoE weights are released): layernorm launched 96 x W times
-                per fused step (both pre-norms of every layer and the
-                final norm of every off-ramp) and 65 times per prefill
-                token, softmax_entropy's wide-row entry 32 x W times per
-                fused step, W = 4 equal to W = 1 bit for bit, the step's
+                (minitron-8b: its first 16 of 32 layers, cut for the
+                script's time; d_model 4096, 32 x 128 query heads over 8
+                KV heads, squared-ReLU MLP of d_ff 16384, vocab 256000;
+                drawn on the card after the MoE weights are released):
+                layernorm launched 3 n_layers x W times per fused step
+                (both pre-norms of every layer and the final norm of
+                every off-ramp) and 2 n_layers + 1 times per prefill
+                token, softmax_entropy's wide-row entry n_layers x W times
+                per fused step, W = 4 equal to W = 1 bit for bit, the step's
                 bytes beside its HBM bound, and the first 2 layers against
                 the CPU.
  8d. ssm_decode — the RWKV6 decoder at full width (rwkv6-7b: its first
@@ -231,6 +232,28 @@ Phases, each printing one JSON line:
                 learned spans against its plain version; held-out accuracy,
                 learned spans, sparsity, exit histograms and the DVFS
                 operating points chosen.
+ 10. bf16_decode — deepseek-7b's smoke config in its own dtype (bf16)
+                through decode_step_ee with the kernels on the card against
+                the CPU's plain path (the entropy kernel on bf16 logits,
+                n_layers launches a step, nothing else).
+ 11. dist_train — the training half of sharding over torch.distributed,
+                in spawned ranks: min(cards, 4) ranks over NCCL, one card
+                each (world 1 on one card), and 2 ranks both on cuda:0 over
+                gloo (NCCL refuses two ranks on one device); each runs
+                qwen3-moe-235b's MoE layer at its published width (d_model
+                4096, 128 experts of moe_d_ff 1536, top-8, fp32: 9.66 GB
+                of expert weights split over the model ranks of a (data 1,
+                model ranks) mesh) through apply_moe_shardmap, forward and
+                backward on 4 x 128 tokens, held against the same layer
+                unsharded on the card (outputs and every gradient within
+                1e-5 of their magnitude), compressed_psum over its
+                gradients equal to a one-rank reference from the gathered
+                gradients and timed beside a plain fp32 all_reduce of the
+                same tree, and (NCCL) pipeline_forward with one stage of
+                4096 x 4096 linear + tanh per rank against the sequential
+                stack; no kernel launched (ops.DIST_TRAIN_KERNELS is
+                empty); wall and busy ms of the layer's forward and
+                backward, ranks, backends, cards and nvidia-smi's line.
 Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
 kernel, at the replay's largest step shape with the replay's launches, or
 for af_matmul, which only the deployed path runs, at the deployed layer
@@ -242,8 +265,9 @@ the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
 encdec_decode phase's served drain's; af_quantize one more, at the
 eb_decode shape [4, 4096] in 4 groups with that phase's launches;
 `launches_by_path` gives every path's, eb_decode,
-hybrid_decode, encdec_decode, vlm_decode, lm_train and sharded (the
-sharded classifier drain's and the sharded W = 1 decode drain's) included;
+hybrid_decode, encdec_decode, vlm_decode, lm_train, dist_train (all zero)
+and sharded (the sharded classifier drain's and the sharded W = 1 decode
+drain's) included;
 every kernel row also checks that the launch left the current device as it
 found it),
 the nvidia-smi line, and last
@@ -614,6 +638,21 @@ def check_kernels(dep, cfg, sparams, dev) -> list:
                 launch_floor_device_ms=launch_floor,
                 summary=path if rows_ == DECODE_LANES else None, label=f"{path}[{rows_}]")
 
+    # ... and at deepseek-7b's [lanes, 102400] in bf16, the decoders' own
+    # dtype: read as bf16, computed in fp32 (the JAX kernel casts its rows),
+    # within 1e-5 of the plain version on the same bf16 values, beside the
+    # fp32 rows above.  Bound: one read of the bf16 logits.
+    vocab = get_config("deepseek_7b").vocab_size
+    for rows_ in (DECODE_LANES, 1):
+        lg = (torch.randn(rows_, vocab, generator=g, device=dev) * 1.28).to(torch.bfloat16)
+        err = (entropy_rows(lg) - ref.softmax_entropy(lg)[1]).abs().max().item()
+        row("softmax_entropy", "src/repro_torch/csrc/softmax_entropy.cu",
+            "src/repro/kernels/softmax_entropy.py:17",
+            f"decode LM-head entropy (wide-row entry): logits [{rows_}, {vocab}] bf16", err,
+            "atol 1e-5 (entropy)", err <= 1e-5, rows_ * vocab * 2 + rows_ * 4, 8.0 * rows_ * vocab,
+            **kernel_times(lambda: entropy_rows(lg), lambda: ref.softmax_entropy(lg), enqueue=True),
+            launch_floor_device_ms=launch_floor, label=f"decode_bf16[{rows_}]")
+
     # layernorm at the LayerNorm decoders' rows: d_model 4096 (minitron-8b's
     # pre-norms and off-ramp final norms, rwkv6-7b's final norm), 4 lanes in
     # the fused step (a summary row each, with the ln_decode or ssm_decode
@@ -917,6 +956,9 @@ def check_determinism(dep, masks, mlp, dev) -> None:
         for rows_ in (DECODE_LANES, 1):
             lgv = torch.randn(rows_, get_config(arch).vocab_size, generator=g, device=dev)
             same(f"softmax_entropy wide rows [{rows_}, {lgv.shape[1]}]", lambda: entropy_rows(lgv))
+    for rows_ in (DECODE_LANES, 1):
+        lgb = torch.randn(rows_, get_config("deepseek_7b").vocab_size, generator=g, device=dev).to(torch.bfloat16)
+        same(f"softmax_entropy wide rows [{rows_}, {lgb.shape[1]}] bf16", lambda: entropy_rows(lgb))
     # layernorm's generic path at the LayerNorm decoders' d_model, and its
     # register path at whisper-medium's
     for dw, route in ((4096, "generic path"), (1024, "register path")):
@@ -2152,15 +2194,17 @@ def check_decode_reference(cfg, params, prompts, thr, dev) -> dict:
 # the phase of each decoder that run_decode_path drives
 DECODE_PHASES = {"deepseek_7b": "decode", "qwen2_moe_a2p7b": "moe_decode", "minitron_8b": "ln_decode"}
 # depth cuts for the script's time, at full width: deepseek-7b's decode
-# phase runs its first 10 of 30 layers (ln_decode drives the same pre-LN
-# decoder path at full width and depth; with the hybrid and encdec phases
-# the whole script took 544 s of its 600 s aim at full depth), and
+# phase runs its first 10 of 30 layers (with the hybrid and encdec phases
+# the whole script took 544 s of its 600 s aim at full depth), minitron-8b's
+# ln_decode its first 16 of 32 (the dist_train and bf16_decode phases
+# added ~60 s: the phases summed to 613.9 s with ln_decode's 88.9 s at full
+# depth), and
 # qwen2-moe-a2.7b's moe_decode its first 8 of 24 (the vlm_decode and
 # lm_train phases and the served whisper drains added ~89 s to the 521 s
 # the script took with the first cut, and the decode phase's eb_decode
 # ~27 s: the phases summed to 597 s with 12 layers; moe_decode took 108 s
 # at full depth, 70 s at 12)
-DECODE_DEPTH = {"deepseek_7b": 10, "qwen2_moe_a2p7b": 8}
+DECODE_DEPTH = {"deepseek_7b": 10, "qwen2_moe_a2p7b": 8, "minitron_8b": 16}
 
 
 def draw_decoder(cfg, phase, dev):
@@ -2206,7 +2250,7 @@ def run_decode_path(dev, arch: str = "deepseek_7b") -> dict:
     qwen2-moe-a2.7b (``moe_decode``: its first 8 of 24 layers, d_model 2048,
     16 x 128 heads, 60 experts of d_ff 1408 top-4 and a shared expert of
     5632, qkv biases drawn nonzero from the same generator, vocab 151936)
-    or minitron-8b (``ln_decode``: 32 layers, d_model 4096, 32 x 128 query
+    or minitron-8b (``ln_decode``: its first 16 of 32 layers, d_model 4096, 32 x 128 query
     heads over 8 KV heads, LayerNorm, a squared-ReLU MLP of d_ff 16384,
     vocab 256000); the free device memory is checked before the draw.  The recipe of the
     JAX package's examples/serve_multitask.py decoder lane:
@@ -4221,6 +4265,356 @@ def run_train_path(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training half of sharding across ranks (dist_train)
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-235b's MoE layer at its published width (d_model 4096, 128
+# experts of moe_d_ff 1536, top-8; float32, 9.66 GB of expert weights split
+# over the model ranks), forward and backward on DIST_TRAIN_TOKENS tokens at
+# the model's capacity factor; pipeline stages of d_model x d_model
+# linear + tanh, DIST_PIPE_MICRO microbatches of DIST_PIPE_MB rows
+DIST_TRAIN_ARCH = "qwen3_moe_235b"
+DIST_TRAIN_TOKENS = (4, 128)
+DIST_TRAIN_CF = 1.25
+DIST_TRAIN_RTOL = 1e-5
+DIST_TRAIN_ITERS = 3
+DIST_PIPE_MICRO = 8
+DIST_PIPE_MB = 4
+DIST_TIMEOUT_S = 420
+
+
+def rel_to_magnitude(a, b) -> float:
+    """max |a - b| over the largest magnitude of b (``rel_err`` floors the
+    magnitude at 1; a gradient leaf's is far below it)."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _dist_rank(rank: int, world: int, backend: str, cards: list, store: str, out: str) -> None:
+    """One rank of the dist_train phase, in a spawned process on card
+    ``cards[rank]``: joins the group over a file store, runs
+    ``dist_train_rank`` and writes its record to ``out/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.common.device import resolve_device
+
+    torch.cuda.set_device(cards[rank])
+    dev = resolve_device(f"cuda:{cards[rank]}")
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        rec = dist_train_rank(rank, world, backend, dev)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_train_rank(rank: int, world: int, backend: str, dev) -> dict:
+    """The expert-parallel MoE layer on a (data 1, model world) mesh, its
+    gradients through compressed_psum over the world group beside a plain
+    fp32 all_reduce of the same tree, the pipeline (NCCL only: gloo has no
+    send / recv of CUDA tensors); each held against the same computation
+    unsharded on this rank's card, with no kernel launched."""
+    import gc
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh, device_mesh, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.training.compress import compressed_psum, ef_init
+    from repro_torch.training.pipeline import pipeline_forward
+
+    cfg = replace(get_config(DIST_TRAIN_ARCH), dtype="float32", moe_shardmap_dispatch=True)
+    mesh = device_mesh(Mesh(("data", "model"), (1, world)), "cuda")
+    e_loc = cfg.n_experts // world
+    B, S = DIST_TRAIN_TOKENS
+
+    def draw_full():
+        return moe.init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.float32)
+
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(1), device=dev) * 0.5
+    p = {k: v.requires_grad_(True) for k, v in moe.shard_experts(draw_full(), mesh).items()}
+    gc.collect()
+    x.requires_grad_(True)
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def forward():
+        with use_mesh(mesh):
+            return moe.apply_moe(p, x, cfg, capacity_factor=DIST_TRAIN_CF)
+
+    def backward(y, aux):
+        return torch.autograd.grad(torch.sum(y * y) + aux, [p[k] for k in names] + [x])
+
+    ops.reset_launch_counts()
+    fwd_ms, bwd_ms = [], []
+    for _ in range(1 + DIST_TRAIN_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = backward(y, aux)
+        torch.cuda.synchronize()
+        fwd_ms.append((t1 - t0) * 1e3)
+        bwd_ms.append((time.perf_counter() - t1) * 1e3)
+    fwd_busy = sum(g_["ms"] for g_ in profile_device(forward).values())
+    yb, auxb = forward()
+    bwd_busy = sum(g_["ms"] for g_ in profile_device(lambda: backward(yb, auxb)).values())
+    del yb, auxb
+    ep_launches = ops.launch_counts()
+    y, aux = y.detach(), aux.detach()
+    ep_grads = dict(zip(names, grads[:4]))
+    gx = grads[4]
+    del p, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # compressed_psum over the world group: each rank's gradients stand for
+    # a data-parallel replica's; timed beside a plain fp32 all_reduce.  Over
+    # gloo (which stages CUDA tensors through the host: 9.65 s for the
+    # compressed and 6.77 s for the plain all-reduce of the whole 4.83 GB
+    # tree per rank on an H100 80GB HBM3 at 700 W) only the router's and
+    # w_down's gradients
+    names_c = names if backend == "nccl" else ("router", "w_down")
+    g_tree = {k: ep_grads[k] for k in names_c}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    mean, ef = compressed_psum(g_tree, ef_init(g_tree), None, world)
+    torch.cuda.synchronize()
+    compress_ms = (time.perf_counter() - t0) * 1e3
+    del ef
+    plain = {k: v.clone() for k, v in g_tree.items()}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for k in names_c:
+        dist.all_reduce(plain[k])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del plain
+    # the one-rank reference from the gathered gradients: the same float32
+    # steps (amax over every rank, int8 codes, their integer sum, the mean)
+    compress_equal = True
+    for k in names_c:
+        parts = [torch.empty_like(g_tree[k]) for _ in range(world)]
+        dist.all_gather(parts, g_tree[k].contiguous())
+        amax = torch.stack([t.abs().max() for t in parts]).max()
+        scale = torch.clamp(amax, min=1e-20) / torch.tensor(127.0, device=dev)
+        total = sum(torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8).to(torch.int32) for t in parts)
+        want = total.float() * scale / torch.tensor(float(world), device=dev)
+        compress_equal &= bool(torch.equal(mean[k], want))
+        del parts, total, want
+    compress_launches = ops.launch_counts()
+    n_grad_bytes = sum(v.numel() * 4 for v in g_tree.values())
+    del mean
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the pipeline: one stage per rank (send / recv over NCCL)
+    pipe = None
+    if backend == "nccl":
+        d = cfg.d_model
+        ws = torch.randn(world, d, d, generator=torch.Generator(device=dev).manual_seed(2), device=dev) / math.sqrt(d)
+        xp = torch.randn(DIST_PIPE_MICRO, DIST_PIPE_MB, d, generator=torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipeline_forward(lambda w, h: torch.tanh(h @ w), ws[rank], xp)
+            torch.cuda.synchronize()
+            pipe_ms = (time.perf_counter() - t0) * 1e3
+            seq = xp
+            for s_ in range(world):
+                seq = torch.tanh(seq @ ws[s_])
+        pipe = {"stages": world, "micro": DIST_PIPE_MICRO, "mb": DIST_PIPE_MB, "d": d, "wall_ms": pipe_ms,
+                "max_abs_err_vs_sequential": float((out - seq).abs().max()), "launches": ops.launch_counts()}
+        del ws, xp, out, seq
+
+    # the same layer unsharded on this card (all experts, the whole batch),
+    # one rank at a time so that two ranks on one card never hold it at once
+    ref = None
+    for r in range(world):
+        if r == rank:
+            pf = {k: v.requires_grad_(True) for k, v in draw_full().items()}
+            xf = x.detach().clone().requires_grad_(True)
+            cfg_dense = replace(cfg, moe_shardmap_dispatch=False)
+            ops.reset_launch_counts()
+            yf, auxf = moe.apply_moe(pf, xf, cfg_dense, capacity_factor=DIST_TRAIN_CF)
+            gf = torch.autograd.grad(torch.sum(yf * yf) + auxf, [pf[k] for k in names] + [xf])
+            lo = rank * e_loc
+            ref = {"y": rel_to_magnitude(y, yf.detach()), "aux": rel_to_magnitude(aux, auxf.detach()),
+                   "x": rel_to_magnitude(gx, gf[4]),
+                   **{k: rel_to_magnitude(ep_grads[k], gf[i] if k == "router" else gf[i][lo:lo + e_loc])
+                      for i, k in enumerate(names)},
+                   "launches": ops.launch_counts()}
+            del pf, xf, yf, auxf, gf
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    launches = {k: ep_launches[k] + compress_launches[k] + ref["launches"][k]
+                + (pipe["launches"][k] if pipe else 0) for k in ep_launches}
+    # bounds: the expert products (3 matmuls of 2 x rows x d x ff over this
+    # rank's e_loc x C buffer rows) and this rank's expert weights read once
+    # forward; twice the products, the weights read and their gradients
+    # written backward; compressed_psum reads each gradient and writes the
+    # mean and the residual (12 bytes an element)
+    d, ff, C = cfg.d_model, cfg.moe_d_ff, moe.capacity(B * S, cfg, DIST_TRAIN_CF)
+    flops = 3 * 2.0 * e_loc * C * d * ff
+    w_bytes = 3.0 * e_loc * d * ff * 4
+    bounds = {"ep_fwd": bound_ms(w_bytes, flops), "ep_bwd": bound_ms(2 * w_bytes, 2 * flops),
+              "compress": bound_ms(3 * n_grad_bytes, 0.0)}
+    return {"rank": rank, "world": world, "backend": backend, "card": torch.cuda.current_device(),
+            "card_name": torch.cuda.get_device_name(dev), "mesh": {"data": 1, "model": world},
+            "experts_per_rank": e_loc, "tokens": B * S, "capacity": C, "bounds_ms": bounds,
+            "ep": {"fwd_wall_ms": fwd_ms[1:], "bwd_wall_ms": bwd_ms[1:], "fwd_busy_ms": fwd_busy,
+                   "bwd_busy_ms": bwd_busy, "first_fwd_ms": fwd_ms[0], "first_bwd_ms": bwd_ms[0]},
+            "compress": {"leaves": list(names_c), "ms": compress_ms, "plain_fp32_all_reduce_ms": plain_ms,
+                         "grad_bytes": n_grad_bytes, "equal_to_one_rank_reference": compress_equal},
+            "pipeline": pipe, "rel_err_vs_unsharded": {k: v for k, v in ref.items() if k != "launches"},
+            "launches": launches, "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def spawn_dist(world: int, backend: str, cards: list) -> list:
+    """``world`` ranks over ``backend``, rank r on cuda:cards[r], spawned and
+    joined with a timeout; their records in rank order."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    work = ROOT / "build" / f"dist_train_{backend}_{world}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ctx = mp.start_processes(_dist_rank, args=(world, backend, cards, str(work / "store"), str(work)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"dist_train: {world} {backend} ranks did not finish in {DIST_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=30)
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def run_dist_train_path(dev) -> dict:
+    """The training half of sharding on the card(s): (a) one rank per card
+    over NCCL (min(cards, 4) ranks; world 1 on one card); (b) two ranks both
+    on cuda:0 over gloo (NCCL refuses two ranks on one device; gloo stages
+    CUDA all-reduces through the host), which runs the EP layer and
+    compressed_psum but not the pipeline (gloo has no send / recv of CUDA
+    tensors).  Each run: qwen3-moe-235b's MoE layer at full width through
+    apply_moe_shardmap, forward and backward, held against the same layer
+    unsharded on the card (outputs and every gradient within DIST_TRAIN_RTOL
+    of their magnitude); compressed_psum over its gradients (over gloo the
+    router's and w_down's) equal to a one-rank reference built from the
+    gathered gradients, timed beside a plain fp32 all_reduce; the pipeline
+    (NCCL) against the sequential
+    stack; no kernel launched (``ops.DIST_TRAIN_KERNELS`` is empty)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    if ops.DIST_TRAIN_KERNELS:
+        raise AssertionError(f"dist_train: the path lists kernels {ops.DIST_TRAIN_KERNELS}, want none")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    n = min(cards, 4)
+    runs = {"nccl": spawn_dist(n, "nccl", list(range(n))), "gloo_one_card": spawn_dist(2, "gloo", [0, 0])}
+    launches = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    for name, recs in runs.items():
+        for rec in recs:
+            bad = {k: v for k, v in rec["rel_err_vs_unsharded"].items() if not v <= DIST_TRAIN_RTOL}
+            if bad:
+                raise AssertionError(f"dist_train {name} rank {rec['rank']}: beyond {DIST_TRAIN_RTOL} "
+                                     f"of the unsharded layer: {bad}")
+            if not rec["compress"]["equal_to_one_rank_reference"]:
+                raise AssertionError(f"dist_train {name} rank {rec['rank']}: compressed_psum differs from "
+                                     "the one-rank reference")
+            if rec["pipeline"] and not rec["pipeline"]["max_abs_err_vs_sequential"] <= DIST_TRAIN_RTOL:
+                raise AssertionError(f"dist_train {name}: pipeline off the sequential stack: {rec['pipeline']}")
+            for k, v in rec["launches"].items():
+                launches[k] += v
+    if any(launches.values()):
+        raise AssertionError(f"dist_train: kernels launched {launches}, want none")
+    r0 = runs["nccl"][0]
+    result = {"phase": "dist_train", "config": DIST_TRAIN_ARCH, "cards": cards,
+              "runs": {name: {"backend": recs[0]["backend"], "ranks": len(recs),
+                              "cards": sorted({rec["card"] for rec in recs}),
+                              "pipeline_stages": recs[0]["pipeline"]["stages"] if recs[0]["pipeline"] else 0,
+                              "records": recs} for name, recs in runs.items()},
+              "launches": launches, "nvidia_smi": nvidia_smi_line(),
+              "summary": {"nccl_ranks": len(runs["nccl"]), "ep_fwd_wall_ms": min(r0["ep"]["fwd_wall_ms"]),
+                          "ep_fwd_busy_ms": r0["ep"]["fwd_busy_ms"], "ep_bwd_wall_ms": min(r0["ep"]["bwd_wall_ms"]),
+                          "ep_bwd_busy_ms": r0["ep"]["bwd_busy_ms"], "compress_ms": r0["compress"]["ms"],
+                          "plain_all_reduce_ms": r0["compress"]["plain_fp32_all_reduce_ms"],
+                          "bounds_ms": r0["bounds_ms"]}}
+    emit(result)
+    return result
+
+
+def check_bf16_decode(dev) -> dict:
+    """deepseek-7b's smoke config in its own dtype (bf16) through
+    ``decode_step_ee`` with the kernels on the card against the CPU's plain
+    path: six steps from an empty cache at full depth (threshold below
+    every entropy) and exiting at layer 1 (above every one); exits equal,
+    logits within 5e-2 of their magnitude and entropies within 5e-2 (bf16
+    activations rounded by another matmul order on each side), the entropy
+    kernel launched n_layers times per step on bf16 logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.device import tree_to
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, init_params
+
+    cfg = get_smoke_config("deepseek_7b")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_params = tree_to(params, dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(4, cfg.vocab_size, (2, 6)))
+    out = {"phase": "bf16_decode", "config": cfg.name, "dtype": cfg.dtype, "runs": {}}
+    for thr in (-1.0, 1e9):
+        runs = {}
+        for where, p, kernels in (("cpu", params, False), (dev, card_params, True)):
+            cache = model.init_cache(2, 16, device=where)
+            ops.reset_launch_counts()
+            steps = []
+            for t in range(tokens.shape[1]):
+                pos = torch.full((2,), t, dtype=torch.int32, device=where)
+                lg, cache, exit_layer, ent = model.decode_step_ee(p, cache, tokens[:, t:t + 1].to(where), pos, thr,
+                                                                  use_kernels=kernels)
+                steps.append((lg.float().cpu(), exit_layer.cpu(), ent.cpu()))
+            runs[str(where)] = (steps, ops.launch_counts())
+        (cpu, _), (card, launches) = runs["cpu"], runs[str(dev)]
+        want = cfg.n_layers * tokens.shape[1]
+        logit_err = max(float((lg - lc).abs().max() / lc.abs().max()) for (lc, _, _), (lg, _, _) in zip(cpu, card))
+        ent_err = max(float((hg - hc).abs().max()) for (_, _, hc), (_, _, hg) in zip(cpu, card))
+        exits_equal = all(torch.equal(eg, ec) for (_, ec, _), (_, eg, _) in zip(cpu, card))
+        out["runs"][str(thr)] = {"logits_rel_err": logit_err, "entropy_abs_err": ent_err, "exits_equal": exits_equal,
+                                 "launches": launches, "want_entropy_launches": want}
+        if launches["softmax_entropy"] != want or any(v for k, v in launches.items() if k != "softmax_entropy"):
+            raise AssertionError(f"bf16_decode: launches {launches}, want softmax_entropy {want} and nothing else")
+        if not (exits_equal and logit_err <= 5e-2 and ent_err <= 5e-2):
+            raise AssertionError(f"bf16_decode: card off the CPU: {out['runs'][str(thr)]}")
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4284,6 +4678,8 @@ def main() -> int:
     vlm_decode = timed("vlm_decode", run_vlm_decode_path, dev)
     lm_train = timed("lm_train", run_lm_train_path, dev)
     train = timed("train", run_train_path, dev)
+    timed("bf16_decode", check_bf16_decode, dev)
+    dist_train = timed("dist_train", run_dist_train_path, dev)
     seconds["eb_decode"] = decode["eb_decode"]["seconds"]        # within "decode"
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
@@ -4295,7 +4691,7 @@ def main() -> int:
                    "hybrid_decode": hybrid_decode["launches"][r["name"]],
                    "encdec_decode": encdec_decode["launches"][r["name"]],
                    "vlm_decode": vlm_decode["launches"][r["name"]], "lm_train": lm_train["launches"][r["name"]],
-                   "train": train["launches"][r["name"]],
+                   "train": train["launches"][r["name"]], "dist_train": dist_train["launches"][r["name"]],
                    # the sharded classifier drain and the sharded deepseek-7b
                    # W = 1 drain of the decode phase
                    "sharded": sharded["launches"][r["name"]] + decode["sharded"]["launches"][r["name"]]}

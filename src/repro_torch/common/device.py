@@ -26,7 +26,10 @@ def use_parity_numerics() -> None:
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
-    """The torch.device to run on; raises when CUDA is asked for but absent."""
+    """The torch.device to run on; raises when CUDA is asked for but absent.
+    ``"meta"`` gives shapes without storage (the sharding rules read a
+    110B-parameter tree that way, as the JAX package reads
+    ``jax.eval_shape``'s)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -35,9 +38,17 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "False; pass device='cpu' to run the plain PyTorch path"
             )
         use_parity_numerics()
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev!r}: use 'cuda', 'cpu' or 'meta'")
     return dev
+
+
+def draw_device(gen: torch.Generator, device: DeviceLike) -> torch.device:
+    """Where a draw from ``gen`` for a leaf on ``device`` is made: on the
+    generator's own device, or on the meta device when the leaf is meta (the
+    shape alone: nothing is drawn or allocated)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else gen.device
 
 
 def tree_to(tree: Any, device: torch.device) -> Any:

@@ -7,11 +7,14 @@ decoders ``deepseek_7b``, ``minitron_8b``, ``internlm2_20b`` and
 ``qwen3_moe_235b``, the RWKV6 decoder ``rwkv6_7b``, the hybrid
 ``zamba2_1p2b``, the encoder-decoder ``whisper_medium`` and the vision
 decoder ``llama3_2_vision_90b`` exist here; each exposes ``CONFIG`` (the published size) and ``smoke_config()``
-(a reduced same-family config for CPU tests).
+(a reduced same-family config for CPU tests).  ``ShapeConfig`` / ``SHAPES``
+and ``ARCH_IDS`` are the JAX package's shape sheet and architecture list,
+which the sharding rules read.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Tuple
 
 # ---------------------------------------------------------------------------
 # EdgeBERT feature configs (the paper's knobs)
@@ -240,8 +243,54 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (the per-arch shape sheet the sharding rules read)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+# long_500k requires sub-quadratic sequence mixing: run only for ssm/hybrid.
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k" and model.family not in SUBQUADRATIC_FAMILIES:
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
 # Lookup
 # ---------------------------------------------------------------------------
+
+# the ten assigned architectures (the albert configs are the paper's own)
+ARCH_IDS = (
+    "qwen1_5_110b",
+    "minitron_8b",
+    "deepseek_7b",
+    "internlm2_20b",
+    "whisper_medium",
+    "zamba2_1p2b",
+    "qwen3_moe_235b",
+    "qwen2_moe_a2p7b",
+    "llama3_2_vision_90b",
+    "rwkv6_7b",
+)
 
 PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "minitron_8b", "internlm2_20b", "qwen1_5_110b",
                 "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b", "zamba2_1p2b", "whisper_medium",

@@ -58,7 +58,8 @@
 //
 // Bound of repro_entropy_rows on the H100 at the decode shape ([lanes, V]
 // fp32, lanes 1-8, V = 102400): bytes.  One read of the logits, 4 x 102400
-// x 4 B = 1.64 MB at 4 lanes: 0.49 us at 3.35 TB/s (0.12 us at 1 lane),
+// x 4 B = 1.64 MB at 4 lanes (half that in bf16, the decoders' own dtype:
+// read as bf16, computed in fp32): 0.49 us at 3.35 TB/s (0.12 us at 1 lane),
 // below the card's empty launch; ~8 float ops per logit (3.3 MFLOP, 0.05
 // us at 67 TFLOP/s).  The warp-per-row entry reads each 400 KB row three
 // times from 4 warps on one SM and writes the probs nobody reads.
@@ -83,6 +84,9 @@
 #include "common.cuh"
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -201,31 +205,48 @@ __device__ __forceinline__ void fold(Triple& t, const float* v) {
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void load_chunk(const float* p, float* v) {
-  if constexpr (VEC == 4) {
+// VEC logits of a row from global memory, widened to fp32: one 16-byte
+// load for 4 fp32 or 8 bf16 logits, else one scalar load.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_chunk(const T* p, float* v) {
+  if constexpr (std::is_same_v<T, float> && VEC == 4) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = q.x;
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16> && VEC == 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   } else {
-    v[0] = __ldg(p);
+    static_assert(VEC == 1, "16-byte vectors or scalars only");
+    if constexpr (std::is_same_v<T, float>)
+      v[0] = __ldg(p);
+    else
+      v[0] = __bfloat162float(p[0]);
   }
 }
 
 // grid (cluster, rows), clusters of (cluster, 1, 1) blocks: rank r of row
 // `row` owns units [r * per, (r + 1) * per) of the row's n / VEC units.
-template <int VEC>
+// T is float or __nv_bfloat16 (read as it is, computed in fp32, as the JAX
+// kernel casts its rows to fp32).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kEntThreads)
-entropy_rows_kernel(float* __restrict__ ent, const float* __restrict__ x, long n) {
+entropy_rows_kernel(float* __restrict__ ent, const T* __restrict__ x, long n) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long row = blockIdx.y;
-  const float* xr = x + row * n;
+  const T* xr = x + row * n;
   const long units = n / VEC;
   const long per = (units + cs - 1) / cs;
   const long u0 = rank * per;
@@ -236,13 +257,13 @@ entropy_rows_kernel(float* __restrict__ ent, const float* __restrict__ x, long n
   for (; u + (kEntUnroll - 1) * kEntThreads < u1; u += kEntUnroll * kEntThreads) {
     float v[kEntUnroll][VEC];
 #pragma unroll
-    for (int j = 0; j < kEntUnroll; ++j) load_chunk<VEC>(xr + (u + j * kEntThreads) * VEC, v[j]);
+    for (int j = 0; j < kEntUnroll; ++j) load_chunk<T, VEC>(xr + (u + j * kEntThreads) * VEC, v[j]);
 #pragma unroll
     for (int j = 0; j < kEntUnroll; ++j) fold<VEC>(t, v[j]);
   }
   for (; u < u1; u += kEntThreads) {
     float v[VEC];
-    load_chunk<VEC>(xr + u * VEC, v);
+    load_chunk<T, VEC>(xr + u * VEC, v);
     fold<VEC>(t, v);
   }
 
@@ -269,7 +290,8 @@ entropy_rows_kernel(float* __restrict__ ent, const float* __restrict__ x, long n
 
 int g_ent_sms[64];
 
-cudaError_t launch_entropy_rows(float* ent, const float* x, int rows, int n, cudaStream_t stream,
+template <typename T>
+cudaError_t launch_entropy_rows(float* ent, const T* x, int rows, int n, cudaStream_t stream,
                                 int device) {
   if (g_ent_sms[device] == 0) {
     const cudaError_t err =
@@ -292,10 +314,11 @@ cudaError_t launch_entropy_rows(float* ent, const float* x, int rows, int n, cud
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  constexpr int kVec = 16 / sizeof(T);     // 4 fp32 or 8 bf16 per 16-byte load
+  const bool vec = n % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const cudaError_t err =
-      vec ? cudaLaunchKernelEx(&cfg, entropy_rows_kernel<4>, ent, x, static_cast<long>(n))
-          : cudaLaunchKernelEx(&cfg, entropy_rows_kernel<1>, ent, x, static_cast<long>(n));
+      vec ? cudaLaunchKernelEx(&cfg, entropy_rows_kernel<T, kVec>, ent, x, static_cast<long>(n))
+          : cudaLaunchKernelEx(&cfg, entropy_rows_kernel<T, 1>, ent, x, static_cast<long>(n));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -594,17 +617,20 @@ REPRO_EXPORT int repro_softmax_entropy(float* probs, float* ent, const float* x,
 }
 
 // ent [rows] fp32 <- the entropy of softmax over each row of x [rows, n]
-// fp32, clamped at 0.
-REPRO_EXPORT int repro_entropy_rows(float* ent, const float* x, int rows, int n, void* stream,
-                                    int device) {
+// (fp32 when bf16 == 0, else bf16, widened to fp32 as it is read), clamped
+// at 0.
+REPRO_EXPORT int repro_entropy_rows(float* ent, const void* x, int rows, int n, int bf16,
+                                    void* stream, int device) {
   const DeviceScope scope(device);
   cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= 64 || rows < 0 || rows > 65535 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      launch_entropy_rows(ent, x, rows, n, static_cast<cudaStream_t>(stream), device));
+      bf16 ? launch_entropy_rows(ent, static_cast<const __nv_bfloat16*>(x), rows, n, st, device)
+           : launch_entropy_rows(ent, static_cast<const float*>(x), rows, n, st, device));
 }
 
 // Blocks of one head launch (the rows of its partial scratch).

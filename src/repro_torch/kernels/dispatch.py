@@ -73,8 +73,8 @@ def entropy(logits: torch.Tensor) -> torch.Tensor:
     """Entropy of softmax(logits) over the last axis -> logits.shape[:-1]
     (the JAX package's ``dispatch.entropy``, which throws the kernel's probs
     away): the decoder's LM-head off-ramp, [lanes, 1, V] logits, through
-    the wide-row entry ``softmax_entropy.entropy``.  fp32 logits only on
-    the card."""
+    the wide-row entry ``softmax_entropy.entropy``: fp32 or bf16 logits
+    (the decoders' own dtype), computed in fp32."""
     shape = logits.shape
     return _sm_k.entropy(logits.reshape(-1, shape[-1])).reshape(shape[:-1])
 

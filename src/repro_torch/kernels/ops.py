@@ -98,6 +98,12 @@ EB_DECODE_KERNELS = ("softmax_entropy", "af_quantize")
 # the decoder's
 SHARDED_SERVING_KERNELS = SERVING_KERNELS
 SHARDED_DECODE_KERNELS = DECODE_KERNELS
+# the training half of sharding (models.moe.apply_moe_shardmap forward and
+# backward, training.compress.compressed_psum, training.pipeline): none.
+# The JAX package has no Pallas kernel on any of it (routing, the expert
+# products and the collectives are library ops in both packages), and
+# training takes the reference ops
+DIST_TRAIN_KERNELS = ()
 
 
 def reset_launch_counts() -> None:

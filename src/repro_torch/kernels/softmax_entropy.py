@@ -34,7 +34,7 @@ _SIGNATURES = {
     "repro_offramp_head": [build.PTR] * 4 + [build.INT64] + [build.INT] * 3 + [build.PTR] * 5
     + [build.FLOAT] + [build.INT] * 5 + [build.PTR, build.INT],
     "repro_offramp_head_blocks": [build.INT],
-    "repro_entropy_rows": [build.PTR, build.PTR, build.INT, build.INT, build.PTR, build.INT],
+    "repro_entropy_rows": [build.PTR, build.PTR, build.INT, build.INT, build.INT, build.PTR, build.INT],
 }
 
 
@@ -68,20 +68,23 @@ softmax_entropy.launches = 0
 
 
 def entropy(logits: torch.Tensor) -> torch.Tensor:
-    """logits [rows, n] fp32 -> the entropy of softmax over each row,
-    [rows] fp32, clamped at 0 (no probs).  A CPU tensor takes the plain
-    version (``ref.softmax_entropy``); a CUDA tensor launches the kernel,
-    one thread-block cluster per row, or raises: it must be a contiguous
-    fp32 matrix of at most 65535 rows."""
+    """logits [rows, n] fp32 or bf16 -> the entropy of softmax over each
+    row, [rows] fp32, clamped at 0 (no probs).  bf16 rows are read as they
+    are and computed in fp32, as the JAX kernel casts its rows.  A CPU
+    tensor takes the plain version (``ref.softmax_entropy``); a CUDA tensor
+    launches the kernel, one thread-block cluster per row, or raises: it
+    must be a contiguous fp32 or bf16 matrix of at most 65535 rows."""
     if logits.device.type == "cpu":
         return ref.softmax_entropy(logits)[1]
-    build.require_cuda("entropy", logits)
+    build.require_cuda("entropy", logits, dtype=None)
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"entropy: expected torch.float32 or torch.bfloat16, got {logits.dtype}")
     if logits.ndim != 2 or logits.shape[0] > 65535 or logits.shape[1] == 0:
         raise ValueError(f"entropy: logits must be [rows <= 65535, n > 0], got {tuple(logits.shape)}")
     rows, n = logits.shape
     ent = torch.empty(rows, dtype=torch.float32, device=logits.device)
     lib = build.library("softmax_entropy", _SIGNATURES)
-    err = lib.repro_entropy_rows(ent.data_ptr(), logits.data_ptr(), rows, n,
+    err = lib.repro_entropy_rows(ent.data_ptr(), logits.data_ptr(), rows, n, int(logits.dtype == torch.bfloat16),
                                  build.stream_of(logits), logits.device.index)
     build.check(lib, err, "entropy")
     softmax_entropy.launches += 1

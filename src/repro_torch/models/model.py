@@ -58,7 +58,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.device import DeviceLike, draw_device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import early_exit as ee
 from repro_torch.core.adaptivfloat import AFFormat, fake_quant
@@ -72,9 +72,9 @@ Params = Dict[str, Any]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def _normal(gen: torch.Generator, shape: Sequence[int], scale: float) -> torch.Tensor:
+def _normal(gen: torch.Generator, shape: Sequence[int], scale: float, dev: torch.device) -> torch.Tensor:
     # scaled in place: a stacked 7B weight is gigabytes, and a copy doubles it
-    return torch.randn(tuple(shape), generator=gen, device=gen.device).mul_(scale)
+    return torch.randn(tuple(shape), generator=gen, device=draw_device(gen, dev)).mul_(scale)
 
 
 def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device) -> Params:
@@ -98,7 +98,7 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
 
     def dense(shape, lead=(), scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        return _normal(gen, tuple(lead) + tuple(shape), scale).to(dev, dtype)
+        return _normal(gen, tuple(lead) + tuple(shape), scale, dev).to(dev, dtype)
 
     def norm(*lead, kind=cfg.norm, width=d):
         n = {"scale": torch.ones(lead + (width,), dtype=dtype, device=dev)}
@@ -129,11 +129,11 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
             layers["mlp"] = mlp(n)
         return layers
 
-    embed = {"tok": _normal(gen, (cfg.vocab_size, cfg.embed_dim), 0.02).to(dev, dtype)}
+    embed = {"tok": _normal(gen, (cfg.vocab_size, cfg.embed_dim), 0.02, dev).to(dev, dtype)}
     if cfg.embed_dim != d:
-        embed["proj"] = _normal(gen, (cfg.embed_dim, d), 1.0 / math.sqrt(cfg.embed_dim)).to(dev, dtype)
+        embed["proj"] = _normal(gen, (cfg.embed_dim, d), 1.0 / math.sqrt(cfg.embed_dim), dev).to(dev, dtype)
     if cfg.pos == "learned":
-        embed["pos"] = _normal(gen, (cfg.max_seq_len, d), 0.02).to(dev, dtype)
+        embed["pos"] = _normal(gen, (cfg.max_seq_len, d), 0.02, dev).to(dev, dtype)
     p: Params = {"embed": embed}
     if cfg.family == "ssm":
         p["layers"] = {"norm1": norm(L_, kind="layernorm"),
@@ -159,10 +159,10 @@ def _init_dense_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device
     if cfg.family == "encdec":
         p["enc_layers"] = dense_layers(cfg.n_enc_layers)
         p["enc_norm"] = norm()
-        p["enc_pos"] = _normal(gen, (cfg.enc_seq_len, d), 0.02).to(dev, dtype)
+        p["enc_pos"] = _normal(gen, (cfg.enc_seq_len, d), 0.02, dev).to(dev, dtype)
         p["dec_cross"] = {"norm": norm(L_), "xattn": attention((L_,))}
     p["final_norm"] = norm()
-    p["lm_head"] = _normal(gen, (d, cfg.vocab_size), 0.02).to(dev, dtype)
+    p["lm_head"] = _normal(gen, (d, cfg.vocab_size), 0.02, dev).to(dev, dtype)
     p.update(_edgebert_params(cfg, gen, dev, dtype))
     return p
 
@@ -176,7 +176,7 @@ def _edgebert_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device, 
     d, f32 = cfg.d_model, torch.float32
 
     def dense(shape, dt=dtype):
-        return _normal(gen, shape, 1.0 / math.sqrt(shape[0])).to(dev, dt)
+        return _normal(gen, shape, 1.0 / math.sqrt(shape[0]), dev).to(dev, dt)
 
     p: Params = {}
     if cfg.num_classes:
@@ -269,11 +269,15 @@ def init_params(
     """Random params on ``device``.  The albert family draws from
     ``generator`` (a seed-0 CPU generator when None); the decoder families
     from ``generator`` on the generator's own device (a seed-0 generator on
-    ``device`` when None), so a 7B tree made for the card is drawn there."""
+    ``device`` when None), so a 7B tree made for the card is drawn there.
+    On ``device="meta"`` the tree has every leaf's shape and dtype and
+    nothing is drawn or allocated (the sharding rules' input)."""
     if cfg.family in DECODER_FAMILIES:
         _check_dense(cfg)
         dev = resolve_device(device)
-        gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+        # the meta device has no generator: shapes only, nothing drawn
+        gen = generator if generator is not None else torch.Generator(
+            device="cpu" if dev.type == "meta" else dev).manual_seed(0)
         return _init_dense_params(cfg, gen, dev)
     if (cfg.family, cfg.act, cfg.norm, cfg.qkv_bias, cfg.tie_embeddings) != (
         "albert", "gelu", "layernorm", False, True
@@ -287,10 +291,10 @@ def init_params(
 
     def dense(shape, scale=None, dt=dtype):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        return _normal(gen, shape, scale).to(dev, dt)
+        return _normal(gen, shape, scale, dev).to(dev, dt)
 
     def embed(shape):
-        return _normal(gen, shape, 0.02).to(dev, dtype)
+        return _normal(gen, shape, 0.02, dev).to(dev, dtype)
 
     def norm():
         return {"scale": torch.ones(d, dtype=dtype, device=dev),

@@ -27,6 +27,8 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.device import draw_device
+
 Params = Dict[str, Any]
 
 LORA_R = 32
@@ -36,7 +38,7 @@ def _dense(gen: torch.Generator, lead: tuple, shape: Sequence[int], device, dtyp
     """A normal draw of ``lead + shape`` at the JAX ``dense_init`` scale (1 /
     sqrt of the first dim of ``shape``), scaled in place."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    w = torch.randn(lead + tuple(shape), generator=gen, device=gen.device).mul_(scale)
+    w = torch.randn(lead + tuple(shape), generator=gen, device=draw_device(gen, device)).mul_(scale)
     return w.to(device, dtype)
 
 

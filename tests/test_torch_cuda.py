@@ -158,11 +158,61 @@ def test_entropy_wide_rows_deterministic_and_routed(cuda):
     assert softmax_entropy.launches == before + 1 and got.shape == (4, 1)
     torch.testing.assert_close(got[:, 0], ref.softmax_entropy(x)[1], atol=1e-5, rtol=0)
     with pytest.raises(TypeError):
-        entropy(x.to(torch.bfloat16))
+        entropy(x.to(torch.float16))
     with pytest.raises(ValueError):
         entropy(x.t())
     with pytest.raises(ValueError):
         entropy(x[None])
+
+
+@pytest.mark.parametrize("rows,n", [(4, 102400), (1, 102400), (3, 1001), (2, 32003)])
+def test_entropy_wide_rows_bf16(cuda, rows, n):
+    """bf16 logits, the decoders' own dtype, read as bf16 and computed in
+    fp32 as the JAX kernel casts its rows: within 1e-5 of the plain version
+    on the same bf16 values (16-byte loads of 8 logits where n % 8 == 0,
+    scalar otherwise), fp32 entropies, one launch, the same bits twice."""
+    x = (_t((rows, n), 40 + rows, 1.3) + _t((rows, 1), 41, 3.0)).to(cuda).to(torch.bfloat16)
+    before = softmax_entropy.launches
+    got = entropy(x)
+    assert softmax_entropy.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.softmax_entropy(x)[1], atol=1e-5, rtol=0)
+    assert torch.equal(entropy(x), got)
+
+
+def test_bf16_decode_step_ee_matches_cpu(cuda):
+    """deepseek-7b's smoke config in its own dtype (bf16) through
+    decode_step_ee with the kernels on the card against the CPU's plain
+    path, six steps from an empty cache, at full depth (threshold below
+    every entropy) and exiting at layer 1 (above every one): exits equal,
+    logits within 5e-2 of their magnitude and entropies within 5e-2 (bf16
+    activations rounded by another matmul order on each side), and the
+    entropy kernel launched n_layers times per step."""
+    from repro_torch.common.device import tree_to
+
+    cfg = get_smoke_config("deepseek_7b")
+    assert cfg.dtype == "bfloat16"
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_params = tree_to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(4, cfg.vocab_size, (2, 6)))
+    for thr in (-1.0, 1e9):
+        runs = {}
+        for dev, p, kernels in (("cpu", params, False), (cuda, card_params, True)):
+            cache = model.init_cache(2, 16, device=dev)
+            ops.reset_launch_counts()
+            steps = []
+            for t in range(tokens.shape[1]):
+                pos = torch.full((2,), t, dtype=torch.int32, device=dev)
+                lg, cache, exit_layer, ent = model.decode_step_ee(p, cache, tokens[:, t:t + 1].to(dev), pos, thr,
+                                                                  use_kernels=kernels)
+                steps.append((lg.float().cpu(), exit_layer.cpu(), ent.cpu()))
+            runs[str(dev)] = (steps, ops.launch_counts())
+        (cpu, _), (card, launches) = runs["cpu"], runs[str(cuda)]
+        assert launches["softmax_entropy"] == cfg.n_layers * tokens.shape[1]
+        for (lc, ec, hc), (lg, eg, hg) in zip(cpu, card):
+            assert torch.equal(eg, ec)
+            torch.testing.assert_close(lg, lc, atol=5e-2 * float(lc.abs().max()), rtol=0)
+            torch.testing.assert_close(hg, hc, atol=5e-2, rtol=0)
 
 
 def test_entropy_wide_rows_at_qwen_vocab_repeatable(cuda):

@@ -307,3 +307,30 @@ def test_training_entry_points_raise_without_gpu_when_cpu_not_asked(monkeypatch,
         train.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         finetune.main(["--steps", "12"])
+
+
+def test_scan_covers_the_distributed_training_slice():
+    """The training half of sharding imports with jax and repro blocked: the
+    mesh, the rules and ZeRO-1, the compressed all-reduce, the pipeline and
+    the expert-parallel MoE (the package scan covers them too)."""
+    slice_modules = ["repro_torch.launch.mesh", "repro_torch.sharding", "repro_torch.sharding.rules",
+                     "repro_torch.sharding.zero1", "repro_torch.training.compress",
+                     "repro_torch.training.pipeline", "repro_torch.models.moe"]
+    assert set(slice_modules) <= {name for _, name in _modules()}
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {slice_modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from repro_torch.models.moe import apply_moe_shardmap, shard_experts\n"
+        "from repro_torch.sharding.rules import distribute, placements_of\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          timeout=120, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+    assert "def run_dist_train_path" in (ROOT / "chip_smoke.py").read_text()

@@ -242,11 +242,14 @@ def test_grouped_moe_matches_flat():
 
 
 def test_apply_moe_shardmap_raises():
+    """Without a device mesh (launch.mesh.use_mesh) the expert-parallel
+    dispatch raises instead of running unsharded; on a mesh it is held
+    against JAX's in test_torch_dist_training.py."""
     _, pt, cfg = _moe_params("qwen3_moe_235b")
     x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(RuntimeError, match="device mesh"):
         tmoe.apply_moe_shardmap(pt, x, cfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="device mesh"):
         tmoe.apply_moe(pt, x, dataclasses.replace(cfg, moe_shardmap_dispatch=True))
 
 

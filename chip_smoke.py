@@ -212,9 +212,13 @@ Phases, each printing one JSON line:
                 first batch's gradients all finite, 3 AdamW steps through
                 make_train_step with finite losses and gradient norms, no
                 kernel launched; one step profiled alone beside its fp32
-                bound (6 N T operations); the first 6 blocks against the
-                CPU (the loss within 1e-4 relative, every gradient leaf
-                within 1e-4 of its largest magnitude).
+                bound (6 N T operations) and beside the dry run's
+                H100_SXM roofline bound of the same step (launch/dryrun.py
+                on fake tensors at world 1: per-device FLOPs and bytes,
+                busy / bound printed, not asserted; no launch, as
+                ops.DRYRUN_KERNELS is empty); the first 6 blocks against
+                the CPU (the loss within 1e-4 relative, every gradient
+                leaf within 1e-4 of its largest magnitude).
   9. train    — the Fig. 6 pipeline at albert_edgebert's published width
                 (float32 weights from seed 0, SyntheticCLS seq 128, batch
                 16): a teacher (make_train_step, pruning off), phase 1
@@ -251,7 +255,10 @@ Phases, each printing one JSON line:
                 gradients and timed beside a plain fp32 all_reduce of the
                 same tree, and (NCCL) pipeline_forward with one stage of
                 4096 x 4096 linear + tanh per rank against the sequential
-                stack; no kernel launched (ops.DIST_TRAIN_KERNELS is
+                stack, and its gradient (each stage's weight gradient and
+                the input's within 1e-5 of their magnitude of the
+                sequential stack's autograd; the stage count and errors
+                printed); no kernel launched (ops.DIST_TRAIN_KERNELS is
                 empty); wall and busy ms of the layer's forward and
                 backward, ranks, backends, cards and nvidia-smi's line.
 Then each phase's seconds, the `{"kernels": [...]}` summary (one row per
@@ -265,7 +272,7 @@ the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
 encdec_decode phase's served drain's; af_quantize one more, at the
 eb_decode shape [4, 4096] in 4 groups with that phase's launches;
 `launches_by_path` gives every path's, eb_decode,
-hybrid_decode, encdec_decode, vlm_decode, lm_train, dist_train (all zero)
+hybrid_decode, encdec_decode, vlm_decode, lm_train, dist_train, dryrun (all zero)
 and sharded (the sharded classifier drain's and the sharded W = 1 decode
 drain's) included;
 every kernel row also checks that the launch left the current device as it
@@ -3782,6 +3789,43 @@ def check_lm_train_reference(cfg, params, batch, dev) -> dict:
     return result
 
 
+def lm_train_dryrun(cfg, busy_ms: float) -> dict:
+    """The dry run (``launch/dryrun.py``) of lm_train's own step: the same
+    config, LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, one AdamW step at world 1,
+    traced on fake tensors (nothing runs on the card; ``ops.DRYRUN_KERNELS``
+    is empty and the trace fails on any launch).  Its per-device FLOPs and
+    bytes, its ``H100_SXM`` roofline bound (a model: the compute term at the
+    bf16 dense peak, while this step runs float32) beside the step's
+    measured busy ms and their ratio; nothing is asserted on the ratio."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    if ops.DRYRUN_KERNELS:
+        raise AssertionError(f"lm_train dryrun: the path lists kernels {ops.DRYRUN_KERNELS}, want none")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = dryrun.record_cell(cfg, ShapeConfig("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"),
+                             Mesh(("data", "model"), (1, 1)), microbatches=1)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_train dryrun: the fake-tensor trace launched {launches}, want nothing")
+    rl, oa = rec["roofline"], rec["op_analysis"]
+    bound = rl["bound_s"] * 1e3
+    out = {"chip": rl["chip"], "flops_per_device": oa["flops_per_device"], "bytes_per_device": oa["bytes_per_device"],
+           "t_compute_ms": rl["t_compute_s"] * 1e3, "t_memory_ms": rl["t_memory_s"] * 1e3,
+           "bound_ms": bound, "dominant": rl["dominant"], "measured_busy_ms": busy_ms,
+           "busy_over_bound": busy_ms / bound if bound else None, "n_params": rec["n_params"],
+           "temp_peak_gb": rec["memory_analysis"]["temp_size_in_bytes"] / 1e9, "trace_s": rec["trace_s"],
+           "seconds": seconds, "launches": launches}
+    print(f"lm_train dryrun ({rl['chip']} roofline, a model): {oa['flops_per_device']:.4e} FLOP, "
+          f"{oa['bytes_per_device']:.4e} B per device, bound {bound:.3f} ms ({rl['dominant']}); measured busy "
+          f"{busy_ms:.3f} ms, busy / bound {out['busy_over_bound']:.3f}; traced in {seconds:.1f} s", flush=True)
+    return out
+
+
 def run_lm_train_path(dev) -> dict:
     """zamba2-1.2b trained on the card at full width and depth (38 Mamba2
     blocks and 6 shared-block calls, float32 weights drawn on the card from
@@ -3791,8 +3835,9 @@ def run_lm_train_path(dev) -> dict:
     LM_TRAIN_STEPS AdamW steps through ``make_train_step`` (finite losses
     and gradient norms), no kernel launched (training takes the reference
     ops); one step timed and profiled alone beside its fp32 bound (6 N T
-    operations at 67 TFLOP/s); then the card against the CPU on the first
-    6 blocks."""
+    operations at 67 TFLOP/s) and beside the dry run's H100 roofline bound
+    of the same step (``lm_train_dryrun``); then the card against the CPU on
+    the first 6 blocks."""
     import dataclasses
     import gc
 
@@ -3841,6 +3886,7 @@ def run_lm_train_path(dev) -> dict:
         raise AssertionError(f"{phase}: non-finite losses or gradient norms: {history}")
 
     parts = profile_parts((("train_step", lambda: step_fn(params, opt_state, batch), 1),))
+    dry = lm_train_dryrun(cfg, parts["train_step"]["device_busy_ms"])
     n_params = drawn["params"]
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
     flops = 6.0 * n_params * tokens
@@ -3853,7 +3899,7 @@ def run_lm_train_path(dev) -> dict:
         "first_loss": float(loss0), "first_grads_ms": grads_ms, "first_grad_max_abs": grad_max,
         "history": history, "launches": launches, "parts": parts, "step_tflop": flops / 1e12,
         "step_fp32_bound_ms": flops / FP32_FLOP_PER_S * 1e3,
-        "reference": {k: ref[k] for k in ("loss_rel_err", "grad_rel_err")},
+        "reference": {k: ref[k] for k in ("loss_rel_err", "grad_rel_err")}, "dryrun": dry,
     }
     emit(result)
     del params, opt_state, batch
@@ -4327,7 +4373,6 @@ def dist_train_rank(rank: int, world: int, backend: str, dev) -> dict:
     from repro_torch.launch.mesh import Mesh, device_mesh, use_mesh
     from repro_torch.models import moe
     from repro_torch.training.compress import compressed_psum, ef_init
-    from repro_torch.training.pipeline import pipeline_forward
 
     cfg = replace(get_config(DIST_TRAIN_ARCH), dtype="float32", moe_shardmap_dispatch=True)
     mesh = device_mesh(Mesh(("data", "model"), (1, world)), "cuda")
@@ -4418,25 +4463,7 @@ def dist_train_rank(rank: int, world: int, backend: str, dev) -> dict:
     torch.cuda.empty_cache()
 
     # the pipeline: one stage per rank (send / recv over NCCL)
-    pipe = None
-    if backend == "nccl":
-        d = cfg.d_model
-        ws = torch.randn(world, d, d, generator=torch.Generator(device=dev).manual_seed(2), device=dev) / math.sqrt(d)
-        xp = torch.randn(DIST_PIPE_MICRO, DIST_PIPE_MB, d, generator=torch.Generator(device=dev).manual_seed(3),
-                         device=dev)
-        ops.reset_launch_counts()
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = pipeline_forward(lambda w, h: torch.tanh(h @ w), ws[rank], xp)
-            torch.cuda.synchronize()
-            pipe_ms = (time.perf_counter() - t0) * 1e3
-            seq = xp
-            for s_ in range(world):
-                seq = torch.tanh(seq @ ws[s_])
-        pipe = {"stages": world, "micro": DIST_PIPE_MICRO, "mb": DIST_PIPE_MB, "d": d, "wall_ms": pipe_ms,
-                "max_abs_err_vs_sequential": float((out - seq).abs().max()), "launches": ops.launch_counts()}
-        del ws, xp, out, seq
+    pipe = dist_pipeline(rank, world, cfg.d_model, dev) if backend == "nccl" else None
 
     # the same layer unsharded on this card (all experts, the whole batch),
     # one rank at a time so that two ranks on one card never hold it at once
@@ -4482,6 +4509,61 @@ def dist_train_rank(rank: int, world: int, backend: str, dev) -> dict:
             "launches": launches, "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+def dist_pipeline(rank: int, world: int, d: int, dev) -> dict:
+    """``pipeline_forward`` with this rank as one stage of ``world`` (d x d
+    linear + tanh stages, DIST_PIPE_MICRO microbatches of DIST_PIPE_MB rows):
+    the forward against the sequential stack, then its gradient (loss = sum
+    of the outputs) against the sequential stack's autograd on this device:
+    this stage's weight gradient and the input's (every rank's equal to
+    stage 0's) relative to their magnitude, and the forward under autograd
+    equal to the one without."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.training.pipeline import pipeline_forward
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def layer(w, h):
+        return torch.tanh(h @ w)
+
+    ws = torch.randn(world, d, d, generator=torch.Generator(device=dev).manual_seed(2), device=dev) / math.sqrt(d)
+    xp = torch.randn(DIST_PIPE_MICRO, DIST_PIPE_MB, d, generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        out = pipeline_forward(layer, ws[rank], xp)
+        sync()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        seq = xp
+        for s_ in range(world):
+            seq = layer(ws[s_], seq)
+    t0 = time.perf_counter()
+    w_r, x_r = ws[rank].clone().requires_grad_(True), xp.clone().requires_grad_(True)
+    out_g = pipeline_forward(layer, w_r, x_r)
+    sync()
+    t1 = time.perf_counter()
+    out_g.sum().backward()
+    sync()
+    bwd_ms = (time.perf_counter() - t1) * 1e3
+    ws_s, x_s = ws.clone().requires_grad_(True), xp.clone().requires_grad_(True)
+    seq_g = x_s
+    for s_ in range(world):
+        seq_g = layer(ws_s[s_], seq_g)
+    seq_g.sum().backward()
+    grad = {"stage_weight_rel_err": rel_to_magnitude(w_r.grad, ws_s.grad[rank]),
+            "input_rel_err": rel_to_magnitude(x_r.grad, x_s.grad),
+            "forward_under_autograd_equal": bool(torch.equal(out_g.detach(), out)),
+            "bwd_wall_ms": bwd_ms, "seconds": time.perf_counter() - t0}
+    return {"stages": world, "micro": DIST_PIPE_MICRO, "mb": DIST_PIPE_MB, "d": d, "wall_ms": pipe_ms,
+            "max_abs_err_vs_sequential": float((out - seq).abs().max()), "grad": grad,
+            "launches": ops.launch_counts()}
+
+
 def spawn_dist(world: int, backend: str, cards: list) -> list:
     """``world`` ranks over ``backend``, rank r on cuda:cards[r], spawned and
     joined with a timeout; their records in rank order."""
@@ -4519,8 +4601,10 @@ def run_dist_train_path(dev) -> dict:
     of their magnitude); compressed_psum over its gradients (over gloo the
     router's and w_down's) equal to a one-rank reference built from the
     gathered gradients, timed beside a plain fp32 all_reduce; the pipeline
-    (NCCL) against the sequential
-    stack; no kernel launched (``ops.DIST_TRAIN_KERNELS`` is empty)."""
+    (NCCL) against the sequential stack, and its gradient (every stage's
+    weight gradient and the input's, within DIST_TRAIN_RTOL of the
+    sequential stack's autograd); no kernel launched
+    (``ops.DIST_TRAIN_KERNELS`` is empty)."""
     import gc
 
     import torch
@@ -4546,6 +4630,11 @@ def run_dist_train_path(dev) -> dict:
                                      "the one-rank reference")
             if rec["pipeline"] and not rec["pipeline"]["max_abs_err_vs_sequential"] <= DIST_TRAIN_RTOL:
                 raise AssertionError(f"dist_train {name}: pipeline off the sequential stack: {rec['pipeline']}")
+            pg = rec["pipeline"]["grad"] if rec["pipeline"] else None
+            if pg and not (pg["stage_weight_rel_err"] <= DIST_TRAIN_RTOL and pg["input_rel_err"] <= DIST_TRAIN_RTOL
+                           and pg["forward_under_autograd_equal"]):
+                raise AssertionError(f"dist_train {name} rank {rec['rank']}: the pipeline's gradient is off the "
+                                     f"sequential stack's: {pg}")
             for k, v in rec["launches"].items():
                 launches[k] += v
     if any(launches.values()):
@@ -4561,8 +4650,16 @@ def run_dist_train_path(dev) -> dict:
                           "ep_fwd_busy_ms": r0["ep"]["fwd_busy_ms"], "ep_bwd_wall_ms": min(r0["ep"]["bwd_wall_ms"]),
                           "ep_bwd_busy_ms": r0["ep"]["bwd_busy_ms"], "compress_ms": r0["compress"]["ms"],
                           "plain_all_reduce_ms": r0["compress"]["plain_fp32_all_reduce_ms"],
-                          "bounds_ms": r0["bounds_ms"]}}
+                          "bounds_ms": r0["bounds_ms"],
+                          "pipeline_stages": r0["pipeline"]["stages"],
+                          "pipeline_grad": [{"rank": rec["rank"], **{k: rec["pipeline"]["grad"][k] for k in
+                                                                    ("stage_weight_rel_err", "input_rel_err",
+                                                                     "bwd_wall_ms", "seconds")}}
+                                            for rec in runs["nccl"]]}}
     emit(result)
+    print(f"dist_train: pipeline backward over {r0['pipeline']['stages']} stage(s): "
+          + ", ".join(f"stage {g['rank']} weight grad rel err {g['stage_weight_rel_err']:.3e}, input grad "
+                      f"{g['input_rel_err']:.3e}" for g in result["summary"]["pipeline_grad"]), flush=True)
     return result
 
 
@@ -4681,6 +4778,8 @@ def main() -> int:
     timed("bf16_decode", check_bf16_decode, dev)
     dist_train = timed("dist_train", run_dist_train_path, dev)
     seconds["eb_decode"] = decode["eb_decode"]["seconds"]        # within "decode"
+    seconds["lm_train_dryrun"] = lm_train["dryrun"]["seconds"]      # within "lm_train"
+    seconds["dist_train_pipeline_grad"] = max(g["seconds"] for g in dist_train["summary"]["pipeline_grad"])
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
@@ -4692,6 +4791,7 @@ def main() -> int:
                    "encdec_decode": encdec_decode["launches"][r["name"]],
                    "vlm_decode": vlm_decode["launches"][r["name"]], "lm_train": lm_train["launches"][r["name"]],
                    "train": train["launches"][r["name"]], "dist_train": dist_train["launches"][r["name"]],
+                   "dryrun": lm_train["dryrun"]["launches"][r["name"]],
                    # the sharded classifier drain and the sharded deepseek-7b
                    # W = 1 drain of the decode phase
                    "sharded": sharded["launches"][r["name"]] + decode["sharded"]["launches"][r["name"]]}

@@ -81,3 +81,21 @@ def assert_finite(tree: Any, where: str = "") -> None:
         t = torch.as_tensor(leaf)
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite values at {where}{path}")
+
+
+def _itemsize(dtype) -> int:
+    return dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
+
+
+def tree_size_bytes(tree: Any) -> int:
+    """Total byte size of a tree of tensors or arrays (meta tensors too)."""
+    return sum(int(np.prod(leaf.shape)) * _itemsize(leaf.dtype)
+               for _, leaf in tree_leaves_with_path(tree) if hasattr(leaf, "shape") and hasattr(leaf, "dtype"))
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}PiB"

@@ -1,5 +1,5 @@
 """Deterministic synthetic data, the ``SyntheticLM`` and ``SyntheticCLS`` of
-the JAX package's ``data/synthetic.py`` (numpy only, so the copies are
+the JAX package's ``data/synthetic.py`` (batches in numpy only, so the copies are
 exact).
 
 * SyntheticLM — Zipf-distributed tokens plus induction patterns
@@ -12,6 +12,10 @@ exact).
 
 Batches are deterministic in (seed, step) and host-shardable:
 ``shard=(host_index, host_count)`` slices the global batch.
+
+``make_batch_specs`` gives one global batch's inputs as meta tensors (shapes
+and dtypes, nothing allocated): the dry run's inputs, as the JAX package's
+``make_batch_specs`` gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -19,6 +23,9 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 
 @dataclass
@@ -81,3 +88,29 @@ class SyntheticCLS:
             "labels": labels.astype(np.int32),
             "signal_ratio": ratios.astype(np.float32),
         }
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig, dtype: torch.dtype = torch.int32) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for one global batch: ``tokens`` [B, S] (train,
+    prefill) or [B, 1] (decode: the cache of length S is supplied
+    separately), ``labels`` [B] when training a classifier, ``enc_input``
+    [B, enc_seq_len, d] for encdec and ``image_embeds`` [B, n_image_tokens,
+    d] for vlm (train and prefill), in the JAX package's dtypes."""
+    from repro_torch.models.model import _DTYPES
+
+    B, S = shape.global_batch, shape.seq_len
+    act = _DTYPES[cfg.dtype]
+
+    def meta(*dims, dt=dtype):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta(B, 1)}
+    specs = {"tokens": meta(B, S)}
+    if shape.kind == "train" and cfg.num_classes:
+        specs["labels"] = meta(B)
+    if cfg.family == "encdec":
+        specs["enc_input"] = meta(B, cfg.enc_seq_len, cfg.d_model, dt=act)
+    if cfg.family == "vlm":
+        specs["image_embeds"] = meta(B, cfg.n_image_tokens, cfg.d_model, dt=act)
+    return specs

@@ -104,6 +104,9 @@ SHARDED_DECODE_KERNELS = DECODE_KERNELS
 # products and the collectives are library ops in both packages), and
 # training takes the reference ops
 DIST_TRAIN_KERNELS = ()
+# the dry run (launch/dryrun.py) traces its steps on fake tensors: nothing
+# runs on a device, so nothing launches
+DRYRUN_KERNELS = ()
 
 
 def reset_launch_counts() -> None:

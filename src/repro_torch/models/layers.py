@@ -195,6 +195,17 @@ def attention(
     return out[:, :Sq].to(q.dtype)
 
 
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[..., n * hd] -> [..., n, hd] (``sharding.dtensor_forms`` swaps in
+    a DTensor form, as it does for ``_write_rows`` and ``attention``)."""
+    return t.reshape(tuple(t.shape[:-1]) + (n, hd))
+
+
+def _write_rows(c: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, val: torch.Tensor) -> None:
+    """``c[rows, cols] = val`` in place (c [B, Smax, KV, hd], cols [B, S])."""
+    c[rows, cols] = val
+
+
 def attention_layer(
     p: Params,
     x: torch.Tensor,              # [B, S, d]
@@ -239,9 +250,9 @@ def attention_layer(
     q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     if "bq" in p:                 # qkv_bias (qwen2-moe): added before RoPE
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, src.shape[1], KV, hd)
-    v = v.reshape(B, src.shape[1], KV, hd)
+    q = _split_heads(q, H, hd)
+    k = _split_heads(k, KV, hd)
+    v = _split_heads(v, KV, hd)
     if kv_source is not None:
         out = attention(q, k, v, causal=False, span_z=span_z, span_ramp=span_ramp, kv_len=kv_len)
         return out.reshape(B, S, H * hd) @ p["wo"]
@@ -266,13 +277,13 @@ def attention_layer(
     rows = torch.arange(B, device=x.device)[:, None]
     if ck.dtype == torch.uint8:
         e_min = cfg.kv_af8_e_min
-        ck[rows, cols] = af_encode_static(k.float(), e_min)
-        cv[rows, cols] = af_encode_static(v.float(), e_min)
+        _write_rows(ck, rows, cols, af_encode_static(k.float(), e_min))
+        _write_rows(cv, rows, cols, af_encode_static(v.float(), e_min))
         k = af_decode_static(ck, e_min, dtype=x.dtype)
         v = af_decode_static(cv, e_min, dtype=x.dtype)
     else:
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
+        _write_rows(ck, rows, cols, k.to(ck.dtype))
+        _write_rows(cv, rows, cols, v.to(cv.dtype))
         k, v = ck, cv
     out = attention(q, k, v, causal=causal, span_z=span_z, span_ramp=span_ramp,
                     kv_len=pos + S, q_offset=pos)

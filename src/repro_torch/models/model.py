@@ -329,6 +329,12 @@ class ModelOutput(NamedTuple):
     exit_layer: Optional[torch.Tensor] = None      # [B]
 
 
+def _per_layer_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] through each of the stacked projections w [L, d, k] ->
+    [L, B, S, k] (``sharding.dtensor_forms`` swaps in a DTensor form)."""
+    return torch.einsum("bsd,ldk->lbsk", x, w)
+
+
 class Model:
     """The albert, dense, MoE, ssm, hybrid, encdec and vlm families of the
     JAX package's ``Model``: one shared post-LN encoder layer with entropy
@@ -396,6 +402,12 @@ class Model:
         return fake_quant(h, AFFormat(q.n_bits, q.n_exp), amax=amax)
 
     # ---------------------------------------------------------- layer body
+    def _sp_constrain(self, h: torch.Tensor) -> torch.Tensor:
+        """The residual stream's layout between blocks on a mesh (the JAX
+        package's ``_sp_constrain``): ``h`` itself here, where nothing is
+        sharded; ``sharding.dtensor_forms`` swaps in the DTensor layout."""
+        return h
+
     def _dense_layer_step(
         self,
         lp: Params,
@@ -433,15 +445,16 @@ class Model:
             mo = L.apply_mlp(lp["mlp"], h, use_kernels=use_kernels, block_masks=block_masks)
             h = L.apply_norm(lp["norm2"], h + mo, use_kernels=use_kernels)
             return self._maybe_actquant(h, use_kernels=use_kernels, per_lane=per_lane)
-        h = h + L.attention_layer(lp["attn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm, use_kernels=use_kernels),
-                                  cfg, **attn)
+        h = self._sp_constrain(h)
+        h = self._sp_constrain(h + L.attention_layer(
+            lp["attn"], L.apply_norm(lp["norm1"], h, kind=cfg.norm, use_kernels=use_kernels), cfg, **attn))
         hn = L.apply_norm(lp["norm2"], h, kind=cfg.norm, use_kernels=use_kernels)
         if "moe" in lp:
             mo, aux = moe.apply_moe(lp["moe"], hn, cfg, grouped=moe_grouped)
         else:
             mo = L.apply_mlp(lp["mlp"], hn, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
             aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
-        h = self._maybe_actquant(h + mo, use_kernels=use_kernels, per_lane=per_lane)
+        h = self._maybe_actquant(self._sp_constrain(h + mo), use_kernels=use_kernels, per_lane=per_lane)
         return (h, aux) if with_aux else h
 
     def _rwkv_layer_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
@@ -452,10 +465,11 @@ class Model:
         ``per_lane``) take no kernel flag in the JAX package, so they stay
         on the reference ops here too."""
         st = states or {}
+        h = self._sp_constrain(h)
         tout, (last_tm, wkv) = rwkv6.apply_rwkv6(lp["tmix"], L.apply_norm(lp["norm1"], h), self.cfg,
                                                  last_x=st.get("last_tm"), wkv_state=st.get("wkv"),
                                                  decode=decode)
-        h = h + tout
+        h = self._sp_constrain(h + tout)
         cout, last_cm = rwkv6.apply_channel_mix(lp["cmix"], L.apply_norm(lp["norm2"], h), last_x=st.get("last_cm"))
         return (self._maybe_actquant(h + cout, per_lane=per_lane),
                 {"last_tm": last_tm, "wkv": wkv, "last_cm": last_cm})
@@ -468,6 +482,7 @@ class Model:
         "ssm"}).  Its norm and its quantization take no kernel flag in the
         JAX package (and an RMS norm has no kernel)."""
         st = states or {}
+        h = self._sp_constrain(h)
         out, (conv, ssm) = mamba2.apply_mamba2(lp["mixer"], L.apply_norm(lp["norm"], h, kind=self.cfg.norm),
                                                self.cfg, conv_state=st.get("conv"), ssm_state=st.get("ssm"),
                                                decode=decode)
@@ -482,12 +497,13 @@ class Model:
         MLP, then h + z @ out_proj."""
         cfg = self.cfg
         z = torch.cat([h, x0], dim=-1)
+        z = self._sp_constrain(z)
         zi = L.apply_norm(sp["norm1"], z, kind=cfg.norm, use_kernels=use_kernels)
-        z = z + L.attention_layer(sp["attn"], zi, self._shared_cfg, causal=True, positions=positions,
-                                  span_z=span_z, span_ramp=cfg.edgebert.span.ramp, cache=cache,
-                                  cache_pos=cache_pos, use_kernels=use_kernels)
-        z = z + L.apply_mlp(sp["mlp"], L.apply_norm(sp["norm2"], z, kind=cfg.norm, use_kernels=use_kernels),
-                            act="gelu")
+        z = self._sp_constrain(z + L.attention_layer(
+            sp["attn"], zi, self._shared_cfg, causal=True, positions=positions, span_z=span_z,
+            span_ramp=cfg.edgebert.span.ramp, cache=cache, cache_pos=cache_pos, use_kernels=use_kernels))
+        z = self._sp_constrain(z + L.apply_mlp(
+            sp["mlp"], L.apply_norm(sp["norm2"], z, kind=cfg.norm, use_kernels=use_kernels), act="gelu"))
         return h + z @ sp["out_proj"]
 
     def _encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -1031,9 +1047,8 @@ class Model:
                                  "[B, n_image_tokens, d_model]")
             img = torch.as_tensor(aux["image_embeds"], device=tokens.device)
             xattn = p["cross_layers"]["xattn"]
-            shape = (xattn["wk"].shape[0],) + tuple(img.shape[:2]) + (cfg.n_kv_heads, cfg.head_dim)
             for name, w in (("img_k", "wk"), ("img_v", "wv")):
-                cache[name].copy_(torch.einsum("bsd,ldk->lbsk", img, xattn[w]).reshape(shape))
+                cache[name].copy_(L._split_heads(_per_layer_proj(img, xattn[w]), cfg.n_kv_heads, cfg.head_dim))
             h = self._vlm_layers(p, h, cache, positions=positions, cache_pos=0)
         else:
             encdec = cfg.family == "encdec"
@@ -1042,9 +1057,9 @@ class Model:
                     raise ValueError('the encdec prefill needs aux["enc_input"], the encoder frames '
                                      "[B, enc_seq_len, d_model]")
                 enc = self._encode(p, torch.as_tensor(aux["enc_input"], device=tokens.device))
-                shape = (cfg.n_layers,) + tuple(enc.shape[:2]) + (cfg.n_kv_heads, cfg.head_dim)
                 for name, w in (("enc_k", "wk"), ("enc_v", "wv")):
-                    cache[name].copy_(torch.einsum("bsd,ldk->lbsk", enc, p["dec_cross"]["xattn"][w]).reshape(shape))
+                    cache[name].copy_(L._split_heads(_per_layer_proj(enc, p["dec_cross"]["xattn"][w]),
+                                                     cfg.n_kv_heads, cfg.head_dim))
             for i in range(cfg.n_layers):
                 lp, span_z = self._layer(p, i)
                 h = self._dense_layer_step(lp, h, causal=True, positions=positions, span_z=span_z,

@@ -104,6 +104,13 @@ def _project_spans(params: Dict[str, Any], cfg) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _microbatch(v: torch.Tensor, k: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``k``: the i-th block of rows, as the JAX
+    package's reshape to [k, B / k] splits the batch
+    (``sharding.dtensor_forms`` swaps in a DTensor form)."""
+    return v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))[i]
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatches: int = 1) -> Callable:
     """``train_step(params, opt_state, batch[, masks]) -> (params, opt_state,
     metrics)``.  With ``microbatches`` > 1 the batch's leading dim is split
@@ -119,10 +126,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatches: int = 1
 
     def train_step(params, opt_state, batch, masks=None):
         if microbatches > 1:
-            acc, ms = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params), []
+            acc, ms = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params), []
             for i in range(microbatches):
-                mb = {k: v.reshape((microbatches, v.shape[0] // microbatches) + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, microbatches, i) for k, v in batch.items()}
                 g, metrics = grads_of(params, mb, masks)
                 acc = tree_map(lambda a, b: a + b.float(), acc, g)
                 ms.append(metrics)

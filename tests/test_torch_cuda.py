@@ -1174,3 +1174,28 @@ def test_quantized_decode_step_matches_its_plain_quantize(cuda, monkeypatch):
         assert torch.isfinite(lg_k).all()
         assert torch.equal(lg_k, lg_p)
         assert all(torch.equal(c_k[k], c_p[k]) for k in ("k", "v"))
+
+
+def test_pipeline_backward_one_stage_on_the_card(cuda, tmp_path):
+    """The pipeline's gradient at world 1 (one NCCL rank, one stage) on the
+    card against the sequential stack's autograd: the stage's weight and
+    the input gradients within 1e-5 of their magnitude, the forward equal."""
+    import torch.distributed as dist
+
+    from repro_torch.training.pipeline import pipeline_forward
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        w = (torch.randn(64, 64, generator=gen, device=cuda) / 8).requires_grad_(True)
+        x = torch.randn(8, 4, 64, generator=gen, device=cuda).requires_grad_(True)
+        out = pipeline_forward(lambda w_, h: torch.tanh(h @ w_), w, x)
+        out.sum().backward()
+        w2, x2 = w.detach().clone().requires_grad_(True), x.detach().clone().requires_grad_(True)
+        seq = torch.stack([torch.tanh(x2[i] @ w2) for i in range(8)])
+        seq.sum().backward()
+        assert torch.equal(out.detach(), seq.detach())
+        for got, want in ((w.grad, w2.grad), (x.grad, x2.grad)):
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()

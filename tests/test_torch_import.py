@@ -334,3 +334,55 @@ def test_scan_covers_the_distributed_training_slice():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
     assert "def run_dist_train_path" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_scan_covers_the_last_modules():
+    """The last modules (the roofline with its H100 spec, the op analysis,
+    the dry run and its DTensor forms, the batch specs and the pipeline's
+    gradient) import with
+    jax and repro blocked, and the dry run runs its hardware-free half
+    there; chip_smoke drives the dry run and the pipeline's backward."""
+    slice_modules = ["repro_torch.hwmodel.roofline", "repro_torch.hwmodel.op_analysis",
+                     "repro_torch.launch.dryrun", "repro_torch.sharding.dtensor_forms",
+                     "repro_torch.training.pipeline", "repro_torch.data.synthetic"]
+    assert set(slice_modules) <= {name for _, name in _modules()}
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {slice_modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from repro_torch.hwmodel.roofline import H100_SXM, collective_bytes, roofline_report\n"
+        "from repro_torch.hwmodel.op_analysis import OpAnalysis, analyze, local_mem_tracker\n"
+        "from repro_torch.launch.dryrun import build_cell, run_cell, per_device_bytes, VARIANT_FLAGS\n"
+        "from repro_torch.data.synthetic import make_batch_specs\n"
+        "from repro_torch.sharding.dtensor_forms import installed\n"
+        "from repro_torch.training.pipeline import _RingShift, _LastStageBroadcast, _ReplicatedInput\n"
+        "from repro_torch.configs.base import get_config, SHAPES_BY_NAME\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "b = per_device_bytes(get_config('deepseek_7b'), SHAPES_BY_NAME['decode_32k'], make_production_mesh())\n"
+        "assert b['params'] > 0 and b['cache'] > 0, b\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m] is not None]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          timeout=120, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert "def lm_train_dryrun" in smoke and "ops.DRYRUN_KERNELS" in smoke and "def dist_pipeline" in smoke
+
+
+def test_dryrun_needs_no_card(monkeypatch):
+    """The dry run is the one entry point that runs without a GPU by
+    design: its trace is on meta and fake tensors."""
+    from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rec = dryrun.record_cell(get_smoke_config("deepseek_7b"), ShapeConfig("d", 32, 4, "decode"),
+                             Mesh(("data", "model"), (1, 1)))
+    assert rec["status"] == "ok" and rec["op_analysis"]["flops_per_device"] > 0

@@ -125,6 +125,11 @@ def _pipeline(rank: int, ref: dict, res: dict) -> None:
         return torch.tanh(h @ w)
 
     res["pipe/out"] = pipeline_forward(layer_fn, ws[rank], x).numpy()
+    # the gradient of sum(outputs) w.r.t. this stage's weight and x
+    w, xg = ws[rank].clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = pipeline_forward(layer_fn, w, xg)
+    out.sum().backward()
+    res["pipe/out_grad_on"], res["pipe/gw"], res["pipe/gx"] = out.detach().numpy(), w.grad.numpy(), xg.grad.numpy()
     try:
         pipeline_forward(layer_fn, ws[rank], x[:3])
         res["pipe/few_micro_raised"] = np.array(False)

@@ -209,16 +209,26 @@ Phases, each printing one JSON line:
                 magnitude.
  8h. lm_train — zamba2-1.2b trained at full width and depth (float32,
                 SyntheticLM batches of 4 x 128 tokens, one SSD chunk): the
-                first batch's gradients all finite, 3 AdamW steps through
+                first batch's gradients all finite, and under remat_policy
+                "dots" and "full" within 1e-6 of each leaf's largest
+                magnitude of those under "none"; 3 AdamW steps through
                 make_train_step with finite losses and gradient norms, no
                 kernel launched; one step profiled alone beside its fp32
                 bound (6 N T operations) and beside the dry run's
                 H100_SXM roofline bound of the same step (launch/dryrun.py
                 on fake tensors at world 1: per-device FLOPs and bytes,
                 busy / bound printed, not asserted; no launch, as
-                ops.DRYRUN_KERNELS is empty); the first 6 blocks against
-                the CPU (the loss within 1e-4 relative, every gradient
-                leaf within 1e-4 of its largest magnitude).
+                ops.DRYRUN_KERNELS is empty); the step under each of the
+                three policies: wall and busy ms and peak memory; the
+                first 6 blocks against the CPU (the loss within 1e-4
+                relative, every gradient leaf within 1e-4 of its largest
+                magnitude); then one AdamW step under "full" at train_4k's
+                sequence, 4 x 4096 (the dry run's temp for it at most
+                60 GB, or the phase fails), a step "none" cannot hold:
+                its wall ms and peak memory beside the dry run's peak for
+                it and its temp under "none".  The dry-run cells are
+                traced in spawned processes beside the build, and joined
+                before the first timed phase.
   9. train    — the Fig. 6 pipeline at albert_edgebert's published width
                 (float32 weights from seed 0, SyntheticCLS seq 128, batch
                 16): a teacher (make_train_step, pruning off), phase 1
@@ -1375,12 +1385,14 @@ KERNEL_SYMBOLS = {
 def profile_device(fn) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler's
     CUDA activity (the port's kernels by name, the rest of PyTorch's
-    kernels as "other")."""
+    kernels as "other").  Only the CUDA activity is recorded: the host's op
+    events add nothing read here, and on a training step of ~30000 ops
+    their recording takes seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     groups: dict = {}
@@ -3743,6 +3755,20 @@ LM_TRAIN_STEPS = 3
 # largest magnitude
 LM_TRAIN_REF_LAYERS = 6
 LM_TRAIN_RTOL = 1e-4
+# the same step under each remat_policy: the three policies' gradients of
+# one batch within 1e-6 of each leaf's largest magnitude (a region's second
+# run repeats its first), each step's wall, busy and peak memory
+LM_TRAIN_POLICY_RTOL = 1e-6
+# one AdamW step under "full" at train_4k's sequence (4 x 4096), a step
+# that "none" cannot hold on the card; the dry run models 49.8 GB of temp
+# for it under "full", and the phase fails above 60 GB
+LM_TRAIN_LONG_SEQ = 4096
+LM_TRAIN_LONG_TEMP_GB = 60.0
+# the phase's dry-run cells ((policy, seq) at LM_TRAIN_BATCH), each traced
+# in a spawned process started beside the kernel build and joined before
+# the first timed phase, so that no timed part shares the host with them
+LM_TRAIN_DRY_CELLS = (("none", LM_TRAIN_SEQ), ("full", LM_TRAIN_LONG_SEQ), ("none", LM_TRAIN_LONG_SEQ))
+LM_TRAIN_DRY_TIMEOUT_S = 300
 
 
 def grads_of(model, params, batch) -> tuple:
@@ -3789,7 +3815,71 @@ def check_lm_train_reference(cfg, params, batch, dev) -> dict:
     return result
 
 
-def lm_train_dryrun(cfg, busy_ms: float) -> dict:
+def _lm_train_dry_cell(policy: str, seq: int, out: str) -> None:
+    """One dry-run cell of the lm_train phase, in a spawned process: the
+    phase's config under ``policy``, one AdamW step of LM_TRAIN_BATCH x
+    ``seq`` tokens at world 1 traced on fake tensors (nothing runs on the
+    card), its record, trace seconds and launch counts written to ``out``."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = dataclasses.replace(get_config("zamba2_1p2b"), dtype="float32", remat_policy=policy)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = dryrun.record_cell(cfg, ShapeConfig("lm_train", seq, LM_TRAIN_BATCH, "train"),
+                             Mesh(("data", "model"), (1, 1)), microbatches=1)
+    rec.update(seconds=time.perf_counter() - t0, launches=ops.launch_counts())
+    Path(out).write_text(json.dumps(rec))
+
+
+def spawn_dry_cells(cells) -> dict:
+    """Start one spawned process per (policy, seq) cell; {cell: (process,
+    its record's path)}.  ``join_dry_cells`` collects them."""
+    import multiprocessing
+
+    work = ROOT / "build" / "lm_train_dryrun"
+    work.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    handles = {}
+    for policy, seq in cells:
+        out = work / f"{policy}_{seq}.json"
+        out.unlink(missing_ok=True)
+        proc = ctx.Process(target=_lm_train_dry_cell, args=(policy, seq, str(out)))
+        proc.start()
+        handles[(policy, seq)] = (proc, out)
+    return handles
+
+
+def join_dry_cells(handles) -> dict:
+    """The records of the cells started by ``spawn_dry_cells``, every
+    process joined within LM_TRAIN_DRY_TIMEOUT_S; one that fails, or
+    launches a kernel, raises."""
+    deadline = time.monotonic() + LM_TRAIN_DRY_TIMEOUT_S
+    recs = {}
+    for cell, (proc, out) in handles.items():
+        proc.join(timeout=max(deadline - time.monotonic(), 1.0))
+        if proc.is_alive() or proc.exitcode != 0 or not out.exists():
+            raise AssertionError(f"lm_train dryrun {cell}: the trace failed (exit code {proc.exitcode})")
+        recs[cell] = json.loads(out.read_text())
+        if any(recs[cell]["launches"].values()):
+            raise AssertionError(f"lm_train dryrun {cell}: the fake-tensor trace launched "
+                                 f"{recs[cell]['launches']}, want nothing")
+    return recs
+
+
+def stop_dry_cells(handles) -> None:
+    for proc, _ in handles.values():
+        if proc.is_alive():
+            proc.kill()
+        proc.join(timeout=30)
+
+
+def lm_train_dryrun(rec: dict, busy_ms: float) -> dict:
     """The dry run (``launch/dryrun.py``) of lm_train's own step: the same
     config, LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, one AdamW step at world 1,
     traced on fake tensors (nothing runs on the card; ``ops.DRYRUN_KERNELS``
@@ -3797,21 +3887,6 @@ def lm_train_dryrun(cfg, busy_ms: float) -> dict:
     bytes, its ``H100_SXM`` roofline bound (a model: the compute term at the
     bf16 dense peak, while this step runs float32) beside the step's
     measured busy ms and their ratio; nothing is asserted on the ratio."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels import ops
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import Mesh
-
-    if ops.DRYRUN_KERNELS:
-        raise AssertionError(f"lm_train dryrun: the path lists kernels {ops.DRYRUN_KERNELS}, want none")
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    rec = dryrun.record_cell(cfg, ShapeConfig("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"),
-                             Mesh(("data", "model"), (1, 1)), microbatches=1)
-    seconds = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    if any(launches.values()):
-        raise AssertionError(f"lm_train dryrun: the fake-tensor trace launched {launches}, want nothing")
     rl, oa = rec["roofline"], rec["op_analysis"]
     bound = rl["bound_s"] * 1e3
     out = {"chip": rl["chip"], "flops_per_device": oa["flops_per_device"], "bytes_per_device": oa["bytes_per_device"],
@@ -3819,25 +3894,137 @@ def lm_train_dryrun(cfg, busy_ms: float) -> dict:
            "bound_ms": bound, "dominant": rl["dominant"], "measured_busy_ms": busy_ms,
            "busy_over_bound": busy_ms / bound if bound else None, "n_params": rec["n_params"],
            "temp_peak_gb": rec["memory_analysis"]["temp_size_in_bytes"] / 1e9, "trace_s": rec["trace_s"],
-           "seconds": seconds, "launches": launches}
+           "seconds": rec["seconds"], "launches": rec["launches"]}
     print(f"lm_train dryrun ({rl['chip']} roofline, a model): {oa['flops_per_device']:.4e} FLOP, "
           f"{oa['bytes_per_device']:.4e} B per device, bound {bound:.3f} ms ({rl['dominant']}); measured busy "
-          f"{busy_ms:.3f} ms, busy / bound {out['busy_over_bound']:.3f}; traced in {seconds:.1f} s", flush=True)
+          f"{busy_ms:.3f} ms, busy / bound {out['busy_over_bound']:.3f}; traced in {rec['seconds']:.1f} s "
+          "(a spawned process)", flush=True)
     return out
 
 
-def run_lm_train_path(dev) -> dict:
+def run_lm_train_policies(cfg, params, opt_state, batch, opt_cfg) -> dict:
+    """The phase's step under each remat_policy on the same params, state
+    and batch (warm: each policy's forward and backward ran for its
+    gradients, AdamW in the phase's steps), as ``profile_parts`` gives a
+    part: one step timed alone (wall ms, and the card's peak memory from
+    ``reset_peak_memory_stats``), one profiled (busy ms from the CUDA
+    activity alone, idle share, device time by kernel)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import REMAT_POLICIES, build_model
+    from repro_torch.training.train_loop import make_train_step
+
+    out = {}
+    for policy in REMAT_POLICIES:
+        step_fn = make_train_step(build_model(dataclasses.replace(cfg, remat_policy=policy)), opt_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        by_kernel = profile_device(lambda: step_fn(params, opt_state, batch))
+        busy = sum(g_["ms"] for g_ in by_kernel.values())
+        if not busy > 0:
+            raise AssertionError(f"lm_train {policy}: the profile shows no device time")
+        out[policy] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                       "device_ms_by_kernel": by_kernel, "per": 1, "peak_device_gb": peak}
+    return out
+
+
+def policy_grad_agreement(cfg, params, batch, want) -> dict:
+    """The gradients of one batch under "dots" and "full" against ``want``
+    (those under "none"): the largest difference over each leaf's largest
+    magnitude, per policy; above LM_TRAIN_POLICY_RTOL raises."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for policy in ("dots", "full"):
+        loss, grads = grads_of(build_model(dataclasses.replace(cfg, remat_policy=policy)), params, batch)
+        rel = max(rel_to_magnitude(g, w) for g, w in zip(leaves(grads), leaves(want)))
+        out[policy] = {"loss": float(loss), "grad_rel_err_vs_none": rel}
+        del grads
+        if not rel <= LM_TRAIN_POLICY_RTOL:
+            raise AssertionError(f"lm_train: {policy} gradients off those under none by {rel} of a leaf's "
+                                 f"magnitude (limit {LM_TRAIN_POLICY_RTOL})")
+    return out
+
+
+def run_lm_train_long(cfg, params, opt_state, opt_cfg, dev, dry: dict) -> dict:
+    """One AdamW step under remat "full" at LM_TRAIN_BATCH x
+    LM_TRAIN_LONG_SEQ (a SyntheticLM batch from seed 1): its wall ms, finite
+    loss, no launch, and the card's peak memory beside the dry run's model
+    of the same step (``dry``: its records under "full" and "none" at that
+    sequence, the temp under "full" at most LM_TRAIN_LONG_TEMP_GB)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import make_train_step, to_batch
+
+    seq = LM_TRAIN_LONG_SEQ
+    mem = {p: dry[(p, seq)]["memory_analysis"] for p in ("full", "none")}
+    if not mem["full"]["temp_size_in_bytes"] / 1e9 <= LM_TRAIN_LONG_TEMP_GB:
+        raise AssertionError(f"lm_train long step: the dry run models {mem['full']['temp_size_in_bytes'] / 1e9} GB "
+                             f"of temp under full at {seq}, limit {LM_TRAIN_LONG_TEMP_GB}")
+    step_fn = make_train_step(build_model(dataclasses.replace(cfg, remat_policy="full")), opt_cfg)
+    batch = to_batch(SyntheticLM(cfg.vocab_size, seq, LM_TRAIN_BATCH, seed=1).batch(0), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new_params, new_opt, metrics = step_fn(params, opt_state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = ops.launch_counts()
+    del new_params, new_opt, metrics, batch
+    out = {"seq": seq, "batch": LM_TRAIN_BATCH, "policy": "full", "loss": loss, "wall_ms": wall,
+           "peak_device_gb": peak, "launches": launches,
+           "dryrun_peak_gb": mem["full"]["peak_tracked_bytes"] / 1e9,
+           "dryrun_temp_gb": mem["full"]["temp_size_in_bytes"] / 1e9,
+           "dryrun_argument_gb": mem["full"]["argument_size_in_bytes"] / 1e9,
+           "dryrun_none_temp_gb": mem["none"]["temp_size_in_bytes"] / 1e9,
+           "dryrun_none_peak_gb": mem["none"]["peak_tracked_bytes"] / 1e9,
+           "card_over_dryrun_peak": peak / (mem["full"]["peak_tracked_bytes"] / 1e9),
+           "dryrun_bound_ms": dry[("full", seq)]["roofline"]["bound_s"] * 1e3}
+    emit(dict(out, phase="lm_train_long"))
+    if not math.isfinite(loss):
+        raise AssertionError(f"lm_train long step: loss {loss}")
+    if any(launches.values()):
+        raise AssertionError(f"lm_train long step launched {launches}, want nothing")
+    return out
+
+
+def run_lm_train_path(dev, dry_recs: dict) -> dict:
     """zamba2-1.2b trained on the card at full width and depth (38 Mamba2
     blocks and 6 shared-block calls, float32 weights drawn on the card from
     seed 0): the gradients of one SyntheticLM batch of LM_TRAIN_BATCH x
     LM_TRAIN_SEQ tokens through ``make_loss_fn`` (every leaf finite: the
-    chunked SSD masks the decay's exponent before its exp), then
+    chunked SSD masks the decay's exponent before its exp), the same
+    gradients under remat "dots" and "full" against them, then
     LM_TRAIN_STEPS AdamW steps through ``make_train_step`` (finite losses
     and gradient norms), no kernel launched (training takes the reference
     ops); one step timed and profiled alone beside its fp32 bound (6 N T
     operations at 67 TFLOP/s) and beside the dry run's H100 roofline bound
-    of the same step (``lm_train_dryrun``); then the card against the CPU on
-    the first 6 blocks."""
+    of the same step (``lm_train_dryrun``), and under each remat policy
+    with its peak memory; the card against the CPU on the first 6 blocks;
+    then one step under "full" at train_4k's sequence
+    (``run_lm_train_long``) beside the dry run's memory for it under
+    "full" and "none".  ``dry_recs`` holds the records of the dry-run
+    cells (LM_TRAIN_DRY_CELLS), traced before the first timed phase."""
     import dataclasses
     import gc
 
@@ -3851,6 +4038,8 @@ def run_lm_train_path(dev) -> dict:
     from repro_torch.training.train_loop import make_train_step, to_batch
 
     phase = "lm_train"
+    if ops.DRYRUN_KERNELS:
+        raise AssertionError(f"lm_train dryrun: the path lists kernels {ops.DRYRUN_KERNELS}, want none")
     cfg = dataclasses.replace(get_config("zamba2_1p2b"), dtype="float32", remat_policy="none")
     model = build_model(cfg)
     params, drawn = draw_decoder(cfg, phase, dev)
@@ -3864,11 +4053,13 @@ def run_lm_train_path(dev) -> dict:
     grads_ms = (time.perf_counter() - t0) * 1e3
     nonfinite = [i for i, g_ in enumerate(leaves(grads)) if not torch.isfinite(g_).all()]
     grad_max = max(g_.abs().max().item() for g_ in leaves(grads))
-    del grads
     if nonfinite or not torch.isfinite(loss0):
         raise AssertionError(f"{phase}: loss {float(loss0)}, non-finite gradient leaves {nonfinite}")
+    agreement = policy_grad_agreement(cfg, params, batch, grads)
+    del grads
 
-    step_fn = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=100))
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=100)
+    step_fn = make_train_step(model, opt_cfg)
     opt_state = adamw_init(params)
     history = []
     for step in range(LM_TRAIN_STEPS):
@@ -3879,30 +4070,38 @@ def run_lm_train_path(dev) -> dict:
         loss = float(metrics["loss"])
         history.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
                         "wall_ms": (time.perf_counter() - t0) * 1e3})
-    launches = ops.launch_counts()
-    if any(launches.values()):
-        raise AssertionError(f"{phase}: training launched {launches}, want nothing")
     if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
         raise AssertionError(f"{phase}: non-finite losses or gradient norms: {history}")
 
-    parts = profile_parts((("train_step", lambda: step_fn(params, opt_state, batch), 1),))
-    dry = lm_train_dryrun(cfg, parts["train_step"]["device_busy_ms"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    policies = run_lm_train_policies(cfg, params, opt_state, batch, opt_cfg)
+    parts = {"train_step": dict(policies["none"])}      # the phase's step, under "none"
+    for policy, rec in policies.items():
+        rec.pop("device_ms_by_kernel")
+        rec.update(agreement.get(policy, {}))
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: training launched {launches}, want nothing")
+    dry = lm_train_dryrun(dry_recs[("none", LM_TRAIN_SEQ)], parts["train_step"]["device_busy_ms"])
     n_params = drawn["params"]
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
     flops = 6.0 * n_params * tokens
     ref = check_lm_train_reference(cfg, params, batch, dev)
+    del batch
+    long = run_lm_train_long(cfg, params, opt_state, opt_cfg, dev, dry_recs)
     result = {
         "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "ssm_chunk": cfg.ssm_chunk, "dtype": cfg.dtype, "params": n_params, "bytes": drawn["bytes"],
         "init_s": drawn["init_s"], "mem_free_gb_before_draw": drawn["mem_free_gb_before_draw"],
-        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+        "peak_device_gb": peak_gb, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
         "first_loss": float(loss0), "first_grads_ms": grads_ms, "first_grad_max_abs": grad_max,
         "history": history, "launches": launches, "parts": parts, "step_tflop": flops / 1e12,
         "step_fp32_bound_ms": flops / FP32_FLOP_PER_S * 1e3,
         "reference": {k: ref[k] for k in ("loss_rel_err", "grad_rel_err")}, "dryrun": dry,
+        "remat_policies": policies, "policy_grad_rtol": LM_TRAIN_POLICY_RTOL, "long_step": long,
     }
     emit(result)
-    del params, opt_state, batch
+    del params, opt_state
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -4733,20 +4932,29 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
-    seconds = build.build()
-    ptxas = {
-        name: [ln.strip() for ln in build.log_path(name).read_text().splitlines()
-               if "registers" in ln or "spill" in ln or "smem" in ln][:8]
-        for name in build.KERNELS
-    }
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "resources": build.resources()})
+    # lm_train's dry-run traces (host only) beside the build and the deploy;
+    # joined before the first timed phase
+    dry_handles = spawn_dry_cells(LM_TRAIN_DRY_CELLS)
+    try:
+        seconds = build.build()
+        ptxas = {
+            name: [ln.strip() for ln in build.log_path(name).read_text().splitlines()
+                   if "registers" in ln or "spill" in ln or "smem" in ln][:8]
+            for name in build.KERNELS
+        }
+        emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "resources": build.resources()})
 
-    cfg = get_config("albert_edgebert")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    dep = deploy_albert(params, cfg, envm_cell="MLC2", seed=0, device=dev)
-    emit({"phase": "deploy", "config": cfg.name, "seconds": time.perf_counter() - t0,
-          "spans": [int(s) for s in dep.spans]})
+        cfg = get_config("albert_edgebert")
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        dep = deploy_albert(params, cfg, envm_cell="MLC2", seed=0, device=dev)
+        emit({"phase": "deploy", "config": cfg.name, "seconds": time.perf_counter() - t0,
+              "spans": [int(s) for s in dep.spans]})
+        t0 = time.perf_counter()
+        dry_recs = join_dry_cells(dry_handles)
+        dry_wait_s = time.perf_counter() - t0
+    finally:
+        stop_dry_cells(dry_handles)
 
     scfg = serving_config(cfg, span=False)
     sparams = serving_params(scfg, 0, prune=True)
@@ -4773,12 +4981,15 @@ def main() -> int:
     hybrid_decode = timed("hybrid_decode", run_hybrid_decode_path, dev)
     encdec_decode = timed("encdec_decode", run_encdec_decode_path, dev)
     vlm_decode = timed("vlm_decode", run_vlm_decode_path, dev)
-    lm_train = timed("lm_train", run_lm_train_path, dev)
+    lm_train = timed("lm_train", run_lm_train_path, dev, dry_recs)
     train = timed("train", run_train_path, dev)
     timed("bf16_decode", check_bf16_decode, dev)
     dist_train = timed("dist_train", run_dist_train_path, dev)
     seconds["eb_decode"] = decode["eb_decode"]["seconds"]        # within "decode"
-    seconds["lm_train_dryrun"] = lm_train["dryrun"]["seconds"]      # within "lm_train"
+    # lm_train's own dry-run trace, in a spawned process beside the build;
+    # the wait for the traces after the build and the deploy
+    seconds["lm_train_dryrun"] = lm_train["dryrun"]["seconds"]
+    seconds["lm_train_dryrun_wait"] = dry_wait_s
     seconds["dist_train_pipeline_grad"] = max(g["seconds"] for g in dist_train["summary"]["pipeline_grad"])
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:

@@ -36,13 +36,19 @@ Two halves:
   ``local_map``; the residual stream's layout between blocks, which the
   ``sequence_parallel`` variant shards to (batch, model)).
 
+A train cell traces the config's ``remat_policy`` ("full" in every
+config, as in the JAX dry run): the backward runs each layer's forward
+again, and the op analysis and the memory tracker count it.
+
 The MoE region routes each rank's batch shard on its own, capacity from
 the local token count: the JAX package's ``shard_map`` dispatch, in every
 MoE cell.  JAX's baseline routes the global batch in one program that XLA
 partitions, which has no counterpart here.  So the variants whose flags
-change nothing in this trace (``moe_shardmap_dispatch``, which is what
-every cell traces already, ``moe_buffer_sharded`` and ``hybrid_grouped``,
-JAX layout and loop choices) are refused (``INERT_FLAGS``).
+change nothing in this trace are refused (``INERT_FLAGS``):
+``moe_shardmap_dispatch``, which is what every cell traces already, and
+``moe_buffer_sharded``, a JAX layout choice, in every cell;
+``hybrid_grouped`` in prefill and decode, where the loop is the same,
+while in a train cell it changes the remat regions.
 """
 from __future__ import annotations
 
@@ -332,19 +338,32 @@ VARIANT_FLAGS = {
 }
 
 
-# flags of VARIANT_FLAGS that change nothing in the port's trace (the
-# module's docstring says why); a variant that sets one is refused
-INERT_FLAGS = ("moe_shardmap_dispatch", "moe_buffer_sharded", "hybrid_grouped")
-TRACED_VARIANTS = ("baseline",) + tuple(v for v, flags in VARIANT_FLAGS.items()
-                                        if not any(f in flags for f in INERT_FLAGS))
+# flags of VARIANT_FLAGS that change nothing in the port's trace of a step
+# of these kinds (the module's docstring says why); a variant that sets one
+# is refused for those kinds
+INERT_FLAGS = {"moe_shardmap_dispatch": ("train", "prefill", "decode"),
+               "moe_buffer_sharded": ("train", "prefill", "decode"),
+               "hybrid_grouped": ("prefill", "decode")}
 
 
-def variant_config(arch: str, variant: str, multi_pod: bool) -> ModelConfig:
+def _inert(variant: str, kind: str) -> list:
+    return [f for f in VARIANT_FLAGS.get(variant, {}) if kind in INERT_FLAGS.get(f, ())]
+
+
+TRACED_VARIANTS = ("baseline",) + tuple(v for v in VARIANT_FLAGS
+                                        if any(not _inert(v, kind) for kind in ("train", "prefill", "decode")))
+
+
+def variant_config(arch: str, variant: str, multi_pod: bool, kind: str = "train") -> ModelConfig:
+    """``arch``'s config under ``variant`` for a step of ``kind``; a
+    variant that is unknown or changes nothing in that step's trace
+    raises ``ValueError``."""
     cfg = get_config(arch)
-    if variant not in TRACED_VARIANTS:
-        inert = [f for f in VARIANT_FLAGS.get(variant, {}) if f in INERT_FLAGS]
-        raise ValueError(f"variant {variant!r} is not traced by the port's dry run: "
-                         + (f"{', '.join(inert)} change(s) nothing in its trace" if inert else "unknown variant"))
+    inert = _inert(variant, kind)
+    if variant not in TRACED_VARIANTS or inert:
+        raise ValueError(f"variant {variant!r} is not traced by the port's dry run"
+                         + (f" for {kind}: {', '.join(inert)} change(s) nothing in its trace" if inert
+                            else ": unknown variant"))
     if variant != "baseline":
         over = dict(VARIANT_FLAGS[variant])
         if over.get("sequence_parallel"):
@@ -441,8 +460,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, microbatches: i
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, microbatches: int = 8,
              variant: str = "baseline") -> Dict[str, Any]:
-    cfg = variant_config(arch, variant, multi_pod)
     shape = SHAPES_BY_NAME[shape_name]
+    cfg = variant_config(arch, variant, multi_pod, shape.kind)
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name,
         "mesh": "multi" if multi_pod else "single",
@@ -542,7 +561,8 @@ def main(argv=None):
             print(f"=== {arch} x {shape} x {mesh}: {'FAILED' if failed else 'done'} ===", flush=True)
             return cell if failed else None
 
-        cells = [(a, s, m) for a in ARCH_IDS for s in SHAPES_BY_NAME for m in meshes]
+        cells = [(a, s, m) for a in ARCH_IDS for s, shape in SHAPES_BY_NAME.items() for m in meshes
+                 if not _inert(args.variant, shape.kind)]
         with ThreadPoolExecutor(max_workers=max(args.jobs, 1)) as pool:
             failures = [c for c in pool.map(one, cells) if c is not None]
         print("FAILURES:", failures if failures else "none")
@@ -550,6 +570,10 @@ def main(argv=None):
 
     if not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
+    try:
+        variant_config(args.arch, args.variant, False, SHAPES_BY_NAME[args.shape].kind)
+    except ValueError as e:
+        ap.error(str(e))
     for mesh in meshes:
         try:
             rec = run_cell(args.arch, args.shape, multi_pod=(mesh == "multi"),

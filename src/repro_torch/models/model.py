@@ -57,6 +57,7 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.common.device import DeviceLike, draw_device, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -259,6 +260,7 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+REMAT_POLICIES = ("none", "dots", "full")
 
 
 def init_params(
@@ -335,6 +337,32 @@ def _per_layer_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,ldk->lbsk", x, w)
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "dots" policy (JAX's ``checkpoint_dots_with_no_batch_dims``):
+    keep the outputs of matrix products with no batch dimension, recompute
+    everything else.  Chosen by contraction, not by op name: ``x @ w``
+    lowers to ``mm`` (``addmm`` with a bias), and ``torch.einsum`` lowers a
+    product with no batch dimension (``_per_layer_proj``'s) to a ``bmm``
+    over a batch of 1."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _unstack(node) -> list:
+    """A tree of leaves stacked on a leading [n] axis -> n trees, one per
+    layer, each leaf taken by one ``unbind(0)`` (the ``lax.scan`` over the
+    stack): unbind's backward stacks the n gradients into one [n, ...]
+    gradient, where indexing layer by layer would give each layer a
+    zero-filled [n, ...] gradient to add."""
+    if not isinstance(node, dict):
+        return list(node.unbind(0))
+    parts = {k: _unstack(v) for k, v in node.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 class Model:
     """The albert, dense, MoE, ssm, hybrid, encdec and vlm families of the
     JAX package's ``Model``: one shared post-LN encoder layer with entropy
@@ -352,6 +380,8 @@ class Model:
         elif cfg.family != "albert" or not cfg.shared_layers:
             raise ValueError("only the albert family (one shared layer) and the dense, MoE, ssm, hybrid, "
                              "encdec and vlm families are ported")
+        if cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of {', '.join(REMAT_POLICIES)}")
         self.cfg = cfg
         # the shared attention block's config: its width, and no qkv bias
         self._shared_cfg = (dataclasses.replace(cfg, d_model=2 * cfg.d_model, qkv_bias=False)
@@ -508,11 +538,13 @@ class Model:
 
     def _encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder over stubbed frame embeddings [B, S_enc, d]: learned
-        positions, pre-LN non-causal layers, the final norm; all on the
-        reference ops, as the JAX package passes no kernel flag here."""
+        positions, pre-LN non-causal layers (one remat region each), the
+        final norm; all on the reference ops, as the JAX package passes no
+        kernel flag here."""
         h = frames + p["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
-        for i in range(self.cfg.n_enc_layers):
-            h = self._dense_layer_step(self._layer(p, i, "enc_layers")[0], h, causal=False)
+        step = self._remat(lambda lp, h: self._dense_layer_step(lp, h, causal=False))
+        for lp in _unstack(p["enc_layers"]):
+            h = step(lp, h)
         return L.apply_norm(p["enc_norm"], h, kind=self.cfg.norm)
 
     def _precomputed_cross(self, xp: Params, h: torch.Tensor, ek: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
@@ -578,6 +610,36 @@ class Model:
         z = p["span_z"]
         return z[0] if z.shape[0] == 1 else z[i]
 
+    def _layer_spans(self, p: Params, n: int) -> list:
+        """The training forwards' ``_span_for_layer`` for layers 0..n-1:
+        one ``unbind`` where ``span_z`` has a row per layer (see
+        ``_unstack``), its one row for every layer otherwise."""
+        z = p.get("span_z")
+        if z is None:
+            return [None] * n
+        return [z[0]] * n if z.shape[0] == 1 else list(z.unbind(0))
+
+    def _remat(self, fn):
+        """``fn`` as one rematerialisation region under the config's
+        ``remat_policy`` (the JAX package's ``_remat`` around a scan body):
+        "none" keeps every activation for the backward; "full"
+        (``torch.utils.checkpoint``) keeps the region's inputs and runs the
+        region again in the backward; "dots" keeps the outputs of matrix
+        products with no batch dimension too (``_save_dots``).  Params and
+        activations enter the region as ``fn``'s arguments.  The port has
+        no dropout, so the second run repeats the first bit for bit; with
+        grad off there is no backward, and ``fn`` runs as it is."""
+        policy = self.cfg.remat_policy
+        if policy == "none" or not torch.is_grad_enabled():
+            return fn
+        kw = {"context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)} if policy == "dots" else {}
+
+        def region(*args):
+            # no region draws a random number, so no RNG state to replay
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+        return region
+
     # ------------------------------------------------------------- forward
     def apply_train(self, p: Params, batch: Dict[str, Any]) -> ModelOutput:
         """The training forward over whole sequences, each family's as the
@@ -617,9 +679,11 @@ class Model:
         ``cls_logits`` from the final-normed first position."""
         h = self.embed(p, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i in range(self.cfg.n_layers):
-            h, a = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, span_z=self._span_for_layer(p, i),
-                                          with_aux=True)
+        layers = _unstack(p["layers"])
+        step = self._remat(lambda lp, h, span_z: self._dense_layer_step(lp, h, causal=True, span_z=span_z,
+                                                                        with_aux=True))
+        for lp, span_z in zip(layers, self._layer_spans(p, len(layers))):
+            h, a = step(lp, h, span_z)
             aux = aux + a
         h = L.apply_norm(p["final_norm"], h, kind=self.cfg.norm)
         cls = self.cls_logits(p, h) if "classifier" in p else None
@@ -629,8 +693,9 @@ class Model:
         """RWKV6 (the JAX package's ``_forward_ssm``): every layer's chunked
         WKV from a zero state, the final LayerNorm."""
         h = self.embed(p, tokens)
-        for i in range(self.cfg.n_layers):
-            h = self._rwkv_layer_step(self._layer(p, i)[0], h)[0]
+        step = self._remat(lambda lp, h: self._rwkv_layer_step(lp, h)[0])
+        for lp in _unstack(p["layers"]):
+            h = step(lp, h)
         return self._lm_output(p, h, norm="layernorm")
 
     def _forward_hybrid(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
@@ -639,14 +704,30 @@ class Model:
         after every ``attn_every``-th block, x0 the embedding output.  The
         JAX package has two forms of the same computation, a scan with a
         ``cond`` per block and (``hybrid_grouped``) a scan over groups of
-        ``attn_every`` blocks with the remainder blocks after; written out
-        as a loop, both are this one."""
+        ``attn_every`` blocks with the remainder blocks after.  Their values
+        are the same; they differ in the remat regions, which are the scan
+        bodies: a block, with the shared block inside the region of the
+        block it follows, or (``hybrid_grouped``) a group with its shared
+        block, then each remainder block."""
         cfg = self.cfg
         h = x0 = self.embed(p, tokens)
-        for i in range(cfg.n_layers):
-            h = self._mamba_block_step(self._layer(p, i)[0], h)[0]
-            if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
-                h = self._shared_attn_step(p["shared_attn"], h, x0, span_z=self._span_for_layer(p, 0))
+        blocks, every = _unstack(p["layers"]), cfg.attn_every
+
+        def run(lps, h, x0, shared, span_z, attn):
+            for lp in lps:
+                h = self._mamba_block_step(lp, h)[0]
+            return self._shared_attn_step(shared, h, x0, span_z=span_z) if attn else h
+
+        if cfg.hybrid_grouped and every:
+            n_grp = len(blocks) // every
+            regions = [(blocks[g * every:(g + 1) * every], True) for g in range(n_grp)]
+            regions += [([lp], False) for lp in blocks[n_grp * every:]]
+        else:
+            regions = [([lp], bool(every) and (i + 1) % every == 0) for i, lp in enumerate(blocks)]
+        step = self._remat(run)
+        span_z = self._span_for_layer(p, 0)
+        for lps, attn in regions:
+            h = step(lps, h, x0, p["shared_attn"], span_z, attn)
         return self._lm_output(p, h)
 
     def _forward_encdec(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
@@ -658,11 +739,16 @@ class Model:
         enc = self._encode(p, self._aux_input(batch, "enc_input", "the encoder frames [B, enc_seq_len, d_model]",
                                               tokens.device))
         h = self.embed(p, tokens)
-        for i in range(cfg.n_layers):
-            h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, span_z=self._span_for_layer(p, i))
-            xp = self._layer(p, i, "dec_cross")[0]
-            h = h + L.attention_layer(xp["xattn"], L.apply_norm(xp["norm"], h, kind=cfg.norm), cfg, causal=False,
-                                      kv_source=enc)
+
+        def layer(lp, xp, h, enc, span_z):
+            h = self._dense_layer_step(lp, h, causal=True, span_z=span_z)
+            return h + L.attention_layer(xp["xattn"], L.apply_norm(xp["norm"], h, kind=cfg.norm), cfg,
+                                         causal=False, kv_source=enc)
+
+        step = self._remat(layer)
+        layers = _unstack(p["layers"])
+        for lp, xp, span_z in zip(layers, _unstack(p["dec_cross"]), self._layer_spans(p, len(layers))):
+            h = step(lp, xp, h, enc, span_z)
         return self._lm_output(p, h)
 
     def _forward_vlm(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
@@ -677,13 +763,18 @@ class Model:
                               tokens.device)
         h = self.embed(p, tokens)
         span = p.get("span_z")
-        groups = self._vlm_groups()
-        per_self = span is not None and span.shape[0] == sum(len(selfs) for _, selfs in groups)
-        for g, selfs in groups:
-            for i in selfs:
-                span_z = None if span is None else span[i if per_self else 0]
-                h = self._dense_layer_step(self._layer(p, i)[0], h, causal=True, span_z=span_z)
-            h = self._cross_layer_step(self._layer(p, g, "cross_layers")[0], h, img)
+        layers = _unstack(p["layers"])
+        spans = (self._layer_spans(p, len(layers)) if span is None or span.shape[0] in (1, len(layers))
+                 else [span[0]] * len(layers))
+
+        def group(lps, spans, xp, h, img):
+            for lp, span_z in zip(lps, spans):
+                h = self._dense_layer_step(lp, h, causal=True, span_z=span_z)
+            return self._cross_layer_step(xp, h, img)
+
+        step = self._remat(group)
+        for (_, selfs), xp in zip(self._vlm_groups(), _unstack(p["cross_layers"])):
+            h = step([layers[i] for i in selfs], [spans[i] for i in selfs], xp, h, img)
         return self._lm_output(p, h)
 
     def _forward_albert(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
@@ -704,8 +795,9 @@ class Model:
                 cls_logits=ee.select_exit_logits(all_logits, exit_layer), aux_loss=aux,
                 all_cls_logits=all_logits, all_entropies=all_ent, exit_layer=exit_layer,
             )
-        for i in range(cfg.n_layers):
-            h = layer_fn(i, h)
+        step = self._remat(lambda lp, h, span_z: self._dense_layer_step(lp, h, causal=False, span_z=span_z))
+        for _ in range(cfg.n_layers):
+            h = step(p["layer"], h, span_z)
         cls = self.cls_logits(p, h) if "classifier" in p else None
         logits = self.lm_logits(p, h) if cfg.vocab_size else None
         return ModelOutput(logits=logits, cls_logits=cls, aux_loss=aux)

@@ -1176,6 +1176,49 @@ def test_quantized_decode_step_matches_its_plain_quantize(cuda, monkeypatch):
         assert all(torch.equal(c_k[k], c_p[k]) for k in ("k", "v"))
 
 
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2p7b", "minitron_8b", "zamba2_1p2b", "whisper_medium"])
+def test_af8_kv_cache_decode_matches_cpu(cuda, arch):
+    """The AF8 KV cache (``kv_cache_dtype="af8"``) at each smoke config on
+    the card against the CPU from the same weights: ``prefill`` over a
+    6-token prompt, then 3 ``decode_step``s (the batched call).  The AF8
+    codes are computed on the device that holds the K/V, so a float32 GEMM's
+    last-ulp difference may move a code across a rounding boundary: at most
+    1 code in 1000 differs, every float leaf of the cache and the logits
+    within 1e-4 (1e-3 for the hybrid, whose SSD state reaches ~20)."""
+    from repro_torch.common.device import tree_to
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", remat_policy="none", kv_cache_dtype="af8")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)))
+    aux = ({"enc_input": torch.as_tensor((rng.standard_normal((2, cfg.enc_seq_len, cfg.d_model)) * 0.1)
+                                         .astype(np.float32))} if cfg.family == "encdec" else None)
+    atol = 1e-3 if cfg.family == "hybrid" else 1e-4
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_to(params, dev)
+        cache = model.init_cache(2, 16, device=dev)
+        logits = []
+        with torch.no_grad():
+            lg, cache = model.prefill(p, tokens[:, :6].to(dev), cache, aux=tree_to(aux, dev) if aux else None)
+            logits.append(lg.cpu())
+            for step in range(6, 9):
+                lg, cache = model.decode_step(p, cache, tokens[:, step:step + 1].to(dev), step, per_lane=False)
+                logits.append(lg.cpu())
+        out[dev.type] = (logits, {k: v.cpu() for k, v in cache.items()})
+    (lc, cc), (lg_, cg) = out["cpu"], out["cuda"]
+    for got, want in zip(lg_, lc):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    assert any(v.dtype == torch.uint8 for v in cc.values())
+    for k, want in cc.items():
+        if want.dtype == torch.uint8:
+            assert (cg[k] != want).float().mean().item() <= 1e-3, k
+        else:
+            torch.testing.assert_close(cg[k], want, atol=atol, rtol=0)
+
+
 def test_pipeline_backward_one_stage_on_the_card(cuda, tmp_path):
     """The pipeline's gradient at world 1 (one NCCL rank, one stage) on the
     card against the sequential stack's autograd: the stage's weight and

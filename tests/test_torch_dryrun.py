@@ -15,8 +15,12 @@ for deepseek_7b, qwen3_moe_235b and rwkv6_7b, ``tiny_decode`` (128 x 8)
 for zamba2_1p2b.  Each gives a ``status: ok`` record whose per-device
 FLOPs lie between 1/4 and 1/2 of those of the same step traced at world 1,
 and deepseek-7b's attention FLOPs are exactly a quarter (the XLA numbers
-cannot be matched, so JAX's are not compared).
+cannot be matched, so JAX's are not compared).  A train cell traces the
+config's ``remat_policy`` ("full" in the smoke configs, as in JAX): the
+backward runs each layer's forward again, and at 8 layers of 256 tokens the
+temp peak falls below the same cell's under "none".
 """
+import dataclasses
 import json
 import math
 import os
@@ -184,8 +188,11 @@ def test_smoke_cell_on_a_fake_2x2_mesh(arch, kind):
         # and half the heads (8 KV heads on 2 model ranks)
         bmm, bmm_1 = rec["op_analysis"]["flops_by_op"]["bmm"], one["op_analysis"]["flops_by_op"]["bmm"]
         S, H, hd, L, B = shape.seq_len, cfg.n_heads, cfg.head_dim, cfg.n_layers, shape.global_batch
-        # Q K^T and P V, forward and the two products of each backward
-        assert bmm_1 == 3 * 2 * (2 * S * S * hd * H) * L * B
+        # Q K^T and P V: the forward, its second run in the backward under
+        # the smoke config's remat_policy "full", and the two products of
+        # each backward
+        assert cfg.remat_policy == "full"
+        assert bmm_1 == 4 * 2 * (2 * S * S * hd * H) * L * B
         assert bmm == bmm_1 / 4
     assert rec["op_analysis"]["bytes_per_device"] > 0 and rec["collectives"]["bytes_total"] > 0
     assert one["collectives"]["bytes_total"] == 0
@@ -198,17 +205,55 @@ def test_smoke_cell_on_a_fake_2x2_mesh(arch, kind):
 
 def test_variants_that_change_nothing_in_the_trace_are_refused():
     """Every MoE cell routes each rank's batch shard on its own (JAX's
-    shard_map dispatch), so ``moeshmap`` would repeat the baseline;
-    ``moe_buffer_sharded`` and ``hybrid_grouped`` are JAX layout and loop
-    choices with no counterpart in the trace."""
+    shard_map dispatch), so ``moeshmap`` would repeat the baseline, and
+    ``moe_buffer_sharded`` is a JAX layout choice with no counterpart in
+    the trace: refused for every step.  ``hybrid_grouped`` changes the
+    remat regions of a train step and nothing of a prefill or decode step:
+    refused for those."""
     refused = {v for v in dryrun.VARIANT_FLAGS if v not in dryrun.TRACED_VARIANTS}
-    assert refused == {"moegroup2", "fused+moegroup2", "moeshmap", "fused+moeshmap", "hybridgroup",
-                       "fused+hybridgroup"}
+    assert refused == {"moegroup2", "fused+moegroup2", "moeshmap", "fused+moeshmap"}
     with pytest.raises(ValueError, match="moe_shardmap_dispatch"):
         dryrun.run_cell("qwen3_moe_235b", "decode_32k", multi_pod=False, variant="moeshmap")
+    with pytest.raises(ValueError, match="moe_shardmap_dispatch"):
+        dryrun.variant_config("qwen3_moe_235b", "moeshmap", False, "train")
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "zamba2_1p2b", "--shape", "decode_32k", "--variant", "hybridgroup"])
+    for kind in ("prefill", "decode"):
+        with pytest.raises(ValueError, match=f"for {kind}: hybrid_grouped"):
+            dryrun.variant_config("zamba2_1p2b", "fused+hybridgroup", False, kind)
+    assert dryrun.variant_config("zamba2_1p2b", "hybridgroup", False, "train").hybrid_grouped
     assert dryrun.variant_config("qwen3_moe_235b", "moegroup", False).moe_grouped_dispatch
+
+
+def test_hybridgroup_changes_a_train_cell_by_its_remat_regions():
+    """zamba2's smoke train cell at world 1: with remat off the grouped and
+    the per-block forms trace the same step; under "full" the regions
+    differ (a group of blocks with the shared block, or one block each), and
+    so does what the backward recomputes."""
+    shape, mesh = ShapeConfig("tiny_train", 64, 4, "train"), Mesh(("data", "model"), (1, 1))
+    recs = {(policy, grouped): dryrun.record_cell(
+                dataclasses.replace(get_smoke_config("zamba2_1p2b"), remat_policy=policy, hybrid_grouped=grouped),
+                shape, mesh, microbatches=1)
+            for policy in ("none", "full") for grouped in (False, True)}
+    flops = {k: r["op_analysis"]["flops_per_device"] for k, r in recs.items()}
+    assert flops[("none", False)] == flops[("none", True)]
+    assert flops[("full", False)] != flops[("full", True)]
+    assert min(flops[("full", False)], flops[("full", True)]) > flops[("none", False)]
+
+
+def test_a_smoke_train_cell_keeps_less_under_full_remat():
+    """deepseek-7b's smoke config at 8 layers, 8 x 256 tokens, on the fake
+    (2, 2) mesh: the temp peak under "full" is below the same cell's under
+    "none", and the backward's second forward adds FLOPs."""
+    shape = ShapeConfig("tiny_train", 256, 8, "train")
+    recs = {policy: dryrun.record_cell(dataclasses.replace(get_smoke_config("deepseek_7b"), n_layers=8,
+                                                           remat_policy=policy),
+                                       shape, make_debug_mesh(2, 2), microbatches=2)
+            for policy in ("none", "full")}
+    assert all(r["status"] == "ok" for r in recs.values())
+    temp = {p: r["memory_analysis"]["temp_size_in_bytes"] for p, r in recs.items()}
+    assert temp["full"] < temp["none"], temp
+    assert recs["full"]["op_analysis"]["flops_per_device"] > recs["none"]["op_analysis"]["flops_per_device"]
 
 
 def test_cpu_mesh_all_to_all_is_named_as_such():

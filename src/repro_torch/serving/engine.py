@@ -59,7 +59,7 @@ from repro_torch.core.early_exit import (
 )
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import DECODER_FAMILIES, Model
-from repro_torch.serving import step_math
+from repro_torch.serving import step_math, trace
 from repro_torch.serving.scheduler import LaneScheduler, SchedulingPolicy, StepReport
 
 if TYPE_CHECKING:  # typing only: dvfs and residency are not runtime dependencies
@@ -193,6 +193,14 @@ _LIFECYCLE_KEYS = (
 )
 
 
+def _synced(srv, device: torch.device, n: int = 1) -> None:
+    """Count ``n`` blocking copies between the host and ``device`` in the
+    server's ``host_syncs`` telemetry (on a CUDA device: on the CPU nothing
+    waits)."""
+    if device.type == "cuda":
+        srv._host_syncs += n
+
+
 def _arbitrate(srv, bucket: int, active: np.ndarray, step_slab) -> list:
     """One (V, f) per clock domain for a server's fused step: each replica's
     arbiter steps its own active slab (``step_slab(arbiter, replica,
@@ -204,20 +212,21 @@ def _arbitrate(srv, bucket: int, active: np.ndarray, step_slab) -> list:
     drains are accounted alike, and the scheduler clock moves TO the
     arbiters'.  With one replica this is the single shared-clock
     arbitration.  Returns the decisions."""
-    before = [a.telemetry() for a in srv.arbiters]
-    L = srv.lanes_per_replica
-    slabs = [(arb, [srv._arb_key(bucket, i) for i in range(r * L, (r + 1) * L) if active[i]])
-             for r, arb in enumerate(srv.arbiters)]
-    floor = max((arb.required_hz(k) for arb, keys in slabs for k in keys), default=0.0)
-    decisions = [step_slab(arb, r, keys, floor) for r, (arb, keys) in enumerate(slabs) if keys]
-    t = max(a.now_s for a in srv.arbiters)
-    for a in srv.arbiters:
-        a.advance_to(t)
-    for b4, a in zip(before, srv.arbiters):
-        after = a.telemetry()
-        for k in srv._arb_acc:
-            srv._arb_acc[k] += after[k] - b4[k]
-    srv._bstate[bucket]["dt"] = max(t - srv.sched.now_s, 0.0)
+    with trace.span("dvfs.arbitrate"):
+        before = [a.telemetry() for a in srv.arbiters]
+        L = srv.lanes_per_replica
+        slabs = [(arb, [srv._arb_key(bucket, i) for i in range(r * L, (r + 1) * L) if active[i]])
+                 for r, arb in enumerate(srv.arbiters)]
+        floor = max((arb.required_hz(k) for arb, keys in slabs for k in keys), default=0.0)
+        decisions = [step_slab(arb, r, keys, floor) for r, (arb, keys) in enumerate(slabs) if keys]
+        t = max(a.now_s for a in srv.arbiters)
+        for a in srv.arbiters:
+            a.advance_to(t)
+        for b4, a in zip(before, srv.arbiters):
+            after = a.telemetry()
+            for k in srv._arb_acc:
+                srv._arb_acc[k] += after[k] - b4[k]
+        srv._bstate[bucket]["dt"] = max(t - srv.sched.now_s, 0.0)
     return decisions
 
 
@@ -366,6 +375,7 @@ class ClassifierServer:
             "retired": 0, "exit_sum": 0.0, "energy_j": 0.0, "lat_max": 0.0,
             "deadline_misses": 0, "accepted_slo_misses": 0,
         }
+        self._host_syncs = 0             # blocking host <-> card copies (``_synced``)
 
     def _built(self, kind: str, S: int) -> None:
         """Count the bucket's step / embed / insert once, at first use."""
@@ -468,56 +478,67 @@ class ClassifierServer:
         }
 
     def lane_load(self, bucket: int, lane: int, req: Request) -> None:
-        st = self._bstate[bucket]
-        r, i = divmod(lane, self.lanes_per_replica)
-        toks = np.zeros(bucket, np.int64)
-        toks[: len(req.tokens)] = req.tokens     # pad up to the bucket shape
-        self._built("embed", bucket)
-        self._built("insert", bucket)
-        with torch.no_grad():
-            h_new = step_math.classifier_embed(self.model, self._rparams[r],
-                                               torch.from_numpy(toks[None]).to(self.devices[r]))
-            step_math.lane_insert(st["h"][r], i, h_new)
-        st["len"][lane] = len(req.tokens)
-        if self.residency is not None:
-            # refilling a lane touches this task's weights: a miss swaps them
-            # in from eNVM, and the stall burns time on the shared clock
-            # before the lane's budget is computed
-            stall = self.residency.acquire(self.task)
-            if stall > 0.0 and self.arbiters:
-                arb = self._arb_of(lane)
-                arb.advance_to(arb.now_s + stall)
-                self.sched.sync_clock()
-        if self.arbiters:
-            self._arb_of(lane).admit(
-                self._arb_key(bucket, lane),
-                deadline_s=self._explicit_budget_remaining(req),
-                cycles_per_layer=self._cycles_for(bucket),
-                energy_scale=self._energy_scale,
-            )
+        with trace.span("engine.lane_load", req.uid):
+            st = self._bstate[bucket]
+            r, i = divmod(lane, self.lanes_per_replica)
+            toks = np.zeros(bucket, np.int64)
+            toks[: len(req.tokens)] = req.tokens     # pad up to the bucket shape
+            self._built("embed", bucket)
+            self._built("insert", bucket)
+            with torch.no_grad():
+                _synced(self, self.devices[r])       # the token row, from pageable memory
+                h_new = step_math.classifier_embed(self.model, self._rparams[r],
+                                                   torch.from_numpy(toks[None]).to(self.devices[r]))
+                step_math.lane_insert(st["h"][r], i, h_new)
+            st["len"][lane] = len(req.tokens)
+            with trace.span("dvfs.admit", req.uid):
+                if self.residency is not None:
+                    # refilling a lane touches this task's weights: a miss swaps them
+                    # in from eNVM, and the stall burns time on the shared clock
+                    # before the lane's budget is computed
+                    stall = self.residency.acquire(self.task)
+                    if stall > 0.0 and self.arbiters:
+                        arb = self._arb_of(lane)
+                        arb.advance_to(arb.now_s + stall)
+                        self.sched.sync_clock()
+                if self.arbiters:
+                    self._arb_of(lane).admit(
+                        self._arb_key(bucket, lane),
+                        deadline_s=self._explicit_budget_remaining(req),
+                        cycles_per_layer=self._cycles_for(bucket),
+                        energy_scale=self._energy_scale,
+                    )
 
     def lanes_step(self, bucket: int, active: np.ndarray):
-        st = self._bstate[bucket]
-        decision = None
-        if self.arbiters:
-            decisions = _arbitrate(self, bucket, active,
-                                   lambda arb, r, keys, floor: arb.step(keys, floor_hz=floor))
-            decision = decisions[0] if len(decisions) == 1 else (tuple(decisions) or None)
-        self._built("step", bucket)
-        args = (self.model, self._rparams, st["h"], np.asarray(active, bool), st["len"],
-                float(self.threshold))
-        with torch.no_grad():
-            if self.use_kernels:
-                # one device-to-host copy: the off-ramp heads' packed rows
-                h, packed = step_math.sharded_classifier_head_step(*args, block_masks=self._block_masks)
-                lg, ent, retire = step_math.unpack_head(packed.cpu().numpy())
-                retire = retire != 0
-            else:
-                h, lg, ent, retire = step_math.sharded_classifier_fused_step(
-                    *args, block_masks=self._block_masks)
-                lg, ent, retire = lg.cpu().numpy(), ent.cpu().numpy(), retire.cpu().numpy()
-        st["h"] = h
-        st["out"] = (lg, ent, retire, decision)
+        with trace.span("engine.lanes_step"):
+            st = self._bstate[bucket]
+            decision = None
+            if self.arbiters:
+                decisions = _arbitrate(self, bucket, active,
+                                       lambda arb, r, keys, floor: arb.step(keys, floor_hz=floor))
+                decision = decisions[0] if len(decisions) == 1 else (tuple(decisions) or None)
+            self._built("step", bucket)
+            args = (self.model, self._rparams, st["h"], np.asarray(active, bool), st["len"],
+                    float(self.threshold))
+            for d in set(self.devices):
+                _synced(self, d, 2)                  # slab_inputs' copies of active and lengths
+            with torch.no_grad():
+                if self.use_kernels:
+                    # one device-to-host copy: the off-ramp heads' packed rows
+                    h, packed = step_math.sharded_classifier_head_step(*args, block_masks=self._block_masks)
+                    _synced(self, self.device)
+                    with trace.span("step.readback"):
+                        packed = packed.cpu().numpy()
+                    lg, ent, retire = step_math.unpack_head(packed)
+                    retire = retire != 0
+                else:
+                    h, lg, ent, retire = step_math.sharded_classifier_fused_step(
+                        *args, block_masks=self._block_masks)
+                    _synced(self, self.device, 3)
+                    with trace.span("step.readback"):
+                        lg, ent, retire = lg.cpu().numpy(), ent.cpu().numpy(), retire.cpu().numpy()
+            st["h"] = h
+            st["out"] = (lg, ent, retire, decision)
         return st["out"]
 
     def lane_advance(self, bucket: int, lane: int, req: Request, out, depth: int) -> bool:
@@ -525,7 +546,8 @@ class ClassifierServer:
         req.entropy_trace.append(float(ent[lane]))
         if self.arbiters and depth == 1:
             # first off-ramp evaluated: Alg. 1 line 2 prediction goes live
-            self._arb_of(lane).observe_entropy(self._arb_key(bucket, lane), float(ent[lane]))
+            with trace.span("dvfs.retire", req.uid):
+                self._arb_of(lane).observe_entropy(self._arb_key(bucket, lane), float(ent[lane]))
         return bool(retire[lane]) or depth >= self.cfg.n_layers
 
     def lane_finish(self, bucket: int, lane: int, req: Request, depth: int) -> None:
@@ -534,7 +556,8 @@ class ClassifierServer:
         req.exit_layer = depth
         req.finish_time = time.time()
         if self.arbiters:
-            rep = self._arb_of(lane).retire(self._arb_key(bucket, lane), depth)
+            with trace.span("dvfs.retire", req.uid):
+                rep = self._arb_of(lane).retire(self._arb_key(bucket, lane), depth)
             req.energy_j = rep.energy_j
             req.latency_s = rep.latency_s
             req.op_vdd = rep.slowest_op.vdd
@@ -588,12 +611,14 @@ class ClassifierServer:
         """Reload a checkpointed sentence into a (possibly different) free
         lane, on any replica, through the bucket's insert: bit-exact (a copy
         between devices moves the bits unchanged)."""
-        st = self._bstate[bucket]
-        r, i = divmod(lane, self.lanes_per_replica)
-        step_math.lane_insert(st["h"][r], i, payload["h"].to(self.devices[r])[None])
-        st["len"][lane] = payload["len"]
-        if self.arbiters:
-            self._arb_of(lane).restore_lane(self._arb_key(bucket, lane), payload["clock"])
+        with trace.span("engine.lane_load", req.uid):
+            st = self._bstate[bucket]
+            r, i = divmod(lane, self.lanes_per_replica)
+            step_math.lane_insert(st["h"][r], i, payload["h"].to(self.devices[r])[None])
+            st["len"][lane] = payload["len"]
+            if self.arbiters:
+                with trace.span("dvfs.admit", req.uid):
+                    self._arb_of(lane).restore_lane(self._arb_key(bucket, lane), payload["clock"])
 
     def predict_remaining_steps(self, bucket: int, req: Request, depth: int) -> float:
         """EDF slack input: entropy-LUT predicted exit depth minus progress,
@@ -630,6 +655,7 @@ class ClassifierServer:
             "queue_delay_steps_p95": st["queue_delay_steps_p95"],
             "queue_delay_steps_p99": st["queue_delay_steps_p99"],
             "queue_delay_steps_max": st["queue_delay_steps_max"],
+            "host_syncs": self._host_syncs,
             **{k: st[k] for k in _LIFECYCLE_KEYS},
         }
         if self._ctrl is not None:
@@ -821,6 +847,10 @@ class DecoderServer:
             "deadline_misses": 0, "accepted_slo_misses": 0,
             "lane_steps": 0, "adv_tokens": 0, "accepted_blocks": 0,
         }
+        # blocking host <-> card copies (``_synced``); the model's own copies
+        # of host scalars (a prefill token's position, the exit threshold)
+        # are not counted
+        self._host_syncs = 0
 
     def _built(self, kind: str, bucket: int) -> None:
         """Count the bucket's decode step / prefill once, at first use."""
@@ -961,51 +991,65 @@ class DecoderServer:
         }
 
     def lane_load(self, bucket: int, lane: int, req: Request) -> None:
-        st = self._bstate[bucket]
-        r, i = divmod(lane, self.lanes_per_replica)
-        cache = st["cache"][r]
-        toks = np.zeros(bucket, np.int64)
-        toks[: len(req.tokens)] = req.tokens
-        self._built("prefill", bucket)
-        with torch.no_grad():
-            if self.model.cfg.family in RECURRENT_FAMILIES:
-                # a fresh recurrent state, on the replica's device: the
-                # request before it in this lane leaves its state behind
-                # (see the class docstring); the hybrid family's KV rows go
-                # too, which changes nothing (rows past the lane's position
-                # are masked)
-                for v in cache.values():
-                    v[:, i].zero_()
-            step_math.decoder_prefill(self.model, self._rparams[r], cache, toks, i, len(req.tokens),
-                                      use_kernels=self.use_kernels, group=(self.lanes, lane), fleet=st["cache"])
-        st["pos"][lane] = len(req.tokens) - 1
-        st["cur"][lane, 0] = req.tokens[-1]
-        st["reqs"][lane] = req
-        if self.residency is not None:
-            # a miss swaps the task's weights in from eNVM: the stall burns
-            # time on the shared clock before the lane's budget is computed
-            stall = self.residency.acquire(self.task)
-            if stall > 0.0 and self.arbiters:
-                arb = self._arb_of(lane)
-                arb.advance_to(arb.now_s + stall)
-                self.sched.sync_clock()
-        if self.arbiters:
-            key, arb = self._arb_key(bucket, lane), self._arb_of(lane)
-            arb.admit(key, deadline_s=self._explicit_budget_remaining(req),
-                      cycles_per_layer=self._cycles_token_layer(bucket))
-            arb.set_remaining_layers(key, self._predicted_layers_remaining(req))
+        with trace.span("engine.lane_load", req.uid):
+            st = self._bstate[bucket]
+            r, i = divmod(lane, self.lanes_per_replica)
+            cache = st["cache"][r]
+            toks = np.zeros(bucket, np.int64)
+            toks[: len(req.tokens)] = req.tokens
+            self._built("prefill", bucket)
+            with torch.no_grad():
+                if self.model.cfg.family in RECURRENT_FAMILIES:
+                    # a fresh recurrent state, on the replica's device: the
+                    # request before it in this lane leaves its state behind
+                    # (see the class docstring); the hybrid family's KV rows go
+                    # too, which changes nothing (rows past the lane's position
+                    # are masked)
+                    for v in cache.values():
+                        v[:, i].zero_()
+                if len(req.tokens) > 1:
+                    _synced(self, self.devices[r])   # the prompt row, from pageable memory
+                step_math.decoder_prefill(self.model, self._rparams[r], cache, toks, i, len(req.tokens),
+                                          use_kernels=self.use_kernels, group=(self.lanes, lane),
+                                          fleet=st["cache"])
+            st["pos"][lane] = len(req.tokens) - 1
+            st["cur"][lane, 0] = req.tokens[-1]
+            st["reqs"][lane] = req
+            with trace.span("dvfs.admit", req.uid):
+                if self.residency is not None:
+                    # a miss swaps the task's weights in from eNVM: the stall burns
+                    # time on the shared clock before the lane's budget is computed
+                    stall = self.residency.acquire(self.task)
+                    if stall > 0.0 and self.arbiters:
+                        arb = self._arb_of(lane)
+                        arb.advance_to(arb.now_s + stall)
+                        self.sched.sync_clock()
+                if self.arbiters:
+                    key, arb = self._arb_key(bucket, lane), self._arb_of(lane)
+                    arb.admit(key, deadline_s=self._explicit_budget_remaining(req),
+                              cycles_per_layer=self._cycles_token_layer(bucket))
+                    arb.set_remaining_layers(key, self._predicted_layers_remaining(req))
 
     def lanes_step(self, bucket: int, active: np.ndarray):
+        with trace.span("engine.lanes_step"):
+            return self._lanes_step(bucket, active)
+
+    def _lanes_step(self, bucket: int, active: np.ndarray):
         st = self._bstate[bucket]
         if self.arbiters:
             # every active lane's predicted remaining layers BEFORE the
             # shared-clock decision
-            for i in range(self.lanes):
-                if active[i] and st["reqs"][i] is not None:
-                    self._arb_of(i).set_remaining_layers(self._arb_key(bucket, i),
-                                                         self._predicted_layers_remaining(st["reqs"][i]))
+            with trace.span("dvfs.arbitrate"):
+                for i in range(self.lanes):
+                    if active[i] and st["reqs"][i] is not None:
+                        self._arb_of(i).set_remaining_layers(self._arb_key(bucket, i),
+                                                             self._predicted_layers_remaining(st["reqs"][i]))
         self._built("decode", bucket)
         args = (self.model, self._rparams, st["cache"], st["cur"], st["pos"])
+        for d in set(self.devices):
+            # slab_inputs' copies: tokens and positions (and the speculative
+            # thresholds)
+            _synced(self, d, 3 if self._spec else 2)
         with torch.no_grad():
             if self._spec:
                 # every lane drafts and verifies up to spec_window tokens; the
@@ -1014,10 +1058,12 @@ class DecoderServer:
                 toks_d, logits, st["cache"], xl, fe, acc_m = step_math.sharded_decoder_decode_spec(
                     *args, self._lane_thresholds(bucket), self.spec_window,
                     eos_id=self.eos_id, use_kernels=self.use_kernels)
-                spec_toks = toks_d.cpu().numpy()          # [lanes, W]
-                exit_layers = xl.cpu().numpy()
-                first_ent = fe.cpu().numpy()
-                accepted = acc_m.cpu().numpy()
+                _synced(self, self.device, 4)
+                with trace.span("step.readback"):
+                    spec_toks = toks_d.cpu().numpy()          # [lanes, W]
+                    exit_layers = xl.cpu().numpy()
+                    first_ent = fe.cpu().numpy()
+                    accepted = acc_m.cpu().numpy()
                 keep = np.zeros(self.lanes, np.int32)
                 for i in range(self.lanes):
                     req = st["reqs"][i]
@@ -1031,8 +1077,10 @@ class DecoderServer:
             elif self.threshold is not None:
                 logits, st["cache"], xl, fe = step_math.sharded_decoder_decode_ee(
                     *args, self.threshold, use_kernels=self.use_kernels)
-                exit_layers = xl.cpu().numpy()
-                first_ent = fe.cpu().numpy()
+                _synced(self, self.device, 2)
+                with trace.span("step.readback"):
+                    exit_layers = xl.cpu().numpy()
+                    first_ent = fe.cpu().numpy()
             else:
                 logits, st["cache"] = step_math.sharded_decoder_decode(*args, use_kernels=self.use_kernels)
                 exit_layers = np.full(self.lanes, self.n_layers, np.int32)
@@ -1062,8 +1110,11 @@ class DecoderServer:
             # row is copied back
             st["out"] = (spec_toks, exit_layers, first_ent, logits)
         else:
+            _synced(self, self.device)
+            with trace.span("step.readback"):
+                tokens = logits[:, -1].argmax(dim=-1).cpu().numpy()
             st["out"] = (
-                logits[:, -1].argmax(dim=-1).cpu().numpy(),
+                tokens,
                 exit_layers,
                 first_ent,
                 # the EE path keeps the final-token logits on the device (a
@@ -1124,7 +1175,9 @@ class DecoderServer:
         logits = st["out"][3]
         if logits is not None:               # EE path: one lane row to the host
             row = logits[lane, int(st["keep"][lane]) - 1] if self._spec else logits[lane]
-            req.result = row.cpu().numpy()
+            _synced(self, self.device)
+            with trace.span("step.readback", req.uid):
+                req.result = row.cpu().numpy()
         req.finish_time = time.time()
         st["reqs"][lane] = None
         acc = self._acc
@@ -1134,7 +1187,8 @@ class DecoderServer:
         if self.arbiters:
             # the lane's arbiter depth is the summed realized exit depth of
             # every token it generated (across preemption stints)
-            rep = self._arb_of(lane).retire(self._arb_key(bucket, lane), int(sum(req.token_exit_layers)))
+            with trace.span("dvfs.retire", req.uid):
+                rep = self._arb_of(lane).retire(self._arb_key(bucket, lane), int(sum(req.token_exit_layers)))
             req.energy_j = rep.energy_j
             req.latency_s = rep.latency_s
             req.op_vdd = rep.slowest_op.vdd
@@ -1167,15 +1221,17 @@ class DecoderServer:
         """Write the checkpointed cache row back into a (possibly different)
         free lane of the bucket's cache, on any replica, in place (a copy
         between devices moves the bits unchanged)."""
-        st = self._bstate[bucket]
-        r, i = divmod(lane, self.lanes_per_replica)
-        for k, row in payload["cache"].items():
-            st["cache"][r][k][:, i] = row.to(self.devices[r])
-        st["pos"][lane] = payload["pos"]
-        st["cur"][lane, 0] = payload["cur"]
-        st["reqs"][lane] = req
-        if self.arbiters:
-            self._arb_of(lane).restore_lane(self._arb_key(bucket, lane), payload["clock"])
+        with trace.span("engine.lane_load", req.uid):
+            st = self._bstate[bucket]
+            r, i = divmod(lane, self.lanes_per_replica)
+            for k, row in payload["cache"].items():
+                st["cache"][r][k][:, i] = row.to(self.devices[r])
+            st["pos"][lane] = payload["pos"]
+            st["cur"][lane, 0] = payload["cur"]
+            st["reqs"][lane] = req
+            if self.arbiters:
+                with trace.span("dvfs.admit", req.uid):
+                    self._arb_of(lane).restore_lane(self._arb_key(bucket, lane), payload["clock"])
 
     def predict_remaining_steps(self, bucket: int, req: Request, depth: int) -> float:
         """EDF slack input in FRACTIONAL full-depth fused steps: the
@@ -1222,6 +1278,7 @@ class DecoderServer:
             "queue_delay_steps_p95": st["queue_delay_steps_p95"],
             "queue_delay_steps_p99": st["queue_delay_steps_p99"],
             "queue_delay_steps_max": st["queue_delay_steps_max"],
+            "host_syncs": self._host_syncs,
             **{k: st[k] for k in _LIFECYCLE_KEYS},
         }
         if self.arbiter is not None:

@@ -98,6 +98,8 @@ from typing import (
 
 import numpy as np
 
+from repro_torch.serving import trace
+
 if TYPE_CHECKING:  # circular: engine imports scheduler
     from repro_torch.serving.engine import Request
 
@@ -472,6 +474,10 @@ class LaneScheduler:
         deadline math runs entirely on the modeled clock, and a wall-clock
         stamp on the same object invited silently mixing the two (callers
         that want wall time set it themselves)."""
+        with trace.span("sched.submit", req.uid):
+            return self._submit(req)
+
+    def _submit(self, req: "Request") -> int:
         self.sync_clock()
         req.arrival_step = self._dense_steps
         req.arrival_s = self.now_s
@@ -748,12 +754,17 @@ class LaneScheduler:
     def step(self) -> Optional[StepReport]:
         """Advance ONE bucket by one fused step; returns what happened, or
         ``None`` when no work remains anywhere."""
-        self.sync_clock()       # another server may have advanced the shared
-                                # timeline: EDF slack and admit_s need it
-        views = self._candidates()
+        with trace.span("sched.step"):
+            return self._step()
+
+    def _step(self) -> Optional[StepReport]:
+        with trace.span("sched.choose"):
+            self.sync_clock()       # another server may have advanced the shared
+                                    # timeline: EDF slack and admit_s need it
+            views = self._candidates()
+            bucket = self.policy.choose(views, self.now_s) if views else None
         if not views:
             return None
-        bucket = self.policy.choose(views, self.now_s)
         assert any(v.bucket == bucket for v in views), (
             f"policy chose bucket {bucket} which has no queued or active work"
         )
@@ -773,10 +784,38 @@ class LaneScheduler:
         if self.preempt:
             self._maybe_preempt(bucket, run)
 
-        # refill every free lane from this bucket's queue (continuation
-        # batching: retired lanes never idle while work is queued)
-        q = self.queues.get(bucket)
         step_idx = self._dense_steps
+        with trace.span("sched.refill"):
+            self._refill(bucket, run, step_idx)
+        assert run.active.any(), "candidate bucket must have work after refill"
+
+        out = eng.lanes_step(bucket, run.active.copy())
+        n_active = int(run.active.sum())
+        self._dense_steps += 1
+        self._lane_steps += n_active
+        self._bucket_steps[bucket] = self._bucket_steps.get(bucket, 0) + 1
+        # the engine may report the step's ACTUAL modeled duration (DVFS op
+        # period + switching stalls); fall back to the nominal estimate so
+        # the EDF clock cannot drift from the clock deadlines are judged by
+        dt_hook = getattr(eng, "step_dt_s", None)
+        dt = dt_hook(bucket) if dt_hook is not None else None
+        self.now_s += float(dt) if dt is not None else float(self.step_time_fn(bucket))
+        run.lane_depth[run.active] += 1
+
+        report = StepReport(bucket=bucket, n_active=n_active)
+        with trace.span("sched.retire"):
+            self._retire(bucket, run, out, step_idx, report)
+
+        if not run.active.any() and not self.queues.get(bucket):
+            eng.bucket_end(bucket)
+            del self._open[bucket]
+        return report
+
+    def _refill(self, bucket: int, run: _BucketRun, step_idx: int) -> None:
+        """Refill every free lane from this bucket's queue (continuation
+        batching: retired lanes never idle while work is queued)."""
+        eng = self.engine
+        q = self.queues.get(bucket)
         # replica-aware refill: a lane only takes work compatible with its
         # clock domain (engines without replicas report domain 0 for every
         # lane, and unpinned requests run anywhere — the common path is
@@ -807,22 +846,12 @@ class LaneScheduler:
                 run.lane_req[i] = req
                 run.active[i] = True
                 self._refills += 1
-        assert run.active.any(), "candidate bucket must have work after refill"
 
-        out = eng.lanes_step(bucket, run.active.copy())
-        n_active = int(run.active.sum())
-        self._dense_steps += 1
-        self._lane_steps += n_active
-        self._bucket_steps[bucket] = self._bucket_steps.get(bucket, 0) + 1
-        # the engine may report the step's ACTUAL modeled duration (DVFS op
-        # period + switching stalls); fall back to the nominal estimate so
-        # the EDF clock cannot drift from the clock deadlines are judged by
-        dt_hook = getattr(eng, "step_dt_s", None)
-        dt = dt_hook(bucket) if dt_hook is not None else None
-        self.now_s += float(dt) if dt is not None else float(self.step_time_fn(bucket))
-        run.lane_depth[run.active] += 1
-
-        report = StepReport(bucket=bucket, n_active=n_active)
+    def _retire(self, bucket: int, run: _BucketRun, out: Any, step_idx: int,
+                report: StepReport) -> None:
+        """Advance every active lane past the step's outputs and retire the
+        lanes the engine says are done."""
+        eng = self.engine
         for i in range(self.lanes):
             if not run.active[i]:
                 continue
@@ -850,11 +879,6 @@ class LaneScheduler:
                 run.lane_req[i] = None
                 run.active[i] = False
 
-        if not run.active.any() and not self.queues.get(bucket):
-            eng.bucket_end(bucket)
-            del self._open[bucket]
-        return report
-
     def poll(self, *, pin: bool = False) -> List["Request"]:
         """Requests retired since the last ``poll()`` (completion order).
 
@@ -866,11 +890,12 @@ class LaneScheduler:
         ``pin=True`` keeps the polled requests resident in ``done`` — the
         batch-drain idiom (``run()`` then index ``done`` by uid) is
         unaffected either way, since it never polls."""
-        out = list(self._completed)
-        self._completed.clear()
-        if not pin:
-            for r in out:
-                self.done.pop(r.uid, None)
+        with trace.span("sched.poll"):
+            out = list(self._completed)
+            self._completed.clear()
+            if not pin:
+                for r in out:
+                    self.done.pop(r.uid, None)
         return out
 
     def run(self) -> Dict[str, float]:
@@ -907,7 +932,6 @@ class LaneScheduler:
                 if self._dense_steps
                 else 0.0
             ),
-            "modeled_now_s": self.now_s,
             "queue_delay_steps_p50": self._delays.percentile(50),
             "queue_delay_steps_p95": self._delays.percentile(95),
             "queue_delay_steps_p99": self._delays.percentile(99),

@@ -1242,3 +1242,58 @@ def test_pipeline_backward_one_stage_on_the_card(cuda, tmp_path):
             assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     finally:
         dist.destroy_process_group()
+
+
+def _count_syncs(srv, steps):
+    """``steps`` fused steps of ``srv`` under ``torch.cuda.set_sync_debug_mode
+    ("warn")``: the change in its ``host_syncs`` telemetry and the
+    synchronizing operations the mode reported (file and line of each)."""
+    import warnings
+
+    before = srv.telemetry()["host_syncs"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                srv.step()
+                srv.poll()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # one warning per synchronizing call (besides the mode's own notice that
+    # it is a prototype)
+    where = [(w.filename.rsplit("/", 1)[-1], w.lineno) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return srv.telemetry()["host_syncs"] - before, where
+
+
+def test_host_syncs_count_every_blocking_copy(cuda):
+    """The serving path as the benchmark cell runs it, at smoke size (span
+    off, MLP block-pruned, the shared-clock arbiter, lanes refilled while
+    others run): over 12 fused steps the ``host_syncs`` telemetry grows by
+    the number of synchronizing operations the sync debug mode reports,
+    one per lane load and three per step."""
+    from repro_torch.serving import dvfs
+
+    cfg = get_smoke_config("albert_edgebert")
+    cfg = dataclasses.replace(cfg, dtype="float32").with_edgebert(
+        span=dataclasses.replace(cfg.edgebert.span, enabled=False),
+        early_exit=dataclasses.replace(cfg.edgebert.early_exit, entropy_threshold=1.0986))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name in ("w_up", "w_down"):
+        w = params["layer"]["mlp"][name]
+        params["layer"]["mlp"][name] = w * magnitude_mask(w, 0.5, block_size=32)
+    ctrl = dvfs.default_albert_controller(1e-3, seq_len=32, n_layers=cfg.n_layers)
+    srv = ClassifierServer(build_model(cfg), params, batch_lanes=8, buckets=(32,), device=cuda,
+                           arbiter=dvfs.BatchedDVFSArbiter(ctrl))
+    toks = SyntheticCLS(cfg.vocab_size, 32, 192, num_classes=3, seed=0).batch(0)["tokens"]
+    for i in range(192):
+        srv.submit(Request(uid=i, tokens=toks[i][: 12 + i % 20]))
+    srv.step()                                     # built and warm
+    srv.poll()
+    before = srv.sched.telemetry()
+    n, where = _count_syncs(srv, 12)
+    after = srv.sched.telemetry()
+    loads = after["refills"] - before["refills"]
+    assert after["dense_steps"] - before["dense_steps"] == 12 and loads > 0
+    assert n == len(where) == loads + 3 * 12, (n, loads, where)

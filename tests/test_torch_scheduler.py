@@ -97,7 +97,7 @@ def _drive(mod, Request, policy, preempt, dt):
         if len(reports) % 5 == 0:
             polled.append(sorted(r.uid for r in sched.poll()))
     tele = sched.telemetry()
-    return reports, polled, eng.log, tele, uid
+    return reports, polled, eng.log, tele, uid, sched.now_s
 
 
 @pytest.mark.parametrize("policy", ["edf", "wrr", "fifo"])
@@ -109,9 +109,12 @@ def test_same_step_reports_as_jax(policy, preempt, dt):
     assert t[0] == j[0]                 # StepReports, in order
     assert t[1] == j[1]                 # poll() batches
     assert t[2] == j[2]                 # every hook call
-    assert t[3].keys() == j[3].keys()
-    for k in j[3]:
+    # the port's telemetry leaves out the JAX package's ``modeled_now_s``
+    # (the scheduler's ``now_s``, read by nothing); the clocks still agree
+    assert t[3].keys() == j[3].keys() - {"modeled_now_s"}
+    for k in t[3]:
         assert t[3][k] == pytest.approx(j[3][k], rel=1e-12), k
+    assert t[5] == pytest.approx(j[3]["modeled_now_s"], rel=1e-12) and j[5] == j[3]["modeled_now_s"]
     assert t[4] == j[4] > 12 and sum(len(r[2]) for r in j[0]) == j[4]   # every request retired
     if preempt and policy == "fifo":   # FIFO leaves explicit SLOs queued behind busy lanes
         assert t[3]["preemptions"] >= 1 and any(e[0] == "restore" for e in t[2])

@@ -376,6 +376,12 @@ class ClassifierServer:
             "deadline_misses": 0, "accepted_slo_misses": 0,
         }
         self._host_syncs = 0             # blocking host <-> card copies (``_synced``)
+        # lane loads stage token rows on the host, and ``_flush_loads``
+        # embeds them before the step: the (bucket, replica) staging buffers
+        # live as long as the server (page-locked allocation costs ms)
+        self._stage: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        self._lane_loads = 0
+        self._load_flushes = 0
 
     def _built(self, kind: str, S: int) -> None:
         """Count the bucket's step / embed / insert once, at first use."""
@@ -475,22 +481,51 @@ class ClassifierServer:
             "h": [torch.zeros((L, bucket, D), dtype=dtype, device=d) for d in self.devices],
             "len": np.full(self.lanes, bucket, np.int32),
             "out": None,
+            # token rows staged per replica since the last flush
+            "staged": [0] * self.replicas,
         }
 
+    def _staging(self, bucket: int, r: int) -> Dict[str, Any]:
+        """Replica ``r``'s staging buffers for ``bucket``: ``[lanes_per_replica,
+        bucket]`` token rows and ``[lanes_per_replica]`` lane indices, int64,
+        page-locked on a card (plain tensors on the CPU), with the event of
+        their last flush's copies."""
+        buf = self._stage.get((bucket, r))
+        if buf is None:
+            on_card = self.devices[r].type == "cuda"
+            rows = torch.zeros((self.lanes_per_replica, bucket), dtype=torch.int64, pin_memory=on_card)
+            lanes = torch.zeros(self.lanes_per_replica, dtype=torch.int64, pin_memory=on_card)
+            buf = self._stage[(bucket, r)] = {
+                "rows": rows, "lanes": lanes, "rows_np": rows.numpy(), "lanes_np": lanes.numpy(),
+                "event": torch.cuda.Event() if on_card else None, "pending": False,
+            }
+        return buf
+
     def lane_load(self, bucket: int, lane: int, req: Request) -> None:
+        """Stage the lane's token row, padded up to the bucket shape, on the
+        host; ``_flush_loads`` embeds every staged row before the bucket's
+        next step (or a checkpoint)."""
         with trace.span("engine.lane_load", req.uid):
             st = self._bstate[bucket]
             r, i = divmod(lane, self.lanes_per_replica)
-            toks = np.zeros(bucket, np.int64)
-            toks[: len(req.tokens)] = req.tokens     # pad up to the bucket shape
+            buf = self._staging(bucket, r)
+            if buf["pending"]:
+                # the last flush's copies read these buffers: after a step its
+                # readback has waited on the stream, so only a flush by a
+                # checkpoint can leave them running, and the wait counts then
+                if not buf["event"].query():
+                    _synced(self, self.devices[r])
+                    buf["event"].synchronize()
+                buf["pending"] = False
+            k, n = st["staged"][r], len(req.tokens)
+            buf["rows_np"][k, :n] = req.tokens
+            buf["rows_np"][k, n:] = 0
+            buf["lanes_np"][k] = i
+            st["staged"][r] = k + 1
+            self._lane_loads += 1
             self._built("embed", bucket)
             self._built("insert", bucket)
-            with torch.no_grad():
-                _synced(self, self.devices[r])       # the token row, from pageable memory
-                h_new = step_math.classifier_embed(self.model, self._rparams[r],
-                                                   torch.from_numpy(toks[None]).to(self.devices[r]))
-                step_math.lane_insert(st["h"][r], i, h_new)
-            st["len"][lane] = len(req.tokens)
+            st["len"][lane] = n
             with trace.span("dvfs.admit", req.uid):
                 if self.residency is not None:
                     # refilling a lane touches this task's weights: a miss swaps them
@@ -509,8 +544,33 @@ class ClassifierServer:
                         energy_scale=self._energy_scale,
                     )
 
+    def _flush_loads(self, bucket: int) -> None:
+        """Embed the bucket's staged token rows into their lanes: per replica
+        with k staged rows, one copy of the rows and one of the lane indices
+        (non-blocking, from the pinned buffers), one embedding over [k, S] and
+        one indexed insert.  Each row gets the bits it gets embedded alone."""
+        st = self._bstate[bucket]
+        if not any(st["staged"]):
+            return
+        with trace.span("engine.load_flush"), torch.no_grad():
+            for r, k in enumerate(st["staged"]):
+                if not k:
+                    continue
+                dev, buf = self.devices[r], self._stage[(bucket, r)]
+                toks = buf["rows"][:k].to(dev, non_blocking=True)
+                lanes = buf["lanes"][:k].to(dev, non_blocking=True)
+                if buf["event"] is not None:
+                    buf["event"].record(torch.cuda.current_stream(dev))
+                    buf["pending"] = True
+                h_new = step_math.classifier_embed(self.model, self._rparams[r], toks)
+                step_math.lanes_insert(st["h"][r], lanes, h_new)
+                st["staged"][r] = 0
+            self._load_flushes += 1
+
     def lanes_step(self, bucket: int, active: np.ndarray):
         with trace.span("engine.lanes_step"):
+            # the embedding's device work overlaps the arbiter's host Python
+            self._flush_loads(bucket)
             st = self._bstate[bucket]
             decision = None
             if self.arbiters:
@@ -600,6 +660,7 @@ class ClassifierServer:
         sentence resumes without re-running completed layers.  The clock
         payload is relative (remaining budget and elapsed run time), so it
         restores onto any replica's arbiter."""
+        self._flush_loads(bucket)               # a lane still staged has its row
         st = self._bstate[bucket]
         r, i = divmod(lane, self.lanes_per_replica)
         payload = {"h": st["h"][r][i].clone(), "len": int(st["len"][lane])}
@@ -656,6 +717,8 @@ class ClassifierServer:
             "queue_delay_steps_p99": st["queue_delay_steps_p99"],
             "queue_delay_steps_max": st["queue_delay_steps_max"],
             "host_syncs": self._host_syncs,
+            "lane_loads": self._lane_loads,
+            "load_flushes": self._load_flushes,
             **{k: st[k] for k in _LIFECYCLE_KEYS},
         }
         if self._ctrl is not None:

@@ -49,7 +49,7 @@ from repro_torch.models.model import Model
 
 
 def classifier_embed(model: Model, params: Any, tokens: torch.Tensor) -> torch.Tensor:
-    """Embed one lane's padded token row: [1, S_bucket] -> [1, S_bucket, D]."""
+    """Embed padded token rows: [k, S_bucket] -> [k, S_bucket, D]."""
     return model.embed(params, tokens)
 
 
@@ -190,9 +190,15 @@ def sharded_classifier_head_step(
 
 def lane_insert(h: torch.Tensor, lane: int, h_new: torch.Tensor) -> None:
     """Overwrite one lane row of ``h`` in place with ``h_new`` [1, S, D]
-    (load and restore share it, so a preempted lane round-trips through the
-    same copy)."""
+    (a restore puts a checkpointed row back through it, bit for bit)."""
     h[lane] = h_new[0]
+
+
+def lanes_insert(h: torch.Tensor, lanes: torch.Tensor, h_new: torch.Tensor) -> None:
+    """Overwrite lane rows ``lanes`` [k] (int64, on ``h``'s device) of ``h``
+    in place with ``h_new`` [k, S, D]: one indexed copy for a flush of
+    staged loads."""
+    h.index_copy_(0, lanes, h_new)
 
 
 # ---------------------------------------------------------------------------

@@ -1267,12 +1267,10 @@ def _count_syncs(srv, steps):
     return srv.telemetry()["host_syncs"] - before, where
 
 
-def test_host_syncs_count_every_blocking_copy(cuda):
+def _served_smoke(cuda, requests=192):
     """The serving path as the benchmark cell runs it, at smoke size (span
-    off, MLP block-pruned, the shared-clock arbiter, lanes refilled while
-    others run): over 12 fused steps the ``host_syncs`` telemetry grows by
-    the number of synchronizing operations the sync debug mode reports,
-    one per lane load and three per step."""
+    off, MLP block-pruned, the shared-clock arbiter, 8 lanes of bucket 32),
+    with ``requests`` queued and one fused step run (built and warm)."""
     from repro_torch.serving import dvfs
 
     cfg = get_smoke_config("albert_edgebert")
@@ -1286,14 +1284,84 @@ def test_host_syncs_count_every_blocking_copy(cuda):
     ctrl = dvfs.default_albert_controller(1e-3, seq_len=32, n_layers=cfg.n_layers)
     srv = ClassifierServer(build_model(cfg), params, batch_lanes=8, buckets=(32,), device=cuda,
                            arbiter=dvfs.BatchedDVFSArbiter(ctrl))
-    toks = SyntheticCLS(cfg.vocab_size, 32, 192, num_classes=3, seed=0).batch(0)["tokens"]
-    for i in range(192):
+    toks = SyntheticCLS(cfg.vocab_size, 32, requests, num_classes=3, seed=0).batch(0)["tokens"]
+    for i in range(requests):
         srv.submit(Request(uid=i, tokens=toks[i][: 12 + i % 20]))
-    srv.step()                                     # built and warm
+    srv.step()
     srv.poll()
+    return srv
+
+
+def test_host_syncs_count_every_blocking_copy(cuda):
+    """Lanes refilled while others run: over 12 fused steps the
+    ``host_syncs`` telemetry grows by the number of synchronizing
+    operations the sync debug mode reports, three per step; a lane load
+    stages its row for a non-blocking copy, so no site lies in
+    ``lane_load`` or the flush."""
+    import inspect
+
+    srv = _served_smoke(cuda)
     before = srv.sched.telemetry()
     n, where = _count_syncs(srv, 12)
     after = srv.sched.telemetry()
     loads = after["refills"] - before["refills"]
     assert after["dense_steps"] - before["dense_steps"] == 12 and loads > 0
-    assert n == len(where) == loads + 3 * 12, (n, loads, where)
+    assert n == len(where) == 3 * 12, (n, loads, where)
+    for fn in (ClassifierServer.lane_load, ClassifierServer._flush_loads):
+        lines, first = inspect.getsourcelines(fn)
+        assert not [w for w in where if w[0] == "engine.py" and first <= w[1] < first + len(lines)], where
+
+
+def test_staging_buffers_pinned_and_free_at_every_rewrite(cuda):
+    """Over 50 fused steps, whenever a lane load writes a staging buffer
+    that a flush copied from, the flush's event has already completed (the
+    step's readback waited on the stream), and the buffers are page-locked."""
+    srv = _served_smoke(cuda, requests=640)
+    load, seen = srv.lane_load, []
+
+    def watched(bucket, lane, req):
+        buf = srv._stage.get((bucket, srv.lane_domain(lane)))
+        if buf is not None and buf["pending"]:
+            seen.append(buf["event"].query())
+        load(bucket, lane, req)
+
+    srv.lane_load = watched
+    syncs = srv.telemetry()["host_syncs"]
+    for _ in range(50):
+        srv.step()
+        srv.poll()
+    tel = srv.telemetry()
+    assert tel["dense_steps"] == 51 and len(seen) >= 25 and all(seen), seen
+    assert tel["host_syncs"] - syncs == 3 * 50
+    assert srv._stage and all(b["rows"].is_pinned() and b["lanes"].is_pinned() for b in srv._stage.values())
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_flush_rows_equal_rows_flushed_alone(cuda, k):
+    """At the benchmark cell's shapes (albert_edgebert at full width, float32,
+    64 lanes of bucket 128, lengths 96-128): a flush of k staged lanes gives
+    each lane's row ``torch.equal`` to that lane flushed alone, whatever
+    kernel cuBLAS picks for the projection's M = k x 128."""
+    from repro_torch.configs.base import get_config
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("albert_edgebert"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    srv = ClassifierServer(build_model(cfg), params, batch_lanes=64, buckets=(128,), device=cuda,
+                           use_kernels=False)
+    rng = np.random.default_rng(k)
+    toks = rng.integers(0, cfg.vocab_size, (64, 128))
+    lengths = rng.integers(96, 129, 64)
+    lanes = [int(x) for x in rng.permutation(64)[:k]]
+
+    def flushed(which):
+        srv.bucket_begin(128)
+        for lane in which:
+            srv.lane_load(128, lane, Request(uid=lane, tokens=toks[lane][: lengths[lane]]))
+        srv._flush_loads(128)
+        return srv._bstate[128]["h"][0]
+
+    h = flushed(lanes).clone()
+    assert h[lanes].abs().sum(dim=(1, 2)).min() > 0
+    for lane in lanes:
+        assert torch.equal(h[lane], flushed([lane])[lane]), lane

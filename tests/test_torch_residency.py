@@ -64,8 +64,9 @@ def _one_torch_thread():
 
 
 # telemetry the port keeps and the JAX package has no counterpart of: the
-# blocking copies between host and card
-PORT_ONLY = ("host_syncs",)
+# blocking copies between host and card, and the classifier's lane loads
+# staged and their flushes
+PORT_ONLY = ("host_syncs", "lane_loads", "load_flushes")
 
 
 def assert_same(a, b, path="out"):

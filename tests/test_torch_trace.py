@@ -5,7 +5,8 @@ The recorder on its own: nesting, parents, request uids, self times, an
 exception inside a span, and the off state (no clock read, nothing kept).
 Then smoke-size drains with the recorder on: a ``ClassifierServer`` with a
 shared-clock arbiter (one ``sched.step`` per fused step, one
-``engine.lane_load`` per refill with the request's uid, every span inside
+``engine.lane_load`` per refill with the request's uid, one
+``engine.load_flush`` per step that loaded lanes, every span inside
 its parent and siblings disjoint, so a step's spans split its duration;
 results bit for bit those of the same drain with the recorder off), the
 counter's sites, and a ``DecoderServer`` with per-token exit and an
@@ -191,6 +192,7 @@ def test_classifier_drain_spans(classifier):
     assert names["sched.step"] == tel["dense_steps"] > 0
     assert names["engine.lane_load"] == srv.sched.telemetry()["refills"] == names["dvfs.admit"]
     assert names["sched.submit"] == len(LENGTHS) and names["sched.poll"] == tel["dense_steps"]
+    assert names["engine.load_flush"] == tel["load_flushes"] > 0
     # each request's span carries its uid: one load, one admission, and its
     # arbiter's first entropy and retirement
     by = lambda n: sorted(r.uid for r in recs if r.name == n)                       # noqa: E731
@@ -205,8 +207,11 @@ def test_classifier_drain_spans(classifier):
         assert [recs[j].name for j in kids[k]] == ["sched.choose", "sched.refill", "engine.lanes_step",
                                                   "sched.retire"]
         step = kids[k][2]
-        assert [recs[j].name for j in kids[step]] == ["dvfs.arbitrate", "step.readback"]
-        for j in kids.get(kids[k][1], []):
+        loads = kids.get(kids[k][1], [])
+        # a step that loaded lanes first flushes their staged rows
+        assert [recs[j].name for j in kids[step]] == (["engine.load_flush"] if loads else []) + [
+            "dvfs.arbitrate", "step.readback"]
+        for j in loads:
             assert recs[j].name == "engine.lane_load"
             assert [recs[m].name for m in kids.get(j, [])] == ["dvfs.admit"]
         assert {recs[j].name for j in kids.get(kids[k][3], [])} <= {"dvfs.retire"}
@@ -234,15 +239,17 @@ def test_classifier_results_do_not_depend_on_the_recorder(classifier):
 
 def test_host_sync_sites(classifier, monkeypatch):
     """On the CPU nothing waits (``host_syncs`` stays 0); counted at every
-    site as if the device were a card: one token row per refill, two input
-    copies and one readback per fused step."""
+    site as if the device were a card: two input copies and one readback
+    per fused step (a lane load stages its token row for a non-blocking
+    copy, so refills add none)."""
     srv, _, _ = _classifier_drain(classifier, traced=False)
     assert srv.telemetry()["host_syncs"] == 0
     calls = []
     monkeypatch.setattr(engine, "_synced", lambda srv, device, n=1: calls.append(n))
     srv, _, _ = _classifier_drain(classifier, traced=False)
     tel = srv.telemetry()
-    assert sum(calls) == srv.sched.telemetry()["refills"] + 3 * tel["dense_steps"]
+    assert srv.sched.telemetry()["refills"] > 0
+    assert sum(calls) == 3 * tel["dense_steps"]
     monkeypatch.undo()
     card = type("Card", (), {"_host_syncs": 0})()
     engine._synced(card, torch.device("cuda", 0), 2)

@@ -77,6 +77,26 @@ Phases, each printing one JSON line:
                 depth (tasks, exits, summaries; logits and first entropies
                 within 5e-2 as served, within 1e-4 with activation
                 quantization off) and the whole smoke-size replay.
+ 7b. encoder  — ModernBERT-large at full width and depth (28 unshared
+                layers, d 1024, 16 x 64 heads, GeGLU of 2 x 2624, windows
+                65 and 8192; the weights drawn on the card, every MLP
+                pruned to 0.5 in 32x32 tiles): the encoder step's kernels
+                at its shapes against their plain versions (span attention
+                at [16, 8192, 16, 64] with per-lane kv_len, window 8192 and
+                65; block_sparse on w_up and w_down, the scale-only
+                layernorm and af_quantize at 1 and 16 lanes of 8192 rows),
+                each with its device time and bound; 24 seeded documents of
+                6144-8192 tokens through a ClassifierServer of 16 lanes,
+                each lane at its own layer: activation quantization off,
+                the kernel route against the plain route at a threshold
+                from a full-depth drain (exits equal, entropies and exit
+                logits within 1e-4); then the deployed stack (AF(8, 3),
+                a shared-clock arbiter), the launch counts zeroed just
+                before the drain and matched to the engine's layer log
+                (span_attention, af_quantize once and block_sparse_matmul
+                twice per depth group, layernorm twice but once at layer
+                0, nothing else), more depth groups than steps, its
+                documents/s and the drain's peak memory.
   8. decode   — the dense decoder at full width (deepseek-7b: its first
                 10 of 30 layers, cut for the script's time; d_model 4096,
                 32 x 128 heads, d_ff 11008, vocab 102400, float32 weights
@@ -281,7 +301,7 @@ shape [4, 256000] with that phase's; layernorm three more, at [4, 4096] with
 the ln_decode and the ssm_decode phases' launches and at [4, 1024] with the
 encdec_decode phase's served drain's; af_quantize one more, at the
 eb_decode shape [4, 4096] in 4 groups with that phase's launches;
-`launches_by_path` gives every path's, eb_decode,
+`launches_by_path` gives every path's, encoder, eb_decode,
 hybrid_decode, encdec_decode, vlm_decode, lm_train, dist_train, dryrun (all zero)
 and sharded (the sharded classifier drain's and the sharded W = 1 decode
 drain's) included;
@@ -2102,6 +2122,277 @@ def run_replay_path(scfg, dev) -> dict:
                     seconds=time.perf_counter() - t)
     if full["accepted_slo_misses"][0] != full["accepted_slo_misses"][1]:
         raise AssertionError("accepted-SLO misses differ between the card and the CPU")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the encoder family (ModernBERT-large) at full width and depth
+# ---------------------------------------------------------------------------
+
+# 16 lanes over buckets 2048 / 4096 / 8192, 24 seeded documents of 6144-8192
+# tokens (all in bucket 8192: 8 refill lanes as the first exit, so the
+# lanes run at mixed depths)
+ENCODER_LANES = 16
+ENCODER_BUCKETS = (2048, 4096, 8192)
+ENCODER_DOCS = 24
+ENCODER_LENGTHS = (6144, 8192)
+# the kernel route against the plain route on the card, activation
+# quantization off (nothing can flip): entropies and exit logits, 28
+# layers of float32 sums in other orders
+ENCODER_ATOL = 1e-4
+
+
+def check_encoder_kernels(model, params, dev) -> list:
+    """The encoder step's kernels at the shapes it gives them, each against
+    its plain version: span attention through ``dispatch.dense_attention``
+    (the route ``encoder_layer_step`` takes) at [16, 8192, 16, 64] with
+    per-lane kv_len, at the global layers' window (None: every key) and the
+    local layers' 65 (|i - j| <= 64); block_sparse on layer 0's pruned
+    ``w_up`` [1024, 5248] and ``w_down`` [2624, 1024] at M = g x 8192; the
+    scale-only LayerNorm (eps 1e-5) and af_quantize (one group of 8192 rows
+    per lane) at [g x 8192, 1024]; g = 1 and 16, a group of one lane and of
+    every lane.  Each row gives its error, tolerance, device time (queued)
+    and bound; the plain span attention runs one lane at a time."""
+    import numpy as np
+    import torch
+
+    from portbench.encoder_work import visible_pairs
+    from repro_torch.kernels import block_sparse, dispatch, ref
+    from repro_torch.kernels.adaptivfloat_k import group_exp_bias, quantize_groups
+
+    cfg = model.cfg
+    S, H, hd, d = max(ENCODER_BUCKETS), cfg.n_heads, cfg.head_dim, cfg.d_model
+    B = ENCODER_LANES
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+
+    def row(name, shape, err, tol, ok, n_bytes, flops, fn, **detail):
+        b_ms, b_by = bound_ms(n_bytes, flops, TC_PASSES.get(name, 0))
+        r = {"phase": "encoder_kernel", "name": name, "shape": shape, "max_abs_err": err, "tolerance": tol,
+             "ms": time_ms(fn, iters=5), "device_ms": time_ms(fn, iters=5, queued=True),
+             "bound_ms": b_ms, "bound_by": b_by, **detail}
+        emit(r)
+        rows.append(r)
+        if not ok:
+            raise AssertionError(f"encoder {name} ({shape}): kernel and plain version disagree beyond {tol} "
+                                 f"(max abs error {err})")
+
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev) for _ in range(3))
+    lens_np = np.random.default_rng(S).integers(1, S + 1, B).astype(np.int32)
+    lens_np[:2] = (S, 5)
+    lens = torch.as_tensor(lens_np, device=dev)
+    for window, kind in ((None, "global"), (cfg.local_window // 2 + 1, "local")):
+        w = window or S
+        got = dispatch.dense_attention(q, k, v, causal=False, kv_len=lens, window=window)
+        err = 0.0
+        with torch.no_grad():
+            for b in range(B):
+                want = ref.span_attention(*(t[b:b + 1].permute(0, 2, 1, 3) for t in (q, k, v)),
+                                          torch.full((H,), w, dtype=torch.int32, device=dev), causal=False,
+                                          kv_lens=lens[b:b + 1, None].expand(-1, H))
+                err = max(err, (got[b:b + 1].permute(0, 2, 1, 3) - want).abs().max().item())
+                del want
+        pairs = sum(visible_pairs(S, int(kv), w - 1 if window else -1) for kv in lens_np)
+        row("span_attention", f"{kind}: B={B}, S={S}, H={H}, dh={hd}, window={w}, kv_lens in [5, {S}], "
+            "[B, S, H, dh]", err, "atol 2e-5", err <= 2e-5,
+            (2 * B * H * S * hd + 2 * H * hd * int(lens_np.sum())) * 4 + B * 4, 4.0 * hd * H * pairs,
+            lambda: dispatch.dense_attention(q, k, v, causal=False, kv_len=lens, window=window),
+            visible_pairs=pairs, kv_lens=lens_np.tolist())
+        del got
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    lp = model._layer(params, 0)[0]
+    masks = dispatch.mlp_block_masks(lp["mlp"])
+    scale = lp["mlp_norm"]["scale"] + 0.1 * torch.randn(d, generator=g, device=dev)
+    zero = torch.zeros(d, device=dev)
+    for lanes in (1, B):
+        M = lanes * S
+        for name in ("w_up", "w_down"):
+            w, m = lp["mlp"][name], masks[name]
+            K, N = w.shape
+            x = torch.randn(M, K, generator=g, device=dev)
+            got = block_sparse.block_sparse_matmul(x, w, m)
+            want = ref.block_sparse_matmul(x, w, m.mask, m.bk, m.bn)
+            err, ok = (got - want).abs().max().item(), torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+            tiles = m.occupied
+            row("block_sparse_matmul", f"{name}: M={M} ({lanes} x {S}), {K}x{N} ({tiles}/{m.mask.size} tiles)",
+                err, "rtol 1e-5 + atol 1e-5", ok,
+                M * K * 4 + tiles * m.bk * m.bn * 4 + m.indices.numel() * 4 + M * N * 4,
+                2.0 * M * tiles * m.bk * m.bn, lambda: block_sparse.block_sparse_matmul(x, w, m))
+            del x, got, want
+        x = torch.randn(M, d, generator=g, device=dev) * 3.0
+        err = (dispatch.layernorm(x, scale, zero, eps=cfg.norm_eps)
+               - ref.layernorm(x, scale, zero, eps=cfg.norm_eps)).abs().max().item()
+        row("layernorm", f"[{M}, {d}] fp32 ({lanes} x {S}), scale only, eps {cfg.norm_eps}", err, "atol 1e-5",
+            err <= 1e-5, (2 * M * d + 2 * d) * 4, 8.0 * M * d,
+            lambda: dispatch.layernorm(x, scale, zero, eps=cfg.norm_eps))
+        x[: S // 2] *= 1e-3
+        e_cpu = group_exp_bias(x.cpu(), S)
+        qx, e_min = quantize_groups(x, S)
+        err = (qx.cpu() - ref.quantize(x.cpu(), e_cpu, S)).abs().max().item()
+        row("af_quantize", f"[{M}, {d}] fp32, {lanes} row group{'s' if lanes > 1 else ''} of {S}", err,
+            "atol 0 and equal biases (against the CPU plain version)",
+            err == 0.0 and torch.equal(e_min.cpu(), e_cpu), 2 * M * d * 4 + lanes * 4, 20.0 * M * d,
+            lambda: quantize_groups(x, S))
+        del x, qx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def encoder_drain(model, params, docs, dev, threshold, **kw):
+    """One ClassifierServer drain of ``docs`` (ENCODER_LANES lanes,
+    ENCODER_BUCKETS) at ``threshold``; returns (server, wall seconds)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ClassifierServer
+
+    cfg = model.cfg.with_edgebert(early_exit=dataclasses.replace(model.cfg.edgebert.early_exit,
+                                                                 entropy_threshold=threshold))
+    srv = ClassifierServer(build_model(cfg), params, batch_lanes=ENCODER_LANES, buckets=ENCODER_BUCKETS,
+                           device=dev, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    serve(srv, docs)
+    torch.cuda.synchronize()
+    return srv, time.perf_counter() - t
+
+
+def run_encoder_path(dev) -> dict:
+    """ModernBERT-large (28 unshared layers, d 1024, windows 65 and 8192)
+    served through ClassifierServer on the card, each lane at its own
+    layer: the weights drawn on the card from seed 0 with every layer's MLP
+    pruned to 0.5 in 32 x 32 tiles; the step's kernels at its shapes
+    (``check_encoder_kernels``); then, activation quantization off, a
+    full-depth drain of the documents for the threshold (about half exit
+    early) and the kernel route against the plain route at it: exits equal
+    (but where an entropy lies within ENCODER_ATOL of the threshold),
+    entropy traces and exit logits within ENCODER_ATOL; then the deployed
+    stack (AF(8, 3) after every layer, a shared-clock arbiter over the mean
+    of the global and local layers) with the launch counts zeroed just
+    before the drain: one layer call per depth group, layernorm twice a
+    group (once at layer 0: its attention norm is the identity),
+    af_quantize and span_attention once, block_sparse_matmul twice, nothing
+    else (the off-ramp runs on the reference ops), matched against the
+    engine's layer log step by step; more groups than steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.early_exit import fit_exit_predictor
+    from repro_torch.core.pruning import magnitude_mask
+    from repro_torch.hwmodel.edgebert_accel import modernbert_layer_stats
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serving.dvfs import BatchedDVFSArbiter, default_albert_controller, no_early_exit_baseline
+    from repro_torch.serving.engine import ClassifierServer
+
+    seconds, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        seconds[name] = time.perf_counter() - t
+        t = time.perf_counter()
+
+    cfg = get_config("modernbert_large")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    mlp = params["layers"]["mlp"]
+    with torch.no_grad():
+        for name in ("w_up", "w_down"):
+            for i in range(cfg.n_layers):
+                mlp[name][i] *= magnitude_mask(mlp[name][i], cfg.edgebert.prune.encoder_sparsity, block_size=32)
+    model = build_model(cfg)
+    emit({"phase": "encoder_weights", "config": cfg.name, "params": sum(t_.numel() for t_ in leaves(params)),
+          "gb": n_bytes(params) / 1e9})
+    lap("weights")
+    kernel_rows = check_encoder_kernels(model, params, dev)
+    lap("kernels")
+
+    r = np.random.default_rng(0)
+    docs = [r.integers(3, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in r.integers(ENCODER_LENGTHS[0], ENCODER_LENGTHS[1] + 1, ENCODER_DOCS)]
+    plain_model = build_model(cfg.with_edgebert(quant=dataclasses.replace(cfg.edgebert.quant, enabled=False)))
+    full, _ = encoder_drain(plain_model, params, docs, dev, 0.0)
+    traces = np.asarray([full.done[i].entropy_trace for i in range(len(docs))], np.float64)
+    thr = pick_threshold(traces)
+    lap("profile")
+    routes = {k: encoder_drain(plain_model, params, docs, dev, thr, use_kernels=k == "kernel")
+              for k in ("kernel", "plain")}
+    lap("routes")
+    (kern, kern_s), (plain, plain_s) = routes["kernel"], routes["plain"]
+    ent_err = lg_err = 0.0
+    mismatched, excused = [], []
+    for i in range(len(docs)):
+        a, b = kern.done[i], plain.done[i]
+        n = min(len(a.entropy_trace), len(b.entropy_trace))
+        ta, tb = np.asarray(a.entropy_trace[:n]), np.asarray(b.entropy_trace[:n])
+        ent_err = max(ent_err, float(np.abs(ta - tb).max()))
+        if a.exit_layer == b.exit_layer:
+            lg_err = max(lg_err, float(np.abs(np.asarray(a.result) - np.asarray(b.result)).max()))
+        else:
+            (excused if np.abs(tb - thr).min() < ENCODER_ATOL else mismatched).append(i)
+    routes_line = {"phase": "encoder_routes", "threshold": thr, "documents": len(docs),
+                   "exits": [kern.done[i].exit_layer for i in range(len(docs))],
+                   "entropy_max_abs_err": ent_err, "exit_logits_max_abs_err": lg_err, "atol": ENCODER_ATOL,
+                   "exit_mismatches": mismatched, "exit_mismatches_at_threshold": excused,
+                   "kernel_drain_s": kern_s, "plain_drain_s": plain_s}
+    emit(routes_line)
+    if mismatched or ent_err > ENCODER_ATOL or lg_err > ENCODER_ATOL:
+        raise AssertionError(f"encoder: the kernel route and the plain route differ: {routes_line}")
+
+    S = max(ENCODER_BUCKETS)
+    stats = modernbert_layer_stats(seq_len=S, d=cfg.d_model, ff=cfg.d_ff, heads=cfg.n_heads, n_layers=cfg.n_layers,
+                                   global_every=cfg.global_every, local_span=cfg.local_window)
+    below = np.concatenate([traces[:, :-1] < thr, np.ones((len(docs), 1), bool)], axis=1)
+    ctrl = default_albert_controller(no_early_exit_baseline(stats)["latency_s"], seq_len=S, n_layers=cfg.n_layers,
+                                     predictor=fit_exit_predictor(traces[:, 0], np.argmax(below, axis=1) + 1,
+                                                                  n_bins=8), stats=stats)
+    dep_cfg = cfg.with_edgebert(early_exit=dataclasses.replace(cfg.edgebert.early_exit, entropy_threshold=thr))
+    srv = ClassifierServer(build_model(dep_cfg), params, batch_lanes=ENCODER_LANES, buckets=ENCODER_BUCKETS,
+                           device=dev, arbiter=BatchedDVFSArbiter(ctrl))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve(srv, docs)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    lap("deployed")
+    tel = srv.telemetry()
+    groups = [sorted({int(x) for x in layers if x >= 0}) for _, layers in srv.layer_log]
+    n_groups = sum(len(gs) for gs in groups)
+    want = {k: 0 for k in launches}
+    want.update(span_attention=n_groups, af_quantize=n_groups, block_sparse_matmul=2 * n_groups,
+                layernorm=sum(1 if layer == 0 else 2 for gs in groups for layer in gs))
+    exits = [srv.done[i].exit_layer for i in range(len(docs))]
+    result = {
+        "phase": "encoder", "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "lanes": ENCODER_LANES, "buckets": ENCODER_BUCKETS, "documents": len(docs),
+        "lengths": [len(x) for x in docs], "threshold": thr, "exits": exits,
+        "exit_layer_counts": {int(e): int(c) for e, c in zip(*np.unique(exits, return_counts=True))},
+        "launches": launches, "launches_want": want, "steps": len(groups), "depth_groups": n_groups,
+        "max_groups_per_step": max(len(gs) for gs in groups),
+        "telemetry": {k: tel[k] for k in ("dense_steps", "depth_groups", "layer_calls", "lane_layers_global",
+                                          "lane_layers_local", "host_syncs")},
+        "drain_s": drain_s, "documents_per_s": len(docs) / drain_s,
+        "drain_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "kernel_rows": len(kernel_rows), "seconds": seconds,
+    }
+    emit(result)
+    if launches != want:
+        raise AssertionError(f"encoder: launches {launches}, want {want} from the layer log")
+    if not (tel["depth_groups"] == n_groups and tel["dense_steps"] == len(groups) and n_groups > len(groups)
+            and tel["lane_layers_global"] + tel["lane_layers_local"] == tel["layer_calls"]):
+        raise AssertionError(f"encoder: telemetry {result['telemetry']} against the layer log "
+                             f"({len(groups)} steps, {n_groups} groups)")
+    if not all(1 <= e <= cfg.n_layers for e in exits) or len(set(exits)) < 3:
+        raise AssertionError(f"encoder: exits {exits}")
     return result
 
 
@@ -4974,6 +5265,7 @@ def main() -> int:
     serving = timed("serving", run_serving_path, scfg, sparams, dev)
     sharded = timed("sharded", run_sharded_path, scfg, sparams, dev, serving.pop("ctx"))
     replay = timed("replay", run_replay_path, scfg, dev)
+    encoder = timed("encoder", run_encoder_path, dev)
     decode = timed("decode", run_decode_path, dev)
     moe_decode = timed("moe_decode", run_decode_path, dev, "qwen2_moe_a2p7b")
     ln_decode = timed("ln_decode", run_decode_path, dev, "minitron_8b")
@@ -4994,7 +5286,8 @@ def main() -> int:
     emit({"phase": "seconds", "by_phase": seconds})
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
-                   "replay": replay["launches"][r["name"]], "decode": decode["launches"][r["name"]],
+                   "replay": replay["launches"][r["name"]], "encoder": encoder["launches"][r["name"]],
+                   "decode": decode["launches"][r["name"]],
                    "eb_decode": decode["eb_decode"]["launches"][r["name"]],
                    "moe_decode": moe_decode["launches"][r["name"]], "ln_decode": ln_decode["launches"][r["name"]],
                    "ssm_decode": ssm_decode["launches"][r["name"]],

@@ -5,11 +5,13 @@ ALBERT configurations (``albert_base``, ``albert_edgebert``), the dense
 decoders ``deepseek_7b``, ``minitron_8b``, ``internlm2_20b`` and
 ``qwen1_5_110b``, the MoE decoders ``qwen2_moe_a2p7b`` and
 ``qwen3_moe_235b``, the RWKV6 decoder ``rwkv6_7b``, the hybrid
-``zamba2_1p2b``, the encoder-decoder ``whisper_medium`` and the vision
-decoder ``llama3_2_vision_90b`` exist here; each exposes ``CONFIG`` (the published size) and ``smoke_config()``
+``zamba2_1p2b``, the encoder-decoder ``whisper_medium``, the vision
+decoder ``llama3_2_vision_90b`` and the encoder classifier ``modernbert_large``
+(a configuration of the port alone) exist here; each exposes ``CONFIG`` (the published size) and ``smoke_config()``
 (a reduced same-family config for CPU tests).  ``ShapeConfig`` / ``SHAPES``
 and ``ARCH_IDS`` are the JAX package's shape sheet and architecture list,
-which the sharding rules read.
+which the sharding rules read; ``modernbert_large`` is in ``PORTED_ARCHS``
+and not in ``ARCH_IDS``.
 """
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ class EdgeBertConfig:
 # Model config — unified across the 6 assigned families
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("dense", "encdec", "hybrid", "moe", "vlm", "ssm", "albert")
+FAMILIES = ("dense", "encdec", "hybrid", "moe", "vlm", "ssm", "albert", "encoder")
 
 
 @dataclass(frozen=True)
@@ -97,7 +99,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // n_heads
-    act: str = "swiglu"              # swiglu | gelu | relu2
+    act: str = "swiglu"              # swiglu | gelu | relu2 | geglu
     norm: str = "rms"                # rms | layernorm
     pos: str = "rope"                # rope | learned | none
     rope_theta: float = 10000.0
@@ -127,6 +129,13 @@ class ModelConfig:
     # --- VLM cross-attention ---
     cross_attn_every: int = 0        # cross-attn layer inserted every N layers
     n_image_tokens: int = 1601       # stubbed patch-embedding count
+    # --- encoder (ModernBERT): global attention every ``global_every``
+    # layers (layer i when i % global_every == 0), the others local: key j
+    # visible to query i when |i - j| <= local_window // 2 ---
+    global_every: int = 0
+    local_window: int = 0
+    local_rope_theta: float = 0.0    # the local layers' RoPE theta
+    norm_eps: float = 1e-6           # the encoder family's LayerNorm epsilon (its norms: a scale, no bias)
     # --- classification head (EdgeBERT GLUE-style tasks) ---
     num_classes: int = 0             # 0 -> LM head only
     # --- EdgeBERT features ---
@@ -196,8 +205,8 @@ class ModelConfig:
         attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         if self.family == "ssm":      # rwkv6: time-mix + channel-mix
             per_layer = 4 * d * d + 2 * d * ff + d * ff  # r,k,v,o + decay lora approx
-        elif self.family in ("dense", "albert", "vlm"):
-            mlp = (3 if self.act == "swiglu" else 2) * d * ff
+        elif self.family in ("dense", "albert", "vlm", "encoder"):
+            mlp = (3 if self.act in ("swiglu", "geglu") else 2) * d * ff
             per_layer = attn + mlp
         elif self.family == "moe":
             mlp = self.n_experts * 3 * d * self.moe_d_ff
@@ -240,6 +249,24 @@ class ModelConfig:
 
     def with_edgebert(self, **kw) -> "ModelConfig":
         return replace(self, edgebert=replace(self.edgebert, **kw))
+
+
+# the fields of the port's own encoder family, which the JAX package's
+# ModelConfig does not have
+PORT_ONLY_FIELDS = ("global_every", "local_window", "local_rope_theta", "norm_eps")
+
+
+def jax_fields(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` less ``PORT_ONLY_FIELDS``, each of which
+    must be at its default: the fields a config of the JAX package has."""
+    from dataclasses import asdict, fields
+
+    defaults = {f.name: f.default for f in fields(ModelConfig) if f.name in PORT_ONLY_FIELDS}
+    d = asdict(cfg)
+    moved = {k: d[k] for k in PORT_ONLY_FIELDS if d[k] != defaults[k]}
+    if moved:
+        raise ValueError(f"{cfg.name} sets the port's own fields {moved}")
+    return {k: v for k, v in d.items() if k not in PORT_ONLY_FIELDS}
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +321,7 @@ ARCH_IDS = (
 
 PORTED_ARCHS = ("albert_base", "albert_edgebert", "deepseek_7b", "minitron_8b", "internlm2_20b", "qwen1_5_110b",
                 "qwen2_moe_a2p7b", "qwen3_moe_235b", "rwkv6_7b", "zamba2_1p2b", "whisper_medium",
-                "llama3_2_vision_90b")
+                "llama3_2_vision_90b", "modernbert_large")
 
 
 def _config_module(arch: str):

@@ -1,7 +1,10 @@
 """Entropy-based early exit (paper §III-A, Fig. 4; DeeBERT-style off-ramps).
 
 One shared off-ramp (pooler d x d + classifier d x C) is evaluated after
-every encoder block; a sentence exits when H(logits) < T_E.
+every encoder block; a sentence exits when H(logits) < T_E.  The port's
+encoder family (ModernBERT) has one off-ramp per layer in its own head form
+(``Model.encoder_offramp``), as DeeBERT gives each unshared layer its
+own.
 
 Two parts, as in the JAX package's ``core/early_exit.py``:
 

@@ -341,6 +341,32 @@ def task_swap_cost(weight_bytes: float, bitmask_bytes: float) -> Dict[str, float
     }
 
 
+def modernbert_layer_stats(seq_len: int = 8192, d: int = 1024, ff: int = 2624, heads: int = 16,
+                           n_layers: int = 28, global_every: int = 3, local_span: int = 128) -> WorkloadStats:
+    """Analytic ModernBERT encoder layer workload (the port's encoder family;
+    not in the JAX package), one layer priced as the MEAN over its
+    ``n_layers`` layers: every ``global_every``-th attends over all
+    ``seq_len`` keys, the others over ``local_span`` keys per query (10
+    global and 18 local of 28 at ModernBERT-large's defaults).  q, k, v, o
+    and the GeGLU MLP (``Wi`` d -> 2 ff, ``Wo`` ff -> d) are the matmuls.
+    ``scale_stats_to_seq_len`` then scales the mean's score work
+    quadratically, where its local part would scale linearly: a bucket below
+    ``seq_len`` is priced below its local layers' cost."""
+    n_global = -(-n_layers // global_every)
+    mm = 2 * seq_len * d * (4 * d) + 2 * seq_len * d * (2 * ff) + 2 * seq_len * ff * d
+    keys = (n_global * seq_len + (n_layers - n_global) * min(local_span, seq_len)) / n_layers
+    score = 2 * 2 * seq_len * keys * d
+    vec = seq_len * (2 * d + heads * keys + 4 * d + 2 * ff)
+    return WorkloadStats(
+        matmul_flops=float(mm),
+        attention_score_flops=float(score),
+        vector_elems=float(vec),
+        n_layers=n_layers,
+        seq_len=seq_len,
+        avg_exit_layer=float(n_layers),
+    )
+
+
 def albert_layer_stats(seq_len: int = 128, d: int = 768, ff: int = 3072, heads: int = 12) -> WorkloadStats:
     """Analytic ALBERT-base encoder layer workload (paper Fig. 8: ~1.9 GFLOP
     for the 12-layer pass at S=128 => ~158 MFLOP/layer)."""

@@ -110,8 +110,10 @@ def dense_attention(
     *,
     causal: bool,
     kv_len: Optional[torch.Tensor] = None,   # [B] (or scalar) valid keys per row
+    window: Optional[int] = None,            # None: Sk (full attention)
 ) -> torch.Tensor:
-    """Span kernel with window = Sk (full attention) and per-row kv_len:
+    """Span kernel with window = Sk (full attention; or ``window``, the
+    encoder family's local layers: |i - j| < window) and per-row kv_len:
     the serving step's attention, whose lanes are right-padded to the bucket
     length and carry their true lengths.  The kernel reads q, k and v
     through permuted views and writes the [B, Sq, H, dh] result in place;
@@ -126,7 +128,7 @@ def dense_attention(
     if kv_len is not None:
         kvl = torch.as_tensor(kv_len, device=q.device).to(torch.int32).reshape(-1).expand(B)
     out = torch.empty((B, Sq, H, dh), dtype=torch.float32, device=q.device)
-    _span_k.span_attention_heads(q.float().permute(0, 2, 1, 3), kh, vh, None, k.shape[1],
+    _span_k.span_attention_heads(q.float().permute(0, 2, 1, 3), kh, vh, None, window or k.shape[1],
                                  causal=causal, kv_lens=kvl, out=out.permute(0, 2, 1, 3))
     return out.to(q.dtype)
 

@@ -4,7 +4,9 @@ RWKV6, hybrid and encoder-decoder models run: LayerNorm and RMS norm,
 rotary positions, span-aware attention (chunked online softmax, with the
 qkv biases where the tree has them) with or without a KV cache (float32 or
 AF8 codes), or with keys and values from another input (``kv_source``), and
-the GELU, squared-ReLU and SwiGLU MLPs.
+the GELU, squared-ReLU and SwiGLU MLPs; and for the port's encoder family
+(ModernBERT) LayerNorms without a bias, attention inside a hard window and
+the GeGLU MLP.
 
 ``use_kernels=True`` routes the eligible ops to the hand-written kernels
 through ``kernels.dispatch`` under the JAX package's eligibility rules;
@@ -38,23 +40,37 @@ def _ceil_div(a: int, b: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+_ZERO_BIAS: Dict[Tuple[torch.device, int, torch.dtype], torch.Tensor] = {}
+
+
+def _zero_bias(scale: torch.Tensor) -> torch.Tensor:
+    """A zero bias beside ``scale``, made once per (device, width, dtype):
+    the layernorm kernel reads a bias, and a norm without one adds zero."""
+    key = (scale.device, scale.shape[-1], scale.dtype)
+    if key not in _ZERO_BIAS:
+        _ZERO_BIAS[key] = torch.zeros(scale.shape[-1], dtype=scale.dtype, device=scale.device)
+    return _ZERO_BIAS[key]
+
+
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6,
                use_kernels: bool = False, kind: str = "layernorm") -> torch.Tensor:
     """LayerNorm with E[X^2] - E[X]^2 variance (the albert family's norm,
-    minitron-8b's and rwkv6-7b's), or with ``kind="rms"`` RMS norm
+    minitron-8b's and rwkv6-7b's; without ``norm_bias`` in ``p`` a scale
+    alone, the encoder family's), or with ``kind="rms"`` RMS norm
     (deepseek-7b's and the qwen decoders'; no kernel, as in the JAX package,
     so ``use_kernels`` does not apply to it)."""
     if kind == "rms":
         xf = x.float()
         var = (xf * xf).mean(dim=-1, keepdim=True)
         return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+    bias = p.get("norm_bias")
     if use_kernels:
-        return dispatch.layernorm(x, p["scale"], p["norm_bias"], eps=eps)
+        return dispatch.layernorm(x, p["scale"], _zero_bias(p["scale"]) if bias is None else bias, eps=eps)
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * p["scale"].float() + p["norm_bias"].float()).to(x.dtype)
+    y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float()
+    return (y if bias is None else y + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +110,13 @@ def _soft_span_block_mask(z: torch.Tensor, ramp: int, q_pos: torch.Tensor,
     return clip01((ramp + z.float()[None, :, None, None] - d[:, None].float()) / float(ramp))
 
 
+def _window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool) -> torch.Tensor:
+    """[B or 1, qb, kb] keys inside the hard window of each query: the span
+    kernel's rule, |i - j| < window (i - j < window causal)."""
+    d = q_pos[:, :, None] - k_pos[None, None, :]
+    return (d if causal else d.abs()) < window
+
+
 def _key_mask(k_pos: torch.Tensor, kv_len: Optional[torch.Tensor], Sk: int) -> torch.Tensor:
     """[B or 1, 1, kb] keys below each row's valid length."""
     if kv_len is None:
@@ -113,13 +136,15 @@ def attention(
     kv_block: int = 1024,
     kv_len: Optional[Any] = None,             # [B] (or scalar) valid keys per row
     q_offset: Any = 0,                        # [B] (or scalar) position of q[:, 0]
+    window: Optional[int] = None,             # hard window: |i - j| < window (0 <= i - j causal)
 ) -> torch.Tensor:
     """Chunked online-softmax attention (the reference twin of the span
     kernel).  Returns [B, Sq, H, hd].  ``kv_len`` and ``q_offset`` (the
     decode step's cache position) are per batch row: the JAX package
     ``vmap``s a one-lane body with scalars, the port writes the lane axis
     out, soft spans' ramps included (each lane's mask at its own query
-    positions)."""
+    positions).  With ``window`` the span kernel's hard window masks too; a
+    row with no visible key returns zeros, as the kernel's does."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -138,6 +163,8 @@ def attention(
         valid = _key_mask(k_pos, kvl, Sk)
         if causal:
             valid = valid & (q_pos[:, :, None] >= k_pos[None, None, :])
+        if window is not None:
+            valid = valid & _window_mask(q_pos, k_pos, window, causal)
         valid = valid.expand(B, Sq, Sk)
         s = torch.where(valid[:, :, None, None, :], s, float("-inf"))
         if span_z is not None:
@@ -173,6 +200,8 @@ def attention(
             mask = _key_mask(k_pos, kvl, Sk)
             if causal:
                 mask = mask & (q_pos[:, :, None] >= k_pos[None, None, :])
+            if window is not None:
+                mask = mask & _window_mask(q_pos, k_pos, window, causal)
             mask = mask.expand(B, q_block, kv_block)
             s = torch.where(mask[:, :, None, None, :], s, float("-inf"))
             if span_z is not None:
@@ -220,14 +249,17 @@ def attention_layer(
     cache_pos: Any = None,                   # [B] (or scalar) write position per lane
     kv_source: Optional[torch.Tensor] = None,  # [B, Sk, d] cross-attention keys / values input
     use_kernels: bool = False,
+    rope_theta: Optional[float] = None,       # None: the config's rope_theta
+    window: Optional[int] = None,             # hard window (cache-free only): |i - j| < window
 ) -> torch.Tensor:
     """Self-attention, or cross-attention to ``kv_source``, with the output
     projection.
 
     Cache-free (the classifier): with ``use_kernels`` and no soft spans,
-    attention goes to the span kernel (full window, per-row kv_len) as in
-    the JAX package (its ``attention_layer`` eligibility test); soft spans
-    keep the reference.
+    attention goes to the span kernel (full window, or ``window``; per-row
+    kv_len) as in the JAX package (its ``attention_layer`` eligibility
+    test); soft spans keep the reference.  ``rope_theta`` and ``window``
+    are the encoder family's per-layer kinds (global or local).
 
     With ``kv_source`` the keys and values are projected from it, with no
     rotary positions on either side, no causal mask and no cache, on the
@@ -259,15 +291,19 @@ def attention_layer(
     if cfg.pos == "rope":
         if positions is None:
             positions = torch.arange(S, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        theta = cfg.rope_theta if rope_theta is None else rope_theta
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     if cache is None:
         if use_kernels and span_z is None:
-            out = dispatch.dense_attention(q, k, v, causal=causal, kv_len=kv_len)
+            out = dispatch.dense_attention(q, k, v, causal=causal, kv_len=kv_len, window=window)
         else:
-            out = attention(q, k, v, causal=causal, span_z=span_z, span_ramp=span_ramp, kv_len=kv_len)
+            out = attention(q, k, v, causal=causal, span_z=span_z, span_ramp=span_ramp, kv_len=kv_len,
+                            window=window)
         return out.reshape(B, S, H * hd) @ p["wo"]
 
+    if window is not None:
+        raise ValueError("a hard window is cache-free only")
     if kv_len is not None:
         raise ValueError("kv_len is derived from the cache")
     ck, cv = cache
@@ -304,8 +340,10 @@ def apply_mlp(
     """w_up -> gelu (tanh form, jax.nn.gelu's default) or with
     ``act="relu2"`` the squared ReLU (minitron-8b's) -> w_down, each in fp32
     and cast back, or with ``act="swiglu"`` silu(x @ w_gate) * (x @ w_up)
-    -> w_down; with ``use_kernels`` a block-pruned weight goes to the
-    block-sparse kernel."""
+    -> w_down, or with ``act="geglu"`` (ModernBERT's) w_up [d, 2 ff] split
+    in halves, gelu(first half, exact erf form) * second half -> w_down;
+    with ``use_kernels`` a block-pruned weight goes to the block-sparse
+    kernel."""
     def mm(h_, name):
         if use_kernels and block_masks and block_masks.get(name) is not None:
             return dispatch.sparse_matmul(h_, p[name], block_masks[name])
@@ -317,6 +355,9 @@ def apply_mlp(
         h = F.gelu(mm(x, "w_up").float(), approximate="tanh").to(x.dtype)
     elif act == "relu2":
         h = torch.square(torch.relu(mm(x, "w_up").float())).to(x.dtype)
+    elif act == "geglu":
+        a, g = mm(x, "w_up").chunk(2, dim=-1)
+        h = (F.gelu(a.float()) * g.float()).to(x.dtype)
     else:
         raise ValueError(f"activation {act!r} is not ported")
     return mm(h, "w_down")

@@ -3,7 +3,9 @@ dense and MoE decoder families, the ssm family (RWKV6), the hybrid family
 (zamba2: Mamba2 blocks and a shared attention block), the encoder-decoder
 family (whisper) and the vision decoder family (llama-3.2-vision: groups of
 self-attention layers, each followed by a gated cross-attention layer over
-image embeddings).
+image embeddings); and the port's own encoder family (ModernBERT: unshared
+pre-LN layers, global and windowed attention, an off-ramp per layer), which
+the JAX package does not have.
 
 ``init_params`` returns a tree with exactly the keys and shapes of the JAX
 package's ``Model.init_params`` for those families, with the same init
@@ -57,6 +59,7 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.common.device import DeviceLike, draw_device, resolve_device
@@ -259,6 +262,49 @@ def _check_dense(cfg: ModelConfig) -> None:
                          "untied head and no shared layers, are ported")
 
 
+def _check_encoder(cfg: ModelConfig) -> None:
+    """The encoder as ModernBERT has it: unshared pre-LN layers with a GeGLU
+    MLP, LayerNorms, rotary positions, global attention every
+    ``global_every`` layers and a local window in the others; no qkv bias,
+    no adaptive spans (the windows are hard)."""
+    if (cfg.shared_layers or (cfg.act, cfg.norm, cfg.pos) != ("geglu", "layernorm", "rope") or cfg.qkv_bias
+            or cfg.global_every < 1 or cfg.local_window < 2 or cfg.local_rope_theta <= 0
+            or cfg.n_heads != cfg.n_kv_heads or cfg.edgebert.span.enabled):
+        raise ValueError("only the encoder of ModernBERT's kind (unshared pre-LN layers, geglu, layernorm, "
+                         "rope, global attention every global_every layers and a local window between, with "
+                         "a local_rope_theta of its own, no qkv bias, no adaptive spans) is ported")
+
+
+def _init_encoder_params(cfg: ModelConfig, gen: torch.Generator, dev: torch.device) -> Params:
+    """The encoder family's tree: the token embedding and its LayerNorm (no
+    position table: rotary positions), the layers stacked on a leading
+    [n_layers] axis (``attn_norm``, which layer 0 does not apply; q, k, v, o
+    of d x d; ``mlp_norm``; the GeGLU MLP's ``w_up`` [d, 2 d_ff], its halves
+    the gelu input and the gate, and ``w_down``), and one off-ramp per layer
+    in ModernBERT's head form, stacked the same way (its own LayerNorm,
+    ``dense``, ``head_norm``, the classifier ``cls_w`` / ``cls_b``): the
+    last one is the published model's final norm, head and classifier.
+    Normal weights scaled by 1 / sqrt(fan-in), the embedding by 0.02, unit
+    norm scales (the norms have no bias), a zero classifier bias."""
+    dtype = _DTYPES[cfg.dtype]
+    d, L_, ff = cfg.d_model, cfg.n_layers, cfg.d_ff
+    C = cfg.num_classes or cfg.edgebert.early_exit.num_classes
+
+    def dense(shape):
+        return _normal(gen, (L_,) + tuple(shape), 1.0 / math.sqrt(shape[0]), dev).to(dev, dtype)
+
+    def norm(*lead):
+        return {"scale": torch.ones(lead + (d,), dtype=dtype, device=dev)}
+
+    return {
+        "embed": {"tok": _normal(gen, (cfg.vocab_size, d), 0.02, dev).to(dev, dtype), "norm": norm()},
+        "layers": {"attn_norm": norm(L_), "attn": {k: dense((d, d)) for k in ("wq", "wk", "wv", "wo")},
+                   "mlp_norm": norm(L_), "mlp": {"w_up": dense((d, 2 * ff)), "w_down": dense((ff, d))}},
+        "offramps": {"norm": norm(L_), "dense": dense((d, d)), "head_norm": norm(L_), "cls_w": dense((d, C)),
+                     "cls_b": torch.zeros((L_, C), dtype=dtype, device=dev)},
+    }
+
+
 DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 REMAT_POLICIES = ("none", "dots", "full")
 
@@ -270,17 +316,18 @@ def init_params(
 ) -> Params:
     """Random params on ``device``.  The albert family draws from
     ``generator`` (a seed-0 CPU generator when None); the decoder families
-    from ``generator`` on the generator's own device (a seed-0 generator on
-    ``device`` when None), so a 7B tree made for the card is drawn there.
+    and the encoder family from ``generator`` on the generator's own device
+    (a seed-0 generator on ``device`` when None), so a 7B tree made for the
+    card is drawn there.
     On ``device="meta"`` the tree has every leaf's shape and dtype and
     nothing is drawn or allocated (the sharding rules' input)."""
-    if cfg.family in DECODER_FAMILIES:
-        _check_dense(cfg)
+    if cfg.family in DECODER_FAMILIES + ("encoder",):
+        (_check_encoder if cfg.family == "encoder" else _check_dense)(cfg)
         dev = resolve_device(device)
         # the meta device has no generator: shapes only, nothing drawn
         gen = generator if generator is not None else torch.Generator(
             device="cpu" if dev.type == "meta" else dev).manual_seed(0)
-        return _init_dense_params(cfg, gen, dev)
+        return (_init_encoder_params if cfg.family == "encoder" else _init_dense_params)(cfg, gen, dev)
     if (cfg.family, cfg.act, cfg.norm, cfg.qkv_bias, cfg.tie_embeddings) != (
         "albert", "gelu", "layernorm", False, True
     ):
@@ -377,9 +424,11 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family in DECODER_FAMILIES:
             _check_dense(cfg)
+        elif cfg.family == "encoder":
+            _check_encoder(cfg)
         elif cfg.family != "albert" or not cfg.shared_layers:
-            raise ValueError("only the albert family (one shared layer) and the dense, MoE, ssm, hybrid, "
-                             "encdec and vlm families are ported")
+            raise ValueError("only the albert family (one shared layer), the encoder family and the dense, "
+                             "MoE, ssm, hybrid, encdec and vlm families are ported")
         if cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of {', '.join(REMAT_POLICIES)}")
         self.cfg = cfg
@@ -390,6 +439,8 @@ class Model:
     # ------------------------------------------------------------ embedding
     def embed(self, p: Params, tokens: torch.Tensor, positions=None) -> torch.Tensor:
         h = p["embed"]["tok"][tokens.long()]
+        if "norm" in p["embed"]:               # the encoder family's embedding LayerNorm
+            return L.apply_norm(p["embed"]["norm"], h, eps=self.cfg.norm_eps)
         if "proj" in p["embed"]:
             h = h @ p["embed"]["proj"]
         if self.cfg.pos == "learned":
@@ -486,6 +537,52 @@ class Model:
             aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
         h = self._maybe_actquant(self._sp_constrain(h + mo), use_kernels=use_kernels, per_lane=per_lane)
         return (h, aux) if with_aux else h
+
+    def is_global(self, layer: int) -> bool:
+        """Whether encoder layer ``layer`` attends globally (else in its
+        local window)."""
+        return layer % self.cfg.global_every == 0
+
+    def encoder_layer_step(
+        self,
+        lp: Params,
+        h: torch.Tensor,               # [B, S, D]
+        *,
+        layer: int,
+        kv_len: Optional[Any] = None,  # [B] valid tokens per row
+        use_kernels: bool = False,
+        block_masks: Optional[Dict[str, Any]] = None,
+        per_lane: bool = False,
+    ) -> torch.Tensor:
+        """One encoder layer (ModernBERT's ``ModernBertEncoderLayer``), pre-LN:
+        h + attention(attn_norm(h)) (layer 0's attn_norm is the identity),
+        then h + GeGLU(mlp_norm(h)), then the activation quantization.  A
+        global layer attends to every key below the row's kv_len with RoPE
+        at ``rope_theta``; a local one to the keys within ``local_window //
+        2`` of the query (the span kernel's window ``local_window // 2 + 1``)
+        with RoPE at ``local_rope_theta``."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        glob = self.is_global(layer)
+        x = h if layer == 0 else L.apply_norm(lp["attn_norm"], h, eps=eps, use_kernels=use_kernels)
+        h = h + L.attention_layer(lp["attn"], x, cfg, causal=False, kv_len=kv_len, use_kernels=use_kernels,
+                                  rope_theta=cfg.rope_theta if glob else cfg.local_rope_theta,
+                                  window=None if glob else cfg.local_window // 2 + 1)
+        x = L.apply_norm(lp["mlp_norm"], h, eps=eps, use_kernels=use_kernels)
+        h = h + L.apply_mlp(lp["mlp"], x, use_kernels=use_kernels, block_masks=block_masks, act=cfg.act)
+        return self._maybe_actquant(h, use_kernels=use_kernels, per_lane=per_lane)
+
+    def encoder_offramp(self, p: Params, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """The off-ramp after encoder layer ``layer`` on the CLS rows (token
+        0) of ``h`` [B, S, D] -> logits [B, C], in ModernBERT's head form:
+        its own LayerNorm (in the published model's last off-ramp, the final
+        norm), ``dense``, GELU (exact erf form), ``head_norm``, then the
+        classifier ``cls_w`` / ``cls_b``; on the reference ops (no kernel
+        computes this head)."""
+        o, eps = self._layer(p, layer, "offramps")[0], self.cfg.norm_eps
+        x = L.apply_norm(o["norm"], h[:, 0].float(), eps=eps)
+        x = L.apply_norm(o["head_norm"], F.gelu(x @ o["dense"]), eps=eps)
+        return x @ o["cls_w"] + o["cls_b"]
 
     def _rwkv_layer_step(self, lp: Params, h: torch.Tensor, *, states: Optional[Params] = None,
                          decode: bool = False, per_lane: bool = False):
@@ -594,8 +691,9 @@ class Model:
     def _layer(self, p: Params, i: int, key: str = "layers"):
         """(layer params, span) of layer ``i``: the shared layer (albert) or
         views into the stacked layers under ``key`` (dense, MoE, ssm,
-        hybrid, vlm; the encdec family's "enc_layers" and "dec_cross" and
-        the vlm family's "cross_layers" too)."""
+        hybrid, vlm, encoder; the encdec family's "enc_layers" and
+        "dec_cross", the vlm family's "cross_layers" and the encoder
+        family's "offramps" too)."""
         if self.cfg.family == "albert":
             return p["layer"], self._span_for_layer(p, 0)
 
@@ -649,13 +747,15 @@ class Model:
         router aux loss summed over layers; the ssm and hybrid families from
         a zero state through the chunked WKV and SSD; the encdec family over
         ``batch["enc_input"]`` frames, the vlm family over
-        ``batch["image_embeds"]``).  It runs on the reference ops only (no
+        ``batch["image_embeds"]``; the encoder family's all-layers pass with
+        an off-ramp after each, over ``batch["lengths"]`` valid tokens per
+        row where given).  It runs on the reference ops only (no
         kernel has a backward, and the JAX package passes no kernel flag
         here), so autograd differentiates it end to end, as XLA
         differentiates the JAX package's."""
         forward = {"albert": self._forward_albert, "dense": self._forward_dense, "moe": self._forward_dense,
                    "ssm": self._forward_ssm, "hybrid": self._forward_hybrid, "encdec": self._forward_encdec,
-                   "vlm": self._forward_vlm}[self.cfg.family]
+                   "vlm": self._forward_vlm, "encoder": self._forward_encoder}[self.cfg.family]
         return forward(p, torch.as_tensor(batch["tokens"], device=p["embed"]["tok"].device), batch)
 
     def _aux_input(self, batch: Dict[str, Any], key: str, what: str, device) -> torch.Tensor:
@@ -801,6 +901,30 @@ class Model:
         cls = self.cls_logits(p, h) if "classifier" in p else None
         logits = self.lm_logits(p, h) if cfg.vocab_size else None
         return ModelOutput(logits=logits, cls_logits=cls, aux_loss=aux)
+
+    def _forward_encoder(self, p: Params, tokens: torch.Tensor, batch) -> ModelOutput:
+        """Every encoder layer, bidirectional, each followed by its off-ramp
+        (``encoder_offramp``): every off-ramp's logits and entropy, the exit
+        layers under the config's threshold and the exit logits.  The
+        activation quantization takes one bias per batch row (each row a
+        sentence padded to the batch's length, as the serving step gives
+        each lane its own), and ``batch["lengths"]`` masks each row's
+        padding out of attention."""
+        cfg = self.cfg
+        h = self.embed(p, tokens)
+        lengths = batch.get("lengths")
+        kv_len = None if lengths is None else torch.as_tensor(lengths, device=h.device)
+        step = self._remat(lambda lp, h, i: self.encoder_layer_step(lp, h, layer=i, kv_len=kv_len, per_lane=True))
+        logits = []
+        for i, lp in enumerate(_unstack(p["layers"])):
+            h = step(lp, h, i)
+            logits.append(self.encoder_offramp(p, h, i))
+        all_logits = torch.stack(logits)
+        all_ent = entropy_from_logits(all_logits)
+        exit_layer, _ = ee.exit_decisions(all_ent, cfg.edgebert.early_exit.entropy_threshold)
+        return ModelOutput(cls_logits=ee.select_exit_logits(all_logits, exit_layer),
+                           aux_loss=torch.zeros((), dtype=torch.float32, device=h.device),
+                           all_cls_logits=all_logits, all_entropies=all_ent, exit_layer=exit_layer)
 
     # ---- token-level early exit (the decoder's training-time form) ----
     def _head_entropy(self, p: Params, h: torch.Tensor, use_kernels: bool = False):

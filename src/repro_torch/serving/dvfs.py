@@ -37,7 +37,7 @@ per step) is what the port's ``DecoderServer`` calls.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -772,9 +772,12 @@ def default_albert_controller(
     avg_exit_layer: Optional[float] = None,
     predictor: Optional[ExitPredictor] = None,
     online_calibrator: Optional[OnlineExitCalibrator] = None,
+    stats: Optional[WorkloadStats] = None,
 ) -> LatencyAwareDVFSController:
-    """Controller over the analytic ALBERT-base layer workload (Fig. 8)."""
-    stats = albert_layer_stats(seq_len=seq_len)
+    """Controller over the analytic ALBERT-base layer workload (Fig. 8), or
+    over ``stats`` (e.g. ``modernbert_layer_stats`` for the encoder family),
+    a copy of which takes ``n_layers``."""
+    stats = albert_layer_stats(seq_len=seq_len) if stats is None else replace(stats)
     stats.n_layers = n_layers
     if avg_exit_layer is not None:
         stats.avg_exit_layer = avg_exit_layer

@@ -9,7 +9,10 @@
 * ``ClassifierServer`` keeps a dense ``[lanes, S_bucket, D]`` hidden tensor
   per open bucket plus an active mask; one fused step runs encoder layer ->
   off-ramp logits -> entropy -> retire mask (``serving/step_math.py``), and
-  retired lanes refill from the bucket queue between steps.
+  retired lanes refill from the bucket queue between steps.  The albert
+  family's lanes all run the one shared layer; the encoder family's
+  (ModernBERT: unshared layers, an off-ramp each) run each lane's own next
+  layer, at the depth the scheduler keeps, one layer call per depth group.
 * DVFS, two modes, as in the JAX package: per-sentence Alg. 1 replay after
   retirement (``dvfs=``), or one shared-clock (V, f) decision per fused step
   from a ``BatchedDVFSArbiter`` (``arbiter=``).
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import itertools
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, TYPE_CHECKING
 
@@ -181,6 +185,9 @@ def _per_device(devices: Sequence[torch.device], make) -> list:
     return [made[d] for d in devices]
 
 
+# fused steps the encoder's layer log keeps (``ClassifierServer.layer_log``)
+LAYER_LOG_STEPS = 4096
+
 # unique per-server prefix for arbiter lane keys: several buckets (and, via a
 # shared arbiter, several servers) can hold lanes in flight at once
 _SERVER_IDS = itertools.count()
@@ -277,7 +284,11 @@ class ClassifierServer:
     deployment (cycles, quotes and lane energy priced on the compressed
     network).
 
-    ``layer_calls`` telemetry counts *active* lane-layer executions.  The
+    ``layer_calls`` telemetry counts *active* lane-layer executions,
+    ``lane_layers_global`` / ``lane_layers_local`` the same by the layer's
+    kind of attention (every albert layer global), ``depth_groups`` the
+    layer calls (one a step for the albert family's shared layer; one per
+    depth among the active lanes for the encoder family's).  The
     ``*_traces`` keys keep the JAX package's names for its one jit trace
     per bucket: here each counts the buckets whose step, embed or insert
     has run, one per bucket used however many requests it serves, and
@@ -302,8 +313,8 @@ class ClassifierServer:
         replicas: int = 1,
         devices: Optional[Sequence[DeviceLike]] = None,
     ):
-        if model.cfg.family != "albert":
-            raise ValueError("the classifier server drives the albert family")
+        if model.cfg.family not in ("albert", "encoder"):
+            raise ValueError("the classifier server drives the albert and encoder families")
         if dvfs is not None and arbiter is not None:
             raise ValueError("pass either a per-sentence controller (dvfs=) or a shared-clock "
                              "arbiter (arbiter=), not both: they model different hardware")
@@ -328,7 +339,14 @@ class ClassifierServer:
         # weights, per replica (one set per distinct device); None entries
         # keep a matmul dense
         self._block_masks = [None] * self.replicas
-        if use_kernels and "mlp" in self.params.get("layer", {}):
+        self._encoder = model.cfg.family == "encoder"
+        self._n_classes = self.params["offramps"]["cls_b"].shape[-1] if self._encoder else None
+        if use_kernels and self._encoder:
+            # the encoder's unshared layers: one set of masks per layer
+            masks = {id(p): [dispatch.mlp_block_masks(model._layer(p, i)[0]["mlp"])
+                             for i in range(model.cfg.n_layers)] for p in self._rparams}
+            self._block_masks = [masks[id(p)] for p in self._rparams]
+        elif use_kernels and "mlp" in self.params.get("layer", {}):
             masks = {id(p): dispatch.mlp_block_masks(p["layer"]["mlp"]) for p in self._rparams}
             self._block_masks = [masks[id(p)] for p in self._rparams]
         self._sid = next(_SERVER_IDS)
@@ -382,6 +400,14 @@ class ClassifierServer:
         self._stage: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self._lane_loads = 0
         self._load_flushes = 0
+        # layer calls by depth group (one group a step where every lane runs
+        # the one shared layer), and lane-layers by kind of attention
+        self._depth_groups = 0
+        self._lane_layers = {"global": 0, "local": 0}
+        # the encoder's last steps: (host ns as the step's outputs came back,
+        # the layer each lane ran, -1 where idle), for readers that price a
+        # step's work
+        self.layer_log: deque = deque(maxlen=LAYER_LOG_STEPS)
 
     def _built(self, kind: str, S: int) -> None:
         """Count the bucket's step / embed / insert once, at first use."""
@@ -578,6 +604,12 @@ class ClassifierServer:
                                        lambda arb, r, keys, floor: arb.step(keys, floor_hz=floor))
                 decision = decisions[0] if len(decisions) == 1 else (tuple(decisions) or None)
             self._built("step", bucket)
+            if self._encoder:
+                lg, ent, retire = self._encoder_step(bucket, np.asarray(active, bool))
+                st["out"] = (lg, ent, retire, decision)
+                return st["out"]
+            self._depth_groups += 1
+            self._lane_layers["global"] += int(np.count_nonzero(active))
             args = (self.model, self._rparams, st["h"], np.asarray(active, bool), st["len"],
                     float(self.threshold))
             for d in set(self.devices):
@@ -600,6 +632,48 @@ class ClassifierServer:
             st["h"] = h
             st["out"] = (lg, ent, retire, decision)
         return st["out"]
+
+    def _encoder_step(self, bucket: int, active: np.ndarray):
+        """The encoder family's fused step: each active lane runs its own
+        next layer, the one the scheduler's depth (``lane_depths``, read and
+        never copied) says.  Per replica, the lanes are grouped by depth
+        (``step_math.depth_groups``), one blocking copy takes the lanes'
+        lengths and the grouped lane order to the card, and each group runs
+        its layer and that layer's off-ramp (``step_math.encoder_group_step``,
+        an ``engine.layer_group`` span each); then the packed off-ramp rows
+        of every lane come back in one copy.  Returns (logits, entropy,
+        retire) on the host, idle lanes' rows zero."""
+        st, L = self._bstate[bucket], self.lanes_per_replica
+        depth = self.sched.lane_depths(bucket)
+        layers = np.full(self.lanes, -1, np.int16)
+        parts = []
+        with torch.no_grad():
+            for r, dev in enumerate(self.devices):
+                lo = r * L
+                order, groups = step_math.depth_groups(depth[lo:lo + L], active[lo:lo + L])
+                h = st["h"][r]
+                packed = torch.zeros((L, self._n_classes + 2), dtype=torch.float32, device=dev)
+                if groups:
+                    x = torch.as_tensor(np.concatenate([st["len"][lo:lo + L], order]).astype(np.int64)).to(dev)
+                    _synced(self, dev)
+                    lens, lanes = x[:L], x[L:]
+                    for layer, a, b in groups:
+                        with trace.span("engine.layer_group", layer):
+                            step_math.encoder_group_step(
+                                self.model, self._rparams[r], h, lanes[a:b], lens, layer, float(self.threshold),
+                                packed, use_kernels=self.use_kernels,
+                                block_masks=self._block_masks[r][layer] if self._block_masks[r] else None)
+                        self._depth_groups += 1
+                        self._lane_layers["global" if self.model.is_global(layer) else "local"] += b - a
+                        layers[lo + order[a:b]] = layer
+                parts.append(packed)
+            packed = step_math.gather(parts)
+            _synced(self, self.device)
+            with trace.span("step.readback"):
+                packed = packed.cpu().numpy()
+        self.layer_log.append((time.perf_counter_ns(), layers))
+        lg, ent, retire = step_math.unpack_head(packed)
+        return lg, ent, retire != 0
 
     def lane_advance(self, bucket: int, lane: int, req: Request, out, depth: int) -> bool:
         _, ent, retire, _ = out
@@ -719,6 +793,9 @@ class ClassifierServer:
             "host_syncs": self._host_syncs,
             "lane_loads": self._lane_loads,
             "load_flushes": self._load_flushes,
+            "depth_groups": self._depth_groups,
+            "lane_layers_global": self._lane_layers["global"],
+            "lane_layers_local": self._lane_layers["local"],
             **{k: st[k] for k in _LIFECYCLE_KEYS},
         }
         if self._ctrl is not None:

@@ -557,6 +557,13 @@ class LaneScheduler:
         if t is not None and t > self.now_s:
             self.now_s = float(t)
 
+    def lane_depths(self, bucket: int) -> np.ndarray:
+        """The open bucket's layers run per lane (0 for a lane just loaded),
+        the one record of each lane's depth: an engine whose lanes run
+        different layers reads it here before each step and keeps no copy.
+        Read only."""
+        return self._open[bucket].lane_depth
+
     def _predict_remaining(self, bucket: int, req: "Request", depth: int):
         hook = getattr(self.engine, "predict_remaining_steps", None)
         if hook is None:
@@ -932,6 +939,7 @@ class LaneScheduler:
                 if self._dense_steps
                 else 0.0
             ),
+            "modeled_now_s": self.now_s,
             "queue_delay_steps_p50": self._delays.percentile(50),
             "queue_delay_steps_p95": self._delays.percentile(95),
             "queue_delay_steps_p99": self._delays.percentile(99),

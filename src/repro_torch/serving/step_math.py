@@ -1,7 +1,9 @@
 """The math of one fused serving step, apart from scheduling (the port of
 ``repro/serving/step_math.py``): the classifier's step and the decoder's
 decode, early-exit decode, speculative decode and prefill, each also over
-replica slabs (``sharded_*``).
+replica slabs (``sharded_*``); and the port's own encoder family's step, in
+which each lane runs its own layer: lanes grouped by depth
+(``depth_groups``), one layer call per group (``encoder_group_step``).
 
 Every function here is tensor math only: no scheduler, no telemetry, no
 host state.  ``use_kernels`` routes the eligible inner ops (attention,
@@ -186,6 +188,51 @@ def sharded_classifier_head_step(
     outs = [classifier_head_step(model, p, hh, a, n, threshold, block_masks=m)
             for p, hh, a, n, m in zip(params, h, act, lens, masks)]
     return [o[0] for o in outs], gather([o[1] for o in outs])
+
+
+def depth_groups(depth: np.ndarray, active: np.ndarray) -> Tuple[np.ndarray, List[Tuple[int, int, int]]]:
+    """The active lanes grouped by the layer each runs next: ``(order,
+    groups)``, ``order`` the active lanes sorted by ``depth`` (stably:
+    lane order within a layer) and ``groups`` ``(layer, start, stop)``, the
+    lanes ``order[start:stop]`` at depth (0-based layer) ``layer``, layers
+    ascending."""
+    lanes = np.flatnonzero(active)
+    order = lanes[np.argsort(depth[lanes], kind="stable")]
+    d = depth[order]
+    cuts = np.flatnonzero(np.diff(d)) + 1
+    starts, stops = np.r_[0, cuts], np.r_[cuts, len(order)]
+    return order, [(int(d[a]), int(a), int(b)) for a, b in zip(starts, stops) if b > a]
+
+
+def encoder_group_step(
+    model: Model,
+    params: Any,
+    h: torch.Tensor,          # [lanes, S_bucket, D], written in place
+    lanes: torch.Tensor,      # [g] int64 lanes at this layer (on h's device)
+    lengths: torch.Tensor,    # [lanes] valid tokens per lane (on h's device)
+    layer: int,
+    threshold: float,
+    packed: torch.Tensor,     # [lanes, C + 2] fp32, the group's rows written in place
+    *,
+    use_kernels: bool = False,
+    block_masks: Optional[Dict[str, Any]] = None,   # this layer's
+) -> None:
+    """One depth group of the encoder family's fused step: the lanes
+    ``lanes`` (every one at depth ``layer``) taken out of ``h``, run through
+    encoder layer ``layer`` (its own weights, its kind of attention) and put
+    back, then that layer's off-ramp on their CLS rows, its entropy and
+    retire = entropy < threshold written into their rows of ``packed``
+    (``[logits | entropy | retire as 1.0 / 0.0]``, the off-ramp head
+    kernel's layout).  Each lane computes what it computes alone: its own
+    kv_len, its own activation-quant bias.  The off-ramp runs on the
+    reference ops on either route (no kernel computes ModernBERT's head)."""
+    hg = model.encoder_layer_step(model._layer(params, layer)[0], h.index_select(0, lanes), layer=layer,
+                                  kv_len=lengths.index_select(0, lanes), use_kernels=use_kernels,
+                                  block_masks=block_masks, per_lane=True)
+    h.index_copy_(0, lanes, hg)
+    lg = model.encoder_offramp(params, hg, layer).float()
+    ent = entropy_from_logits(lg)
+    packed.index_copy_(0, lanes, torch.cat([lg, ent[:, None], (ent < threshold).float()[:, None]], dim=1))
 
 
 def lane_insert(h: torch.Tensor, lane: int, h_new: torch.Tensor) -> None:

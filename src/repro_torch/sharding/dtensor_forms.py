@@ -91,7 +91,8 @@ def grad_placements(x, placements):
 # ---------------------------------------------------------------------------
 
 
-def _attention_sharded(attention, q, k, v, *, causal, span_z, span_ramp, q_block, kv_block, kv_len, q_offset):
+def _attention_sharded(attention, q, k, v, *, causal, span_z, span_ramp, q_block, kv_block, kv_len, q_offset,
+                       window=None):
     """``attention`` on DTensors, rank by rank through ``local_map``.  Per
     mesh dim: rows stay where it shards q's batch; heads stay where it
     shards q's heads and the KV heads divide it too (each rank's query
@@ -101,7 +102,11 @@ def _attention_sharded(attention, q, k, v, *, causal, span_z, span_ramp, q_block
     sequence (a cache whose KV heads do not divide the model axis), every
     rank attends all query heads to its block of keys and the blocks are
     merged flash-decode style (an all-reduce of the running max, then of
-    the rescaled sums and outputs); every other mesh dim is gathered first."""
+    the rescaled sums and outputs); every other mesh dim is gathered first.
+    A hard ``window`` (the encoder family's, which no mesh traces) has no
+    form here."""
+    if window is not None:
+        raise NotImplementedError("attention with a hard window has no DTensor form")
     mesh, B, H, KV = q.device_mesh, q.shape[0], q.shape[2], k.shape[2]
     G = H // KV
     qp, kvp, kvg, rowp, headp, split, grouped = [], [], [], [], [], [], []

@@ -1365,3 +1365,39 @@ def test_flush_rows_equal_rows_flushed_alone(cuda, k):
     assert h[lanes].abs().sum(dim=(1, 2)).min() > 0
     for lane in lanes:
         assert torch.equal(h[lane], flushed([lane])[lane]), lane
+
+
+def test_encoder_grouped_step_matches_cpu(cuda):
+    """The encoder family's fused step (lanes grouped by depth, one layer
+    call per group) on the card against the same drain on the CPU, at smoke
+    size over 14 documents in 4 lanes (refills leave the lanes at mixed
+    depths): exits equal, entropy traces within 2e-5 and logits within
+    1e-4 (the kernels' sums in other orders), more depth groups than steps,
+    the layer norms, the grouped quantize, the block-sparse MLP and the
+    span kernel (global and windowed) launched on the card, nothing on the
+    CPU."""
+    import test_torch_modernbert as E
+
+    cfg = E.smoke()
+    params = E.weights(cfg)
+    toks = E.docs(cfg)
+    _, ent = E.ref_by_bucket(cfg, params, toks)
+    cfg = E.with_threshold(cfg, E.mid_threshold(ent))
+    out = {}
+    for dev in ("cpu", cuda):
+        ops.reset_launch_counts()
+        srv = E.drain(cfg, params, toks) if dev == "cpu" else ClassifierServer(
+            build_model(cfg), params, batch_lanes=4, buckets=E.BUCKETS, device=dev)
+        if dev != "cpu":
+            for i, t in enumerate(toks):
+                srv.submit(Request(uid=i, tokens=t))
+            srv.run()
+        out[str(dev)] = (srv, ops.launch_counts())
+    (cpu, n_cpu), (gpu, n_gpu) = out["cpu"], out[str(cuda)]
+    assert all(n_gpu[k] > 0 for k in ("layernorm", "af_quantize", "block_sparse_matmul", "span_attention"))
+    assert all(n == 0 for n in n_cpu.values())
+    assert gpu.telemetry()["depth_groups"] > gpu.telemetry()["dense_steps"]
+    for i in range(len(toks)):
+        assert gpu.done[i].exit_layer == cpu.done[i].exit_layer, i
+        np.testing.assert_allclose(gpu.done[i].entropy_trace, cpu.done[i].entropy_trace, atol=2e-5)
+        np.testing.assert_allclose(gpu.done[i].result, cpu.done[i].result, atol=1e-4)

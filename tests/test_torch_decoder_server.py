@@ -117,7 +117,8 @@ def _same_float(a, b, path):
 # telemetry the port keeps and the JAX package has no counterpart of: the
 # blocking copies between host and card, and the classifier's lane loads
 # staged and their flushes
-PORT_ONLY = ("host_syncs", "lane_loads", "load_flushes")
+PORT_ONLY = ("host_syncs", "lane_loads", "load_flushes", "depth_groups", "lane_layers_global",
+             "lane_layers_local")
 
 
 def assert_same(a, b, path="out"):

@@ -109,9 +109,7 @@ def test_same_step_reports_as_jax(policy, preempt, dt):
     assert t[0] == j[0]                 # StepReports, in order
     assert t[1] == j[1]                 # poll() batches
     assert t[2] == j[2]                 # every hook call
-    # the port's telemetry leaves out the JAX package's ``modeled_now_s``
-    # (the scheduler's ``now_s``, read by nothing); the clocks still agree
-    assert t[3].keys() == j[3].keys() - {"modeled_now_s"}
+    assert t[3].keys() == j[3].keys()
     for k in t[3]:
         assert t[3][k] == pytest.approx(j[3][k], rel=1e-12), k
     assert t[5] == pytest.approx(j[3]["modeled_now_s"], rel=1e-12) and j[5] == j[3]["modeled_now_s"]

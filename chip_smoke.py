@@ -2146,8 +2146,11 @@ def check_encoder_kernels(model, params, dev) -> list:
     """The encoder step's kernels at the shapes it gives them, each against
     its plain version: span attention through ``dispatch.dense_attention``
     (the route ``encoder_layer_step`` takes) at [16, 8192, 16, 64] with
-    per-lane kv_len, at the global layers' window (None: every key) and the
-    local layers' 65 (|i - j| <= 64); block_sparse on layer 0's pruned
+    per-lane kv_len, at the global layers' window (None: every key; the
+    long-row kernel, and beside it the short-row kernel forced at the same
+    call, each with its registers and shared memory) and the local layers'
+    65 (|i - j| <= 64), and the global window at bucket 2048 (both kernels:
+    the long kernel's threshold); block_sparse on layer 0's pruned
     ``w_up`` [1024, 5248] and ``w_down`` [2624, 1024] at M = g x 8192; the
     scale-only LayerNorm (eps 1e-5) and af_quantize (one group of 8192 rows
     per lane) at [g x 8192, 1024]; g = 1 and 16, a group of one lane and of
@@ -2157,7 +2160,8 @@ def check_encoder_kernels(model, params, dev) -> list:
     import torch
 
     from portbench.encoder_work import visible_pairs
-    from repro_torch.kernels import block_sparse, dispatch, ref
+    from repro_torch.kernels import block_sparse, build, dispatch, ref
+    from repro_torch.kernels import span_attention as span_k
     from repro_torch.kernels.adaptivfloat_k import group_exp_bias, quantize_groups
 
     cfg = model.cfg
@@ -2176,31 +2180,69 @@ def check_encoder_kernels(model, params, dev) -> list:
         if not ok:
             raise AssertionError(f"encoder {name} ({shape}): kernel and plain version disagree beyond {tol} "
                                  f"(max abs error {err})")
+        return r
 
-    q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev) for _ in range(3))
-    lens_np = np.random.default_rng(S).integers(1, S + 1, B).astype(np.int32)
-    lens_np[:2] = (S, 5)
-    lens = torch.as_tensor(lens_np, device=dev)
-    for window, kind in ((None, "global"), (cfg.local_window // 2 + 1, "local")):
-        w = window or S
-        got = dispatch.dense_attention(q, k, v, causal=False, kv_len=lens, window=window)
-        err = 0.0
-        with torch.no_grad():
-            for b in range(B):
-                want = ref.span_attention(*(t[b:b + 1].permute(0, 2, 1, 3) for t in (q, k, v)),
-                                          torch.full((H,), w, dtype=torch.int32, device=dev), causal=False,
-                                          kv_lens=lens[b:b + 1, None].expand(-1, H))
-                err = max(err, (got[b:b + 1].permute(0, 2, 1, 3) - want).abs().max().item())
-                del want
-        pairs = sum(visible_pairs(S, int(kv), w - 1 if window else -1) for kv in lens_np)
-        row("span_attention", f"{kind}: B={B}, S={S}, H={H}, dh={hd}, window={w}, kv_lens in [5, {S}], "
-            "[B, S, H, dh]", err, "atol 2e-5", err <= 2e-5,
-            (2 * B * H * S * hd + 2 * H * hd * int(lens_np.sum())) * 4 + B * 4, 4.0 * hd * H * pairs,
-            lambda: dispatch.dense_attention(q, k, v, causal=False, kv_len=lens, window=window),
-            visible_pairs=pairs, kv_lens=lens_np.tolist())
-        del got
-    del q, k, v
-    torch.cuda.empty_cache()
+    # the span kernels' registers and shared memory (nvcc's report; the long
+    # kernel's dynamic shared memory from its launcher)
+    res = build.resources(["span_attention", "span_attention_long"])
+    kernel_res = {route: {"functions": {f: r for f, r in res[lib]["functions"].items() if key in f},
+                          "dynamic_smem": res[lib].get("dynamic_smem")}
+                  for route, lib, key in (("short", "span_attention", "span_attention_kernelILi64EE"),
+                                          ("long", "span_attention_long", "span_attention_kernel_"))}
+
+    def short_route(q, k, v, lens, window):
+        """The short-row kernel on the call ``dense_attention`` makes, where
+        ``long_rows`` would pick the long one: the comparison at one shape."""
+        Bq, Sq, Hq, d_ = q.shape
+        out = torch.empty_like(q)
+        span_k._launch(out.permute(0, 2, 1, 3), *(t.permute(0, 2, 1, 3) for t in (q, k, v)), None,
+                       span_k._per_row(lens, Bq, Hq, False, "kv_lens"), Bq, Hq, Sq, k.shape[1], d_, window, 0,
+                       short_only=True)
+        return out
+
+    def span_rows(S, kinds):
+        q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev) for _ in range(3))
+        lens_np = np.random.default_rng(S).integers(1, S + 1, B).astype(np.int32)
+        lens_np[:2] = (S, 5)
+        lens = torch.as_tensor(lens_np, device=dev)
+        for window, kind in kinds:
+            w = window or S
+            routes = [("long" if span_k.long_rows(hd, False, False, w, S, S) else "short",
+                       lambda: dispatch.dense_attention(q, k, v, causal=False, kv_len=lens, window=window))]
+            if routes[0][0] == "long":
+                routes.append(("short", lambda: short_route(q, k, v, lens, w)))
+            pairs = sum(visible_pairs(S, int(kv), w - 1 if window else -1) for kv in lens_np)
+            device_ms = {}
+            for route, fn in routes:
+                n_long = span_k.span_attention.long_launches
+                got = fn()
+                if span_k.span_attention.long_launches - n_long != int(route == "long"):
+                    raise AssertionError(f"encoder span_attention {kind} S={S}: the {route} route "
+                                         "took the other kernel")
+                err = 0.0
+                with torch.no_grad():
+                    for b in range(B):
+                        want = ref.span_attention(*(t[b:b + 1].permute(0, 2, 1, 3) for t in (q, k, v)),
+                                                  torch.full((H,), w, dtype=torch.int32, device=dev),
+                                                  causal=False, kv_lens=lens[b:b + 1, None].expand(-1, H))
+                        err = max(err, (got[b:b + 1].permute(0, 2, 1, 3) - want).abs().max().item())
+                        del want
+                del got
+                r = row("span_attention", f"{kind}: B={B}, S={S}, H={H}, dh={hd}, window={w}, kv_lens in "
+                        f"[5, {S}], [B, S, H, dh], {route}-row kernel", err, "atol 2e-5", err <= 2e-5,
+                        (2 * B * H * S * hd + 2 * H * hd * int(lens_np.sum())) * 4 + B * 4, 4.0 * hd * H * pairs,
+                        fn, visible_pairs=pairs, kv_lens=lens_np.tolist(), route=route,
+                        resources=kernel_res[route])
+                device_ms[route] = r["device_ms"]
+            if len(device_ms) == 2:
+                emit({"phase": "encoder_span_routes", "kind": kind, "S": S, "device_ms": device_ms,
+                      "long_speedup": device_ms["short"] / device_ms["long"]})
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    span_rows(S, ((None, "global"), (cfg.local_window // 2 + 1, "local")))
+    # the long kernel's least rows: the global layers at bucket 2048
+    span_rows(min(ENCODER_BUCKETS), ((None, "global"),))
 
     lp = model._layer(params, 0)[0]
     masks = dispatch.mlp_block_masks(lp["mlp"])
@@ -2277,7 +2319,8 @@ def run_encoder_path(dev) -> dict:
     group (once at layer 0: its attention norm is the identity),
     af_quantize and span_attention once, block_sparse_matmul twice, nothing
     else (the off-ramp runs on the reference ops), matched against the
-    engine's layer log step by step; more groups than steps."""
+    engine's layer log step by step, and the long-row span kernel once per
+    global-layer group; more groups than steps."""
     import dataclasses
 
     import numpy as np
@@ -2288,6 +2331,7 @@ def run_encoder_path(dev) -> dict:
     from repro_torch.core.pruning import magnitude_mask
     from repro_torch.hwmodel.edgebert_accel import modernbert_layer_stats
     from repro_torch.kernels import ops
+    from repro_torch.kernels.span_attention import span_attention
     from repro_torch.models.model import build_model, init_params
     from repro_torch.serving.dvfs import BatchedDVFSArbiter, default_albert_controller, no_early_exit_baseline
     from repro_torch.serving.engine import ClassifierServer
@@ -2358,15 +2402,21 @@ def run_encoder_path(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
+    n_long = span_attention.long_launches
     t0 = time.perf_counter()
     serve(srv, docs)
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    long_launches = span_attention.long_launches - n_long
     lap("deployed")
     tel = srv.telemetry()
     groups = [sorted({int(x) for x in layers if x >= 0}) for _, layers in srv.layer_log]
     n_groups = sum(len(gs) for gs in groups)
+    # every group at a global layer runs its attention on the long-row kernel
+    # (documents of 6144-8192 tokens: bucket 8192), every local one on the
+    # short-row kernel
+    n_global = sum(1 for gs in groups for layer in gs if model.is_global(layer))
     want = {k: 0 for k in launches}
     want.update(span_attention=n_groups, af_quantize=n_groups, block_sparse_matmul=2 * n_groups,
                 layernorm=sum(1 if layer == 0 else 2 for gs in groups for layer in gs))
@@ -2376,7 +2426,8 @@ def run_encoder_path(dev) -> dict:
         "lanes": ENCODER_LANES, "buckets": ENCODER_BUCKETS, "documents": len(docs),
         "lengths": [len(x) for x in docs], "threshold": thr, "exits": exits,
         "exit_layer_counts": {int(e): int(c) for e, c in zip(*np.unique(exits, return_counts=True))},
-        "launches": launches, "launches_want": want, "steps": len(groups), "depth_groups": n_groups,
+        "launches": launches, "launches_want": want, "span_long_launches": long_launches,
+        "global_groups": n_global, "steps": len(groups), "depth_groups": n_groups,
         "max_groups_per_step": max(len(gs) for gs in groups),
         "telemetry": {k: tel[k] for k in ("dense_steps", "depth_groups", "layer_calls", "lane_layers_global",
                                           "lane_layers_local", "host_syncs")},
@@ -2387,6 +2438,9 @@ def run_encoder_path(dev) -> dict:
     emit(result)
     if launches != want:
         raise AssertionError(f"encoder: launches {launches}, want {want} from the layer log")
+    if long_launches != n_global or n_global == 0:
+        raise AssertionError(f"encoder: {long_launches} long-row span launches, want the layer log's "
+                             f"{n_global} global groups")
     if not (tel["depth_groups"] == n_groups and tel["dense_steps"] == len(groups) and n_groups > len(groups)
             and tel["lane_layers_global"] + tel["lane_layers_local"] == tel["layer_calls"]):
         raise AssertionError(f"encoder: telemetry {result['telemetry']} against the layer log "
@@ -5215,6 +5269,7 @@ def main() -> int:
     from repro_torch.common.device import resolve_device
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.span_attention import span_attention
     from repro_torch.models.model import init_params
     from repro_torch.serving.deploy import deploy_albert
 
@@ -5251,11 +5306,13 @@ def main() -> int:
     sparams = serving_params(scfg, 0, prune=True)
 
     seconds: dict = {}
+    long_by_phase: dict = {}
 
     def timed(name, fn, *args):
-        t = time.perf_counter()
+        t, n_long = time.perf_counter(), span_attention.long_launches
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
+        long_by_phase[name] = span_attention.long_launches - n_long
         return out
 
     rows = timed("kernel", check_kernels, dep, cfg, sparams, dev)
@@ -5284,6 +5341,11 @@ def main() -> int:
     seconds["lm_train_dryrun_wait"] = dry_wait_s
     seconds["dist_train_pipeline_grad"] = max(g["seconds"] for g in dist_train["summary"]["pipeline_grad"])
     emit({"phase": "seconds", "by_phase": seconds})
+    # the long-row span kernel engages only where calls meet its rule: the
+    # encoder's global layers (whisper's encoder runs on the reference ops)
+    emit({"phase": "span_long_launches", "by_phase": long_by_phase})
+    if {k for k, n in long_by_phase.items() if n} != {"encoder"}:
+        raise AssertionError(f"long-row span launches by phase {long_by_phase}: want the encoder phase's alone")
     for r in rows:
         by_path = {"deploy": main_path["launches"][r["name"]], "serving": serving["launches"][r["name"]],
                    "replay": replay["launches"][r["name"]], "encoder": encoder["launches"][r["name"]],

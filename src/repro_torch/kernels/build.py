@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("layernorm", "softmax_entropy", "af_matmul", "span_attention", "af_quantize", "block_sparse")
+KERNELS = ("layernorm", "softmax_entropy", "af_matmul", "span_attention", "af_quantize", "block_sparse",
+           "span_attention_long")
 HEADERS = ("common.cuh", "split_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,6 +10,17 @@ Element mask: causal ``0 <= i-j < span`` or bidirectional ``|i-j| < span``,
 and ``j < kv_len``; float32 online softmax; a row with no visible key
 returns zeros.  The source gives its bound on the H100.
 
+Long full-window rows (``long_rows``: dh 64, bidirectional, no per-head
+spans, every key in every query's window, Sq and Sk of 1024 and more, as in
+ModernBERT's global layers at buckets 2048-8192) go to the Hopper kernel in
+``csrc/span_attention_long.cu`` instead: K and V split once into bf16
+planes by a pre-pass, then 128-query blocks whose producer warpgroup
+streams the planes by TMA and whose two consumer warpgroups run the same
+six-product chains on ``wgmma``.  Both kernels count in
+``span_attention.launches``; the long one also in
+``span_attention.long_launches``, a count that only grows (read it before
+and after: ``ops.reset_launch_counts`` leaves it).
+
 ``span_attention_heads`` takes ``[B, H, S, dh]`` operands with any strides
 whose last one is 1 (the callers pass permuted ``[B, S, H, dh]`` views) and
 can write into a given output view, so the layout changes around the
@@ -29,7 +40,24 @@ _SIGNATURES = {
     "repro_span_attention": [build.PTR] * 6 + [build.INT] * 7 + [build.FLOAT] + [build.INT64] * 16
     + [build.PTR, build.INT],
 }
+_LONG_SIGNATURES = {
+    "repro_span_attention_long": [build.PTR] * 6 + [build.INT] * 4 + [build.FLOAT] + [build.INT64] * 14
+    + [build.PTR, build.INT],
+}
 HEAD_DIMS = (16, 32, 64, 128)
+LONG_MIN_ROWS = 1024      # the long kernel's least Sq and Sk
+LONG_KEY_TILE = 64        # keys per plane tile of the long kernel
+LONG_TILE_BYTES = 6 * LONG_KEY_TILE * 64 * 2   # three bf16 planes of K and of V^T per tile
+
+
+def long_rows(dh: int, causal: bool, per_head_spans: bool, window: int, Sq: int, Sk: int) -> bool:
+    """Whether a call goes to the long-row kernel: head dim 64, bidirectional,
+    no per-head spans, a window that holds every key of every query (|i - j|
+    < window for all i < Sq, j < Sk), and Sq and Sk of at least
+    ``LONG_MIN_ROWS``, so that its pre-pass is spread over many query
+    tiles.  Decided from the call's shapes alone."""
+    return (dh == 64 and not causal and not per_head_spans and window >= max(Sq, Sk)
+            and Sq >= LONG_MIN_ROWS and Sk >= LONG_MIN_ROWS)
 
 
 def _per_row(t: Optional[torch.Tensor], B: int, H: int, per_head: bool, what: str):
@@ -49,9 +77,10 @@ def _per_row(t: Optional[torch.Tensor], B: int, H: int, per_head: bool, what: st
     raise ValueError(f"span_attention: {what} of shape {tuple(shape)} is not [B, H] = [{B}, {H}]")
 
 
-def _launch(out, q, k, v, sp, kvl, B, H, Sq, Sk, dh, window, causal) -> None:
+def _launch(out, q, k, v, sp, kvl, B, H, Sq, Sk, dh, window, causal, short_only: bool = False) -> None:
     """The kernel on CUDA tensors; ``sp`` and ``kvl`` are (tensor, [B, H]
-    strides) or None."""
+    strides) or None.  ``short_only`` keeps the short-row kernel where
+    ``long_rows`` would pick the long one (a comparison at the same shape)."""
     dev = build.require_cuda("span_attention", q, k, v, out, contiguous=False)
     qs, ks, vs, os_ = strides = (q.stride(), k.stride(), v.stride(), out.stride())
     ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr())
@@ -63,6 +92,9 @@ def _launch(out, q, k, v, sp, kvl, B, H, Sq, Sk, dh, window, causal) -> None:
             raise ValueError(f"span_attention: spans and kv_lens must be on cuda:{dev}, got {x[0].device}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"span_attention: head dim {dh} not in {HEAD_DIMS}")
+    if not short_only and long_rows(dh, bool(causal), sp is not None, window, Sq, Sk):
+        _launch_long(out, q, k, v, kvl, B, H, Sq, Sk, dev, strides, ptrs)
+        return
     lib = build.library("span_attention", _SIGNATURES)
     err = lib.repro_span_attention(
         *ptrs,
@@ -75,6 +107,25 @@ def _launch(out, q, k, v, sp, kvl, B, H, Sq, Sk, dh, window, causal) -> None:
     if err:
         build.check(lib, err, "span_attention")
     span_attention.launches += 1
+
+
+def _launch_long(out, q, k, v, kvl, B, H, Sq, Sk, dev, strides, ptrs) -> None:
+    """The long-row kernel and its pre-pass; the planes' scratch comes from
+    PyTorch's allocator on the call's stream."""
+    (qs, ks, vs, os_) = strides
+    planes = torch.empty(B * H * (-(-Sk // LONG_KEY_TILE)) * LONG_TILE_BYTES, dtype=torch.uint8, device=q.device)
+    lib = build.library("span_attention_long", _LONG_SIGNATURES)
+    err = lib.repro_span_attention_long(
+        *ptrs, None if kvl is None else kvl[0].data_ptr(), planes.data_ptr(),
+        B, H, Sq, Sk, _SCALE[64],
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
+        *((0, 0) if kvl is None else kvl[1]),
+        build.stream_of(q), dev,
+    )
+    if err:
+        build.check(lib, err, "span_attention (long rows)")
+    span_attention.launches += 1
+    span_attention.long_launches += 1
 
 
 _SCALE = {dh: 1.0 / math.sqrt(dh) for dh in HEAD_DIMS}
@@ -139,3 +190,4 @@ def span_attention(
 
 
 span_attention.launches = 0
+span_attention.long_launches = 0

@@ -132,6 +132,45 @@ def test_span_attention_strided_heads(cuda, dh, causal):
     assert torch.equal(again, out.permute(0, 2, 1, 3))
 
 
+@pytest.mark.parametrize("B,S,lens", [(1, 2048, [2048]), (2, 2048, [5, 1357]), (1, 8192, [7001]),
+                                       (2, 8192, [8192, 6144]), (2, 8192, [5, 6473])])
+def test_span_attention_long_rows(cuda, B, S, lens):
+    """The long-row kernel (global layers' shapes: 16 heads of 64, every key
+    below kv_len visible, [B, S, H, dh] views written in place) against the
+    plain version, atol 2e-5 as chip_smoke holds it: kv_len 5, values off
+    the 64-key tile (1357, 6473, 7001), 6144-8192 and the full row; the same
+    bits on a second launch; one count in ``launches`` and in
+    ``long_launches`` per call."""
+    H = 16
+    g = torch.Generator(device=cuda).manual_seed(S + sum(lens))
+    q, k, v = (torch.randn(B, S, H, 64, generator=g, device=cuda) for _ in range(3))
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (span_attention.launches, span_attention.long_launches)
+    got = dispatch.dense_attention(q, k, v, causal=False, kv_len=kv)
+    again = dispatch.dense_attention(q, k, v, causal=False, kv_len=kv)
+    assert (span_attention.launches, span_attention.long_launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    full = torch.full((H,), S, dtype=torch.int32, device=cuda)
+    for b in range(B):
+        want = ref.span_attention(*(t[b:b + 1].permute(0, 2, 1, 3) for t in (q, k, v)), full, causal=False,
+                                  kv_lens=kv[b:b + 1, None].expand(-1, H))
+        torch.testing.assert_close(got[b:b + 1].permute(0, 2, 1, 3), want, atol=2e-5, rtol=0)
+        del want
+
+
+def test_span_attention_long_rows_zero_kv_len(cuda):
+    """A row with kv_len 0 gives zeros (its pre-pass writes no tile and its
+    blocks visit none); the other row is unaffected."""
+    q, k, v = (_t((2, 1024, 2, 64), s).to(cuda) for s in (71, 72, 73))
+    kv = torch.tensor([0, 1000], dtype=torch.int32, device=cuda)
+    got = dispatch.dense_attention(q, k, v, causal=False, kv_len=kv)
+    assert (got[0] == 0).all()
+    want = ref.span_attention(*(t[1:].permute(0, 2, 1, 3) for t in (q, k, v)),
+                              torch.full((2,), 1024, dtype=torch.int32, device=cuda), causal=False,
+                              kv_lens=kv[1:, None].expand(-1, 2))
+    torch.testing.assert_close(got[1:].permute(0, 2, 1, 3), want, atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("rows,n", [(4, 102400), (1, 102400), (8, 102400), (4, 151936), (1, 151936), (3, 1001),
                                     (37, 512), (1000, 3), (2, 32003), (5, 32000), (300, 4096), (1, 1)])
 def test_entropy_wide_rows(cuda, rows, n):
@@ -961,6 +1000,7 @@ def test_wrappers_refuse_grad_inputs_on_card(cuda):
     from repro_torch.kernels.adaptivfloat_k import quantize_groups as qg
 
     x = _t((32, 64), 31).to(cuda).requires_grad_()
+    xl = _t((1, 1, 1024, 64), 34).to(cuda).requires_grad_()
     g, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
     codes, e_min = af_encode(_t((64, 64), 32))
     calls = {
@@ -972,6 +1012,7 @@ def test_wrappers_refuse_grad_inputs_on_card(cuda):
         "span_attention": lambda: span_attention(x.view(2, 16, 64), x.view(2, 16, 64), x.view(2, 16, 64),
                                                  torch.full((2,), 8, dtype=torch.int32, device=cuda), 8,
                                                  causal=False),
+        "span_attention_long": lambda: span_attention_heads(xl, xl, xl, None, 1024, causal=False),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no backward"):
@@ -1030,9 +1071,11 @@ def _launch_every_kernel(dev):
     block_sparse.block_sparse_matmul(x, wc, block_sparse.BlockIndex.build(mask, 32, 32, dev, w=wc))
     q = _t((4, 32, 16), 65).to(dev)
     span_attention(q, q, q, torch.full((4,), 32, dtype=torch.int32, device=dev), 32, causal=False)
+    ql = _t((1, 1, 1024, 64), 66).to(dev)
+    span_attention_heads(ql, ql, ql, None, 1024, causal=False)     # the long-row kernel
     torch.cuda.synchronize(dev)
     return ("layernorm", "softmax_entropy", "entropy", "offramp_head", "af_matmul", "quantize",
-            "quantize_groups", "block_sparse_matmul", "span_attention")
+            "quantize_groups", "block_sparse_matmul", "span_attention", "span_attention_long")
 
 
 def test_launchers_leave_the_current_device(cuda):

@@ -1,4 +1,4 @@
-"""The arithmetic and the operand routes of the tensor-core span kernel, on
+"""The arithmetic and the operand routes of the tensor-core span kernels, on
 the CPU.
 
 csrc/span_attention.cu computes attention on bf16 tensor cores: q (scaled
@@ -13,7 +13,16 @@ check that the strided operand routes of ``span_attention_heads``,
 ``dispatch.dense_attention`` and ``ops.span_attention_op`` compute the same
 as contiguous copies through ``span_attention`` and as the JAX functions,
 without copying q, k, v or the output.
+
+csrc/span_attention_long.cu, the long full-window rows' kernel, runs the
+same products on wgmma over 64-key tiles of planes split once by a
+pre-pass: its emulation (every row visits the tiles below its kv_len) is
+held against the Pallas kernel too, its register and shared-memory maps
+against the PTX description of wgmma, and the rule that picks it against
+the calls each caller makes.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -139,6 +148,144 @@ def test_split_emulation_matches_pallas(BH, S, dh, window, causal, kv):
     assert (got[0] == 0).all()
 
 
+LONG_BN = 64         # the long kernel's key tile
+
+
+def emulate_long(q, k, v, kv_lens=None):
+    """float64 emulation of csrc/span_attention_long.cu over [BH, S, 64]
+    rows with every key below kv_len visible: the pre-pass's planes (keys
+    past kv_len zero), each row's visits to the 64-key tiles below its
+    kv_len, per tile the four k16 chains of six split products promoted in
+    order into the scores, the online softmax with P rounded to float32 and
+    split three ways, the four k16 chains of P V promoted in order into the
+    output, zeros where l == 0."""
+    BH, Sq, dh = q.shape
+    Sk = k.shape[1]
+    Q = _split(q * np.float32(1.0 / np.sqrt(dh)))
+    out = np.zeros((BH, Sq, dh))
+    for bh in range(BH):
+        kvl = Sk if kv_lens is None else min(int(kv_lens[bh]), Sk)
+        n = -(-max(kvl, 0) // LONG_BN)
+        live = (np.arange(n * LONG_BN) < kvl)[:, None]
+        kz = np.where(live, np.pad(k[bh], ((0, max(n * LONG_BN - Sk, 0)), (0, 0)))[: n * LONG_BN], 0)
+        vz = np.where(live, np.pad(v[bh], ((0, max(n * LONG_BN - Sk, 0)), (0, 0)))[: n * LONG_BN], 0)
+        K, V = _split(kz), _split(vz)
+        Qr = [x[bh] for x in Q]
+        m = np.full(Sq, NEG_INF)
+        l = np.zeros(Sq)
+        o = np.zeros((Sq, dh))
+        for t in range(n):
+            keys = np.arange(t * LONG_BN, (t + 1) * LONG_BN)
+            s = 0.0
+            for ks in range(dh // 16):
+                d = slice(16 * ks, 16 * ks + 16)
+                s = s + _six([x[:, d] for x in Qr], [x[keys, d].T for x in K])
+            vis = (keys < kvl)[None, :]
+            s = np.where(vis, s, NEG_INF)
+            m_new = np.maximum(m, s.max(axis=1))
+            corr = np.exp(m - m_new)
+            p = np.where(vis, np.exp(s - m_new[:, None]), 0.0).astype(np.float32)
+            l = l * corr + p.sum(axis=1, dtype=np.float64)
+            P = _split(p)
+            pv = 0.0
+            for kk in range(LONG_BN // 16):
+                c = slice(16 * kk, 16 * kk + 16)
+                pv = pv + _six([x[:, c] for x in P], [x[keys[c]] for x in V])
+            o = o * corr[:, None] + pv
+            m = m_new
+        out[bh] = np.where((l > 0)[:, None], o / np.maximum(l, 1e-20)[:, None], 0.0)
+    return out
+
+
+@pytest.mark.parametrize("BH,S,kv", [(3, 130, (5, 64, 130)), (2, 200, None), (4, 64, (0, 1, 63, 64))])
+def test_long_emulation_matches_pallas(BH, S, kv):
+    """The long kernel's arithmetic within atol 2e-5 of the Pallas kernel
+    at a full window: kv_len of 0 (a row of zeros), 1, below, on and past a
+    64-key tile edge, ragged S."""
+    q, k, v = _np((BH, S, 64), 21), _np((BH, S, 64), 22), _np((BH, S, 64), 23)
+    lens = None if kv is None else np.asarray(kv, np.int32)
+    want = np.asarray(j_span_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.full((BH,), S, jnp.int32), S, causal=False,
+        bq=32, bk=32, kv_lens=None if lens is None else jnp.asarray(lens)))
+    got = emulate_long(q, k, v, lens)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    if lens is not None and lens[0] == 0:
+        assert (got[0] == 0).all()
+
+
+def _called(monkeypatch, call):
+    """The (dh, causal, per-head spans, window, Sq, Sk) of every span kernel
+    call ``call`` makes, with the kernel stubbed out (no attention is
+    computed), and what ``long_rows`` decides for each."""
+    seen = []
+
+    def kernel(q_, k_, v_, spans, window, *, causal, kv_lens=None, out=None):
+        B, H, Sq, dh = q_.shape
+        args = (dh, causal, spans is not None, int(window), Sq, k_.shape[2])
+        seen.append((args, span_k.long_rows(*args)))
+        return torch.zeros(q_.shape) if out is None else out
+
+    monkeypatch.setattr(span_k, "span_attention_heads", kernel)
+    call()
+    assert seen
+    return seen
+
+
+def _zeros(B, S, H, dh):
+    return torch.zeros(B, S, H, dh)
+
+
+LONG_CASES = [
+    # caller, (B, Sq, Sk, H, dh), window or route, causal, long path
+    ("albert", (4, 32, 32, 12, 64), None, False, False),
+    ("albert", (4, 64, 64, 12, 64), None, False, False),
+    ("albert", (4, 128, 128, 12, 64), None, False, False),
+    ("modernbert_local", (1, 8192, 8192, 16, 64), 65, False, False),
+    ("modernbert_local", (1, 2048, 2048, 16, 64), 65, False, False),
+    ("deployed_spans", (4, 128, 128, 12, 64), "spans", False, False),
+    ("decoder_causal", (2, 512, 512, 4, 128), None, True, False),
+    ("decoder_causal", (2, 512, 512, 8, 64), None, True, False),
+    ("whisper_cross", (2, 1, 1500, 16, 64), None, False, False),
+    ("whisper_cross", (2, 4, 1500, 16, 64), None, False, False),
+    ("modernbert_global", (1, 2048, 2048, 16, 64), None, False, True),
+    ("modernbert_global", (2, 4096, 4096, 16, 64), None, False, True),
+    ("modernbert_global", (1, 8192, 8192, 16, 64), None, False, True),
+    ("whisper_encoder", (1, 1500, 1500, 16, 64), None, False, True),
+]
+
+
+@pytest.mark.parametrize("caller,shape,window,causal,long", LONG_CASES,
+                         ids=[f"{c[0]}-{c[1][1]}x{c[1][2]}-dh{c[1][4]}" for c in LONG_CASES])
+def test_long_rows_at_every_caller_shape(monkeypatch, caller, shape, window, causal, long):
+    """Which kernel each caller's calls take: ALBERT's rows (32 / 64 / 128),
+    ModernBERT's local layers (window 65), the deployed spans, causal rows
+    and whisper-sized cross-attention keep the short-row kernel; ModernBERT's
+    global layers at 2048 / 4096 / 8192 and a 1500-frame full window take
+    the long one.  The calls are made through ``dispatch.dense_attention``
+    and ``ops.span_attention_op``, as the models make them."""
+    B, Sq, Sk, H, dh = shape
+    q, k, v = _zeros(B, Sq, H, dh), _zeros(B, Sk, H, dh), _zeros(B, Sk, H, dh)
+    kv = torch.full((B,), Sk, dtype=torch.int32)
+    if window == "spans":
+        call = lambda: ops.span_attention_op(q, k, v, [64, 0, 128] + [32] * (H - 3), causal=causal)
+    else:
+        call = lambda: dispatch.dense_attention(q, k, v, causal=causal, kv_len=kv, window=window)
+    seen = _called(monkeypatch, call)
+    assert [d for _, d in seen] == [long] * len(seen), seen
+
+
+def test_long_rows_rule():
+    """Each condition of the rule alone sends a global-layer call back to
+    the short-row kernel."""
+    base = dict(dh=64, causal=False, per_head_spans=False, window=8192, Sq=8192, Sk=8192)
+    assert span_k.long_rows(**base)
+    for change in (dict(dh=128), dict(dh=32), dict(causal=True), dict(per_head_spans=True), dict(window=8191),
+                   dict(Sq=1023, window=8192), dict(Sk=1023, Sq=1023, window=1023), dict(Sq=1, Sk=8192),
+                   dict(Sq=16384)):
+        assert not span_k.long_rows(**{**base, **change}), change
+    assert span_k.long_rows(**{**base, "Sq": 1024, "Sk": 1024, "window": 1024})
+
+
 # ---------------------------------------------------------------------------
 # Fragment maps: the kernel's index expressions against the PTX description
 # of mma.sync m16n8k16 (bf16) and ldmatrix.x4.trans
@@ -228,6 +375,87 @@ def test_plane_fragments_match_the_mma_layout(dh):
     for j in range(BKV // 8):
         banks = {(((8 * j + ln // 4) * LD + 2 * (ln % 4)) * 2 // 4) % 32 for ln in range(32)}
         assert len(banks) == 32
+
+
+# ---------------------------------------------------------------------------
+# The long kernel's maps against the PTX description of wgmma m64nNk16
+# (bf16, f32 accumulate) and of its canonical K-major shared-memory layout
+# ---------------------------------------------------------------------------
+
+LONG_SRC = (Path(span_k.__file__).resolve().parents[1] / "csrc" / "span_attention_long.cu").read_text()
+
+
+def _wgmma_d(warp, lane, n):
+    """PTX: (row, col) of accumulator registers d[0 .. n / 2) of thread
+    (warp, lane) of the warpgroup, m64nNk16 f32."""
+    g, t = lane // 4, lane % 4
+    return [(16 * warp + g + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2 * t + (i & 1)) for i in range(n // 2)]
+
+
+def _wgmma_a(warp, lane):
+    """PTX: (row, k) of the register A fragment a0..a3 of m64nNk16 bf16, two
+    halves each (low first)."""
+    g, t = lane // 4, lane % 4
+    r = 16 * warp + g
+    return [[(r, 2 * t), (r, 2 * t + 1)], [(r + 8, 2 * t), (r + 8, 2 * t + 1)],
+            [(r, 2 * t + 8), (r, 2 * t + 9)], [(r + 8, 2 * t + 8), (r + 8, 2 * t + 9)]]
+
+
+def test_long_scores_are_the_a_fragments_of_p_v():
+    """split_p packs register r of k16 step kk from d[8 kk + 2 r] and
+    d[8 kk + 2 r + 1] of the m64n64 score accumulator; read through the
+    PTX register A layout that is P[row, 16 kk + k] for every thread."""
+    assert "split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], p[0][r], p[1][r], p[2][r]);" in LONG_SRC
+    P = np.arange(64 * LONG_BN, dtype=np.float64).reshape(64, LONG_BN)
+    for warp in range(4):
+        for lane in range(32):
+            d = [P[r, c] for r, c in _wgmma_d(warp, lane, LONG_BN)]
+            for kk in range(LONG_BN // 16):
+                pa = [(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]) for r in range(4)]
+                for reg, halves in enumerate(_wgmma_a(warp, lane)):
+                    for half, (row, kcol) in enumerate(halves):
+                        assert pa[reg][half] == P[row, 16 * kk + kcol]
+
+
+def _core(row, col):
+    """csrc/span_attention_long.cu ``core``: element offset in a plane."""
+    return (row >> 3) * 512 + (col >> 3) * 64 + (row & 7) * 8 + (col & 7)
+
+
+def test_long_planes_are_the_canonical_k_major_layout():
+    """The pre-pass writes element (row, col) of a 64 x 64 plane at
+    ``core(row, col)``; the descriptors (no swizzle, LBO 128 bytes, SBO 1024
+    bytes, k16 step ks at 256 ks bytes) read element (row, k) of step ks at
+    start + 16 (row % 8) + SBO (row // 8) + 2 (k % 8) + LBO (k // 8), the PTX
+    canonical K-major layout ((8, m), (T, 2)) : ((1T, SBO), (1, LBO)); the
+    two agree for every element, and the epilogue and masks read columns
+    of the accumulator as the PTX D layout places them."""
+    assert "return (row >> 3) * 512 + (col >> 3) * 64 + (row & 7) * 8 + (col & 7);" in LONG_SRC
+    # the wrapper's scratch: six 64 x 64 bf16 planes per 64-key tile
+    for line in ("constexpr int BN = 64;", "constexpr int DH = 64;", "constexpr int PLANE_BYTES = BN * DH * 2;",
+                 "constexpr int TILE_BYTES = 6 * PLANE_BYTES;"):
+        assert line in LONG_SRC, line
+    assert (span_k.LONG_KEY_TILE, span_k.LONG_TILE_BYTES) == (LONG_BN, 6 * 64 * 64 * 2)
+    assert "(static_cast<uint64_t>(128 >> 4) << 16)" in LONG_SRC
+    assert "(static_cast<uint64_t>(1024 >> 4) << 32)" in LONG_SRC
+    assert "const uint32_t o = 256 * ks;" in LONG_SRC and "const uint32_t o = 256 * kk;" in LONG_SRC
+    LBO, SBO = 128, 1024
+    seen = set()
+    for ks in range(4):
+        for row in range(64):
+            for k in range(16):
+                addr = 256 * ks + 16 * (row % 8) + SBO * (row // 8) + 2 * (k % 8) + LBO * (k // 8)
+                assert addr == 2 * _core(row, 16 * ks + k)
+                seen.add(addr)
+    assert seen == set(range(0, 2 * 64 * 64, 2))          # a bijection onto the 8 KB plane
+    # the masks' and the epilogue's columns: d[i] is column 8 (i >> 2) + 2t + (i & 1), row + 8 ((i >> 1) & 1)
+    assert "8 * (i >> 2) + (i & 1) < k_end" in LONG_SRC
+    assert "o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den" in LONG_SRC
+    for warp in range(4):
+        for lane in range(32):
+            for i, (row, col) in enumerate(_wgmma_d(warp, lane, 64)):
+                assert col == 8 * (i >> 2) + 2 * (lane % 4) + (i & 1)
+                assert row == 16 * warp + lane // 4 + 8 * ((i >> 1) & 1)
 
 
 # ---------------------------------------------------------------------------
